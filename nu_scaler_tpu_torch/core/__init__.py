@@ -1,0 +1,21 @@
+"""The ported part of the `nu_scaler_core` API surface."""
+
+from nu_scaler_tpu_torch.core._constants import (
+    QUALITY_BALANCED,
+    QUALITY_PERFORMANCE,
+    QUALITY_QUALITY,
+    QUALITY_ULTRA,
+    UpscalingQuality,
+)
+from nu_scaler_tpu_torch.core.interpolator import WgpuFrameInterpolator
+from nu_scaler_tpu_torch.core.upscaler import PyWgpuUpscaler
+
+__all__ = [
+    "PyWgpuUpscaler",
+    "WgpuFrameInterpolator",
+    "UpscalingQuality",
+    "QUALITY_ULTRA",
+    "QUALITY_QUALITY",
+    "QUALITY_BALANCED",
+    "QUALITY_PERFORMANCE",
+]

@@ -1,0 +1,188 @@
+"""Numpy golden references for the port's resample path.
+
+The port's own copy of the resample goldens of the JAX package (it imports
+nothing from that package). They encode the semantics of the reference
+implementation's shaders:
+
+* Frames are RGBA uint8 arrays of shape [H, W, 4].
+* "WGSL trunc packing": u8 = trunc(clamp(v, 0, 1) * 255).
+* "unorm packing": round-to-nearest, used by the cross-fade output.
+* nearest and bilinear keep the WGSL top-left alignment
+  (src = dst * in / out); bicubic, Lanczos, Mitchell and area use the
+  center-aligned separable convention src = (dst + 0.5) * in / out - 0.5,
+  clamp-to-edge, rows normalized to 1.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+# ---------------------------------------------------------------------------
+# u8 <-> float packing
+# ---------------------------------------------------------------------------
+
+
+def unpack_u8(img_u8: np.ndarray) -> np.ndarray:
+    """u8 -> f32 in [0,1]; WGSL `unpack_rgba8` (upscale/mod.rs:220-226)."""
+    return img_u8.astype(np.float32) / 255.0
+
+
+def pack_u8_trunc(img_f: np.ndarray) -> np.ndarray:
+    """f32 [0,1] -> u8 by truncation; WGSL `pack_rgba8` (upscale/mod.rs:227-234).
+
+    `u32(x)` in WGSL truncates toward zero after clamp.
+    """
+    return np.trunc(np.clip(img_f, 0.0, 1.0) * 255.0).astype(np.uint8)
+
+
+def pack_u8_round(img_f: np.ndarray) -> np.ndarray:
+    """f32 [0,1] -> u8 round-to-nearest; rgba8unorm textureStore semantics."""
+    return np.clip(np.round(img_f * 255.0), 0, 255).astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# Resampling kernels
+# ---------------------------------------------------------------------------
+
+
+def nearest_ref(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """Nearest-neighbor upscale, WGSL semantics.
+
+    src = (dst * in) // out — integer math, floor division
+    (NN_UPSCALE_SHADER, upscale/mod.rs:196-205). Pure u8 gather, no float
+    round-trip.
+    """
+    in_h, in_w = img.shape[:2]
+    ys = (np.arange(out_h, dtype=np.uint64) * in_h) // out_h
+    xs = (np.arange(out_w, dtype=np.uint64) * in_w) // out_w
+    return img[ys.astype(np.int64)][:, xs.astype(np.int64)]
+
+
+# --- separable filter kernels (G1 algorithm set, Nu_scale/src/upscale/common.rs:68-88)
+
+
+def _kernel_bicubic(x: np.ndarray, a: float = -0.5) -> np.ndarray:
+    """Catmull-Rom (a=-0.5) cubic, the `image` crate's CatmullRom used for the
+    legacy Bicubic tier (Nu_scale/src/upscale/common.rs:163-323)."""
+    x = np.abs(x)
+    x2 = x * x
+    x3 = x2 * x
+    return np.where(
+        x <= 1.0,
+        (a + 2.0) * x3 - (a + 3.0) * x2 + 1.0,
+        np.where(x < 2.0, a * x3 - 5.0 * a * x2 + 8.0 * a * x - 4.0 * a, 0.0),
+    )
+
+
+def _kernel_mitchell(x: np.ndarray, b: float = 1.0 / 3.0, c: float = 1.0 / 3.0) -> np.ndarray:
+    x = np.abs(x)
+    x2 = x * x
+    x3 = x2 * x
+    p1 = (12 - 9 * b - 6 * c) * x3 + (-18 + 12 * b + 6 * c) * x2 + (6 - 2 * b)
+    p2 = (-b - 6 * c) * x3 + (6 * b + 30 * c) * x2 + (-12 * b - 48 * c) * x + (8 * b + 24 * c)
+    return np.where(x < 1.0, p1, np.where(x < 2.0, p2, 0.0)) / 6.0
+
+
+def _kernel_lanczos(x: np.ndarray, a: int) -> np.ndarray:
+    x = np.asarray(x, dtype=np.float64)
+    out = np.sinc(x) * np.sinc(x / a)
+    return np.where(np.abs(x) < a, out, 0.0)
+
+
+def _kernel_triangle(x: np.ndarray) -> np.ndarray:
+    return np.maximum(0.0, 1.0 - np.abs(x))
+
+
+_FILTERS = {
+    "bicubic": (_kernel_bicubic, 2.0),
+    "mitchell": (_kernel_mitchell, 2.0),
+    "lanczos2": (lambda x: _kernel_lanczos(x, 2), 2.0),
+    "lanczos3": (lambda x: _kernel_lanczos(x, 3), 3.0),
+    # center-aligned bilinear (texture-sampler convention); used for flow
+    # upsampling, not exposed through the algorithm strings
+    "bilinear_center": (_kernel_triangle, 1.0),
+}
+
+
+def nearest_weights(in_size: int, out_size: int) -> np.ndarray:
+    """[out, in] 0/1 matrix with the WGSL NN mapping src=(dst*in)//out —
+    lets nearest ride the same tap-table kernel as the filters."""
+    mat = np.zeros((out_size, in_size), dtype=np.float32)
+    src = (np.arange(out_size, dtype=np.uint64) * in_size) // out_size
+    mat[np.arange(out_size), src.astype(np.int64)] = 1.0
+    return mat
+
+
+def bilinear_weights_wgsl(in_size: int, out_size: int) -> np.ndarray:
+    """[out, in] 2-tap matrix with the WGSL bilinear convention: top-left
+    aligned fx = dst*in/out (no half-pixel center), x1 clamped
+    (upscale/mod.rs:245-252)."""
+    fx = np.arange(out_size, dtype=np.float32) * np.float32(in_size) / np.float32(out_size)
+    x0 = fx.astype(np.int64)
+    x1 = np.minimum(x0 + 1, in_size - 1)
+    dx = (fx - x0.astype(np.float32)).astype(np.float32)
+    mat = np.zeros((out_size, in_size), dtype=np.float32)
+    np.add.at(mat, (np.arange(out_size), x0), 1.0 - dx)
+    np.add.at(mat, (np.arange(out_size), x1), dx)
+    return mat
+
+
+def filter_weights(in_size: int, out_size: int, algorithm: str) -> np.ndarray:
+    """Dense [out_size, in_size] float32 weight matrix for one axis.
+
+    Center-aligned: src = (dst + 0.5) * in/out - 0.5. When downscaling the
+    kernel support is widened by the scale ratio (standard anti-aliased
+    convention, matching the `image` crate / PIL). Edge taps clamp: out-of-range
+    tap weight accumulates onto the clamped edge index. Rows normalized to 1.
+    """
+    if algorithm == "area":
+        return _area_weights(in_size, out_size)
+    if algorithm == "nearest":
+        return nearest_weights(in_size, out_size)
+    if algorithm == "bilinear":
+        return bilinear_weights_wgsl(in_size, out_size)
+    kern, support = _FILTERS[algorithm]
+    scale = in_size / out_size
+    # widen kernel when minifying
+    fscale = max(scale, 1.0)
+    r = support * fscale
+    centers = (np.arange(out_size, dtype=np.float64) + 0.5) * scale - 0.5
+    lo = np.floor(centers - r).astype(np.int64) + 1
+    ntaps = int(np.ceil(2 * r)) + 1
+    taps = lo[:, None] + np.arange(ntaps)[None, :]  # [out, ntaps]
+    w = kern((taps - centers[:, None]) / fscale)
+    w = w / w.sum(axis=1, keepdims=True)
+    idx = np.clip(taps, 0, in_size - 1)
+    mat = np.zeros((out_size, in_size), dtype=np.float64)
+    np.add.at(mat, (np.repeat(np.arange(out_size), ntaps), idx.ravel()), w.ravel())
+    return mat.astype(np.float32)
+
+
+def _area_weights(in_size: int, out_size: int) -> np.ndarray:
+    """Box/area weights: overlap of each output pixel's footprint with input
+    pixels (the legacy `Area` tier)."""
+    scale = in_size / out_size
+    mat = np.zeros((out_size, in_size), dtype=np.float64)
+    for o in range(out_size):
+        a, b = o * scale, (o + 1) * scale
+        i0, i1 = int(np.floor(a)), min(int(np.ceil(b)), in_size)
+        for i in range(i0, i1):
+            mat[o, i] = min(b, i + 1) - max(a, i)
+    mat /= mat.sum(axis=1, keepdims=True)
+    return mat.astype(np.float32)
+
+
+def separable_resample_ref(img_u8: np.ndarray, out_h: int, out_w: int, algorithm: str) -> np.ndarray:
+    """Golden separable resample for bicubic/lanczos2/lanczos3/mitchell/area."""
+    wv = filter_weights(img_u8.shape[0], out_h, algorithm).astype(np.float64)
+    wh = filter_weights(img_u8.shape[1], out_w, algorithm).astype(np.float64)
+    f = unpack_u8(img_u8).astype(np.float64)
+    h, w, c = f.shape
+    # BLAS GEMMs, not bare einsum: the naive einsum loop runs minutes per
+    # 1080p→4K golden (~6e10 f64 MACs). f64 accumulation-order noise
+    # (~1e-12 relative) is far below the trunc packing's own f32 cast.
+    tmp = (wv @ f.reshape(h, w * c)).reshape(out_h, w, c)
+    out = np.tensordot(tmp, wh, axes=([1], [1])).transpose(0, 2, 1)
+    return pack_u8_trunc(np.ascontiguousarray(out).astype(np.float32))
+

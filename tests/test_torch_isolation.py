@@ -1,0 +1,110 @@
+"""The port stands alone: importing it pulls in nothing of the JAX side, no
+module of it imports the JAX side, and it never falls back to the CPU when
+the card is asked for."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import nu_scaler_tpu_torch
+from nu_scaler_tpu_torch import core
+from nu_scaler_tpu_torch.kernels import _build
+from nu_scaler_tpu_torch.ops import resample
+
+PKG = Path(nu_scaler_tpu_torch.__file__).resolve().parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "nu_scaler_tpu", "nu_scaler_core")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_import_leaves_jax_side_out():
+    code = (
+        "import sys, nu_scaler_tpu_torch, nu_scaler_tpu_torch.core, "
+        "nu_scaler_tpu_torch.runtime.streaming, nu_scaler_tpu_torch.kernels._build; "
+        "print('\\n'.join(sys.modules))"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+        cwd=PKG.parent,
+    )
+    assert proc.returncode == 0, proc.stderr
+    loaded = [m for m in proc.stdout.split() if _forbidden(m)]
+    assert loaded == []
+
+
+def test_no_source_imports_jax_side():
+    paths = sorted(PKG.rglob("*.py")) + [PKG.parent / "chip_smoke.py"]
+    assert len(paths) >= 10
+    for path in paths:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            assert not any(_forbidden(n) for n in names), f"{path}:{node.lineno} imports {names}"
+
+
+def test_cuda_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        nu_scaler_tpu_torch.default_device()
+    for dev in (None, "cuda", "cuda:0"):
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            nu_scaler_tpu_torch.resolve_device(dev)
+    with pytest.raises(RuntimeError):
+        core.PyWgpuUpscaler("ultra", "lanczos3")
+    with pytest.raises(RuntimeError):
+        core.WgpuFrameInterpolator()
+    with pytest.raises(RuntimeError):
+        resample.make_resampler(8, 8, 16, 16, "lanczos3")
+    assert nu_scaler_tpu_torch.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        nu_scaler_tpu_torch.resolve_device("meta")
+
+
+def test_kernel_launch_needs_a_cuda_tensor():
+    """The launcher refuses anything but a CUDA tensor before it builds."""
+    from nu_scaler_tpu_torch.kernels import resample_cuda as rc
+
+    plan = rc.ResamplePlan(
+        resample.axis_weights(8, 16, "nearest"), resample.axis_weights(8, 16, "nearest"), "cpu"
+    )
+    with pytest.raises(RuntimeError, match="needs a CUDA tensor"):
+        rc._launch(torch.zeros((8, 8, 4), dtype=torch.uint8), 1, plan)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    """With no nvcc the loader raises a clear error instead of falling back;
+    the library path is keyed by the source hash, under build/."""
+    monkeypatch.setattr(_build, "find_nvcc", lambda: None)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    _build.load_library.cache_clear()
+    try:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.load_library()
+    finally:
+        _build.load_library.cache_clear()
+    path = _build.library_path()
+    assert path.parent == tmp_path and path.name.startswith("libresample_fused_")
+    assert _build.SOURCE.is_file() and _build.SOURCE.suffix == ".cu"
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_kernel_source_is_plain_c():
+    """One CUDA source, no PyTorch headers, a C entry point per wrapper call."""
+    sources = sorted(p.name for p in PKG.rglob("*.cu*"))
+    assert sources == ["resample_fused.cu"]
+    text = _build.SOURCE.read_text()
+    assert "torch/extension.h" not in text and "#include <torch" not in text
+    assert 'extern "C"' in text and "nu_resample_fused" in text
+    assert np.all([s in text for s in ("__fmul_rn", "__fadd_rn", "rintf", "truncf")])
