@@ -7,12 +7,13 @@ from nu_scaler_tpu_torch.core._constants import (
     QUALITY_ULTRA,
     UpscalingQuality,
 )
-from nu_scaler_tpu_torch.core.interpolator import WgpuFrameInterpolator
+from nu_scaler_tpu_torch.core.interpolator import WgpuFrameInterpolator, create_interpolator
 from nu_scaler_tpu_torch.core.upscaler import PyWgpuUpscaler
 
 __all__ = [
     "PyWgpuUpscaler",
     "WgpuFrameInterpolator",
+    "create_interpolator",
     "UpscalingQuality",
     "QUALITY_ULTRA",
     "QUALITY_QUALITY",

@@ -1,4 +1,4 @@
-"""Numpy golden references for the port's resample path.
+"""Numpy golden references for the port's resample and soft-warp paths.
 
 The port's own copy of the resample goldens of the JAX package (it imports
 nothing from that package). They encode the semantics of the reference
@@ -186,3 +186,88 @@ def separable_resample_ref(img_u8: np.ndarray, out_h: int, out_w: int, algorithm
     out = np.tensordot(tmp, wh, axes=([1], [1])).transpose(0, 2, 1)
     return pack_u8_trunc(np.ascontiguousarray(out).astype(np.float32))
 
+
+# ---------------------------------------------------------------------------
+# Overlapped-tile soft warp (the port's copy of
+# nu_scaler_tpu/kernels/soft_warp_pallas.py soft_warp_blend_ref)
+# ---------------------------------------------------------------------------
+
+
+def soft_warp_blend_ref(
+    a_u8: np.ndarray, b_u8: np.ndarray, flow: np.ndarray, time_t: float,
+    tile: tuple = (8, 128), rng: int = 48, k: int = 8,
+) -> np.ndarray:
+    """Caveat: per-tile mean motions are floored to integer block offsets;
+    when a tile mean lands EXACTLY on an integer, numpy's and XLA's
+    summation order can floor to different (equally valid) offsets whose
+    clipped fractions then sample up to 1 px apart. Tests must keep tile
+    means off exact integers (real flows never sit on them)."""
+    h, w = a_u8.shape[:2]
+    th, tw = tile
+    ty, tx = h // th, w // tw
+    out = np.zeros((h, w, 4), np.float64)
+
+    def corners(field):
+        p = np.pad(field, ((1, 1), (1, 1)), mode="edge")
+        return p[:-1, :-1], p[:-1, 1:], p[1:, :-1], p[1:, 1:]
+
+    for img, sign, wgt in ((a_u8, -time_t, 1.0 - time_t), (b_u8, 1.0 - time_t, time_t)):
+        pad = rng + max(th, tw) // 2 + 2
+        ip = np.pad(img, ((pad, pad), (pad, pad), (0, 0)), mode="edge").astype(np.float64)
+        tiles = (
+            flow[: ty * th, : tx * tw].reshape(ty, th, tx, tw, 2).mean(axis=(1, 3))
+            * sign
+        )
+        tiles = np.clip(tiles, -rng, rng)
+        q = np.floor(tiles).astype(np.int64)
+        side = 2 * rng + 2
+        ids = ((q[..., 1] + rng) * side + (q[..., 0] + rng)).reshape(-1)
+        hist = np.bincount(ids, minlength=side * side)
+        # stable top-k matching lax.top_k (descending value, ascending index)
+        top = np.lexsort((np.arange(side * side), -hist))[:k]
+        cand_y = top // side - rng
+        cand_x = top % side - rng
+        d2 = (q[..., 1, None] - cand_y) ** 2 + (q[..., 0, None] - cand_x) ** 2
+        assign = np.argmin(d2, axis=-1)
+        idx_c = corners(assign)
+        sy_c = corners(tiles[..., 1])
+        sx_c = corners(tiles[..., 0])
+        for cyy in range(ty + 1):
+            for cxx in range(tx + 1):
+                for lr in range(th):
+                    gr = cyy * th - th // 2 + lr
+                    if not 0 <= gr < h:
+                        continue
+                    fyv = (lr + 0.5) / th
+                    for lc in range(tw):
+                        gc = cxx * tw - tw // 2 + lc
+                        if not 0 <= gc < w:
+                            continue
+                        fxv = (lc + 0.5) / tw
+                        bw = (
+                            (1 - fyv) * (1 - fxv), (1 - fyv) * fxv,
+                            fyv * (1 - fxv), fyv * fxv,
+                        )
+                        sm_y = (
+                            (1 - fyv) * ((1 - fxv) * sy_c[0][cyy, cxx] + fxv * sy_c[1][cyy, cxx])
+                            + fyv * ((1 - fxv) * sy_c[2][cyy, cxx] + fxv * sy_c[3][cyy, cxx])
+                        )
+                        sm_x = (
+                            (1 - fyv) * ((1 - fxv) * sx_c[0][cyy, cxx] + fxv * sx_c[1][cyy, cxx])
+                            + fyv * ((1 - fxv) * sx_c[2][cyy, cxx] + fxv * sx_c[3][cyy, cxx])
+                        )
+                        for c in range(4):
+                            ki = idx_c[c][cyy, cxx]
+                            qy, qx = cand_y[ki], cand_x[ki]
+                            fyf = np.clip(sm_y - qy, 0.0, 1.0)
+                            fxf = np.clip(sm_x - qx, 0.0, 1.0)
+                            ry = pad + gr + qy
+                            rx = pad + gc + qx
+                            v = (
+                                ip[ry, rx] * (1 - fyf) * (1 - fxf)
+                                + ip[ry, rx + 1] * (1 - fyf) * fxf
+                                + ip[ry + 1, rx] * fyf * (1 - fxf)
+                                + ip[ry + 1, rx + 1] * fyf * fxf
+                            )
+                            out[gr, gc] += wgt * bw[c] * v
+    return np.clip(np.round(out), 0, 255).astype(np.uint8)

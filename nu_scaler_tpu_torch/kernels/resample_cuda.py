@@ -218,7 +218,7 @@ def _launch(src: torch.Tensor, n: int, plan: ResamplePlan, prev=None, ts=()) -> 
         raise RuntimeError(f"the CUDA kernel needs a CUDA tensor, got {src.device}")
     from nu_scaler_tpu_torch.kernels import _build
 
-    lib = _build.load_library()
+    lib = _build.load_library("resample_fused")
     src = src.contiguous()
     shape = (n, plan.out_h, plan.out_w, 4) if src.dim() == 4 else (plan.out_h, plan.out_w, 4)
     outs = [torch.empty(shape, dtype=torch.uint8, device=src.device) for _ in range(1 + len(ts))]

@@ -7,8 +7,9 @@ device as a compact tap table and run by the fused resample kernel
 package's split between tiling (banded) and non-tiling (dense) scales has no
 counterpart here.
 
-All functions take and return RGBA uint8 ``[H, W, 4]`` (batch variants
+The u8 functions take and return RGBA uint8 ``[H, W, 4]`` (batch variants
 ``[N, H, W, 4]``) tensors, the byte contract of the reference API.
+`resize_f32` resamples float planes (flow fields) in plain PyTorch.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from nu_scaler_tpu_torch.kernels.resample_cuda import (
     resample_fused,
     resample_fused_batched,
     resample_fused_blend,
+    taps_from_matrix,
 )
 
 # Algorithms the string-typed API accepts. "nearest"/"bilinear" are the live
@@ -71,6 +73,40 @@ def axis_weights(in_size: int, out_size: int, algorithm: str) -> np.ndarray:
     """Dense [out, in] float32 weights of one axis (the port's own copy of
     `reference.filter_weights`)."""
     return ref.filter_weights(in_size, out_size, algorithm)
+
+
+@functools.lru_cache(maxsize=256)
+def device_taps(device: torch.device, mat_fn, *args):
+    """The tap table of the axis matrix ``mat_fn(*args)`` as (first + arange(K)
+    int64 [O, K], weights f32 [O, K]) on `device`; cached, so that a hot loop
+    makes no host-to-device copy."""
+    first, weights = taps_from_matrix(mat_fn(*args))
+    idx = first[:, None].astype(np.int64) + np.arange(weights.shape[1])[None, :]
+    return torch.from_numpy(idx).to(device), torch.from_numpy(weights).to(device)
+
+
+def apply_taps(x: torch.Tensor, taps, dim: int) -> torch.Tensor:
+    """``out[.., o, ..] = Σ_k w[o, k] · x[.., idx[o, k], ..]`` along `dim`, in
+    fp32 elementwise ops: one gather, one product and one sum over the K
+    taps. No matmul, so no TF32 setting of the caller can reach it."""
+    idx, weights = taps
+    dim = dim % x.ndim
+    o, k = weights.shape
+    g = x.index_select(dim, idx.reshape(-1)).unflatten(dim, (o, k))
+    shape = [1] * g.ndim
+    shape[dim], shape[dim + 1] = o, k
+    return (g * weights.reshape(shape)).sum(dim + 1)
+
+
+def resize_f32(
+    x: torch.Tensor, out_h: int, out_w: int, algorithm: str = "bilinear_center"
+) -> torch.Tensor:
+    """Float resize of ``[..., H, W, C]`` planes (no u8 packing), rows first
+    then columns, center-aligned bilinear by default — the counterpart of
+    `nu_scaler_tpu/ops/resample.py` resize_f32, used for flow fields."""
+    in_h, in_w = x.shape[-3], x.shape[-2]
+    out = apply_taps(x, device_taps(x.device, ref.filter_weights, in_h, out_h, algorithm), -3)
+    return apply_taps(out, device_taps(x.device, ref.filter_weights, in_w, out_w, algorithm), -2)
 
 
 def to_device_u8(img: Union[np.ndarray, torch.Tensor], device: torch.device) -> torch.Tensor:

@@ -16,7 +16,7 @@ def _up(*args, **kw):
 
 
 def test_module_surface():
-    for name in ["PyWgpuUpscaler", "WgpuFrameInterpolator", "UpscalingQuality",
+    for name in ["PyWgpuUpscaler", "WgpuFrameInterpolator", "create_interpolator", "UpscalingQuality",
                  "QUALITY_ULTRA", "QUALITY_QUALITY", "QUALITY_BALANCED", "QUALITY_PERFORMANCE"]:
         assert hasattr(pc, name), f"missing export: {name}"
 
@@ -167,9 +167,27 @@ def test_interpolator_presets():
         assert pc.WgpuFrameInterpolator(preset, device="cpu").workgroup_preset == want
 
 
-def test_interpolator_flow_modes_not_ported():
-    for mode in ("flow", "flow_soft", "flow_soft_ref", "flow_exact"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-            pc.WgpuFrameInterpolator(mode=mode, device="cpu")
+@pytest.mark.parametrize(
+    "mode, item", [("flow", 8), ("flow_soft_ref", 10), ("flow_exact", 8)]
+)
+def test_interpolator_flow_modes_not_ported(mode, item):
+    """The modes not ported yet raise, naming their ROADMAP item; flow_soft
+    and blend construct; an unknown mode is a ValueError."""
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}\\b"):
+        pc.WgpuFrameInterpolator(mode=mode, device="cpu")
+    for ported in ("blend", "flow_soft"):
+        assert pc.WgpuFrameInterpolator(mode=ported, device="cpu").mode == ported
     with pytest.raises(ValueError, match="unknown interpolation mode"):
         pc.WgpuFrameInterpolator(mode="bogus", device="cpu")
+
+
+@pytest.mark.parametrize(
+    "preset", ["8x8", "square16x16", "wide32x8", "wide", "tall8x32", "TALL", "bogus", None]
+)
+def test_interpolator_warp_tile_matches_core(preset):
+    """Workgroup preset → warp tile (rows = preset y, cols = 4·preset x),
+    as nu_scaler_core/interpolator.py:53-65 maps it."""
+    got = pc.WgpuFrameInterpolator(preset, device="cpu")
+    want = nsc.WgpuFrameInterpolator(preset)
+    assert got.workgroup_preset == want.workgroup_preset
+    assert got.warp_tile == want.warp_tile

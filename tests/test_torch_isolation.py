@@ -85,26 +85,79 @@ def test_kernel_launch_needs_a_cuda_tensor():
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     """With no nvcc the loader raises a clear error instead of falling back;
-    the library path is keyed by the source hash, under build/."""
+    each source gets its own library path, keyed by its hash, under build/."""
     monkeypatch.setattr(_build, "find_nvcc", lambda: None)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     _build.load_library.cache_clear()
     try:
+        for name in _build.SIGNATURES:
+            with pytest.raises(RuntimeError, match="nvcc not found"):
+                _build.load_library(name)
         with pytest.raises(RuntimeError, match="nvcc not found"):
-            _build.load_library()
+            _build.build()
     finally:
         _build.load_library.cache_clear()
-    path = _build.library_path()
-    assert path.parent == tmp_path and path.name.startswith("libresample_fused_")
-    assert _build.SOURCE.is_file() and _build.SOURCE.suffix == ".cu"
+    paths = {name: _build.library_path(name) for name in _build.SIGNATURES}
+    assert sorted(paths) == ["resample_fused", "soft_warp"]
+    assert len(set(paths.values())) == len(paths)
+    for name, path in paths.items():
+        assert path.parent == tmp_path and path.name.startswith(f"lib{name}_")
+        assert _build.source_path(name).is_file() and _build.source_path(name).suffix == ".cu"
+    with pytest.raises(ValueError, match="unknown kernel library"):
+        _build.library_path("bogus")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
 
 
+def test_library_key_follows_its_own_source(monkeypatch, tmp_path):
+    """Changing one source changes its library's name and no other's."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in _build.SIGNATURES:
+        (csrc / f"{name}.cu").write_bytes(_build.source_path(name).read_bytes())
+    before = {name: _build.library_path(name).name for name in _build.SIGNATURES}
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    assert {name: _build.library_path(name).name for name in _build.SIGNATURES} == before
+    (csrc / "soft_warp.cu").write_text((csrc / "soft_warp.cu").read_text() + "\n// changed\n")
+    after = {name: _build.library_path(name).name for name in _build.SIGNATURES}
+    assert after["resample_fused"] == before["resample_fused"]
+    assert after["soft_warp"] != before["soft_warp"]
+
+
+def test_import_compiles_nothing(tmp_path):
+    """Importing every module of the port starts no nvcc and builds no
+    library: the build happens at the first CUDA launch."""
+    code = (
+        "import pkgutil, importlib, subprocess, nu_scaler_tpu_torch as p\n"
+        "calls = []\n"
+        "orig = subprocess.Popen.__init__\n"
+        "def spy(self, *a, **k):\n"
+        "    calls.append(a)\n"
+        "    orig(self, *a, **k)\n"
+        "subprocess.Popen.__init__ = spy\n"
+        "from nu_scaler_tpu_torch.kernels import _build\n"
+        f"_build.BUILD_DIR = __import__('pathlib').Path({str(tmp_path)!r})\n"
+        "for m in pkgutil.walk_packages(p.__path__, 'nu_scaler_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "print(len(calls), _build.load_library.cache_info().currsize)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+        cwd=PKG.parent,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split() == ["0", "0"]
+    assert list(tmp_path.iterdir()) == []
+
+
 def test_kernel_source_is_plain_c():
-    """One CUDA source, no PyTorch headers, a C entry point per wrapper call."""
+    """One CUDA source per library, no PyTorch headers, a C entry point per
+    wrapper call; every fp32 rounding written out."""
     sources = sorted(p.name for p in PKG.rglob("*.cu*"))
-    assert sources == ["resample_fused.cu"]
-    text = _build.SOURCE.read_text()
-    assert "torch/extension.h" not in text and "#include <torch" not in text
-    assert 'extern "C"' in text and "nu_resample_fused" in text
-    assert np.all([s in text for s in ("__fmul_rn", "__fadd_rn", "rintf", "truncf")])
+    assert sources == ["resample_fused.cu", "soft_warp.cu"]
+    for name, fns in _build.SIGNATURES.items():
+        text = _build.source_path(name).read_text()
+        assert "torch/extension.h" not in text and "#include <torch" not in text
+        assert 'extern "C"' in text and "nu_cuda_error_string" in text
+        assert all(fn in text for fn in fns)
+        assert np.all([s in text for s in ("__fmul_rn", "__fadd_rn", "rintf")])
+    assert "truncf" in _build.source_path("resample_fused").read_text()

@@ -217,7 +217,7 @@ def test_cpu_path_never_builds_or_counts(rng, monkeypatch):
     no launch counted."""
     from nu_scaler_tpu_torch.kernels import _build
 
-    def _no_build():  # pragma: no cover - only fires on regression
+    def _no_build(*_):  # pragma: no cover - only fires on regression
         raise AssertionError("the CPU path must not build the CUDA kernel")
 
     monkeypatch.setattr(_build, "load_library", _no_build)
