@@ -9,14 +9,18 @@ Phases, each printed on its own line with its seconds:
 
 1. the card: its name, and its power limit as nvidia-smi reports it;
 2. the build: one nvcc call per source under nu_scaler_tpu_torch/kernels/csrc/
-   (resample_fused.cu, soft_warp.cu), all started together, into
+   (resample_fused.cu, soft_warp.cu, fsr.cu), all started together, into
    build/nu_scaler_tpu_torch/;
 3. each kernel wrapper against its plain PyTorch version on the card, at
    1080p→4K: lanczos3, bilinear and nearest single frames (nearest bit-exact,
    the others ≤1 LSB), a batch of 4, and the blend epilogue with t = 0.5 and
    t = (1/3, 2/3); the soft warp at 1080p (≤1 LSB) with K = 4 and 8,
    t = 0.5 and (1/3, 2/3), tiles (8, 128) and (8, 32), on the bench pair
-   (its flow tiles) and on a noise pair with random tile motion;
+   (its flow tiles) and on a noise pair with random tile motion; the fused
+   FSR kernel (≤1 LSB, bit-exact the target) at s = 2 (1080p, all four
+   sharpness tiers and 0.0), 3 (720p), 4 (540p) and 1, batches of 4 at s = 2
+   and 3, and an odd 37×53 frame, on the bench frame and seeded noise, with
+   the count of differing bytes;
 4. the main path through the entry points a user calls: PyWgpuUpscaler
    upscale / upscale_batch (lanczos3, ≥50 dB against the float64 golden),
    WgpuFrameInterpolator.interpolate_py (blend) and the fused LivePipeline
@@ -32,12 +36,23 @@ Phases, each printed on its own line with its seconds:
    mids on the same tiles (≥50 dB RGB), the flow tiles on the card against
    the CPU (≤1e-2 px), and on the host clock and CUDA events the
    interpolate_py latency, the live output fps and the per-step split;
+4c. the FSR path, its launch counts read on their own: create_fsr_upscaler
+   ("quality") upscale at 1080p→4K against the easu_ref → rcas_ref golden
+   (≥40 dB and ≤12 LSB), upscale_batch of 4 equal to 4 upscale calls, 720p→4K
+   (s = 3) against its plain version, 1366×768→1080p through the general
+   path (plain PyTorch on the card) against the CPU (≤1 LSB), and a
+   LivePipeline with the FSR upscaler and a flow_soft interpolator (the
+   app's live FSR configuration). Then flow_soft on frames its warp tile
+   does not divide (the ragged branch): 1366×768 and 1600×900 under the
+   default preset and 1080p under "tall8x32", on the card against the CPU
+   (≥50 dB RGB). On the host clock and CUDA events: the FSR upscale latency
+   and frames per second, and the live FSR output fps;
 5. times: per kernel the median of 20 CUDA-event timings after 3 warm-ups,
    the plain version's time, and the bound (the larger of bytes moved over
    the memory rate and fp32 operations over the fp32 rate);
-6. torch.profiler traces of 7 fused live steps and of 7 flow_soft live
-   steps: the device's busy share, kernel launches per step and device time
-   by kernel and copy.
+6. torch.profiler traces of 7 fused live steps, of 7 flow_soft live steps
+   and of 7 FSR + flow_soft live steps: the device's busy share, kernel
+   launches per step and device time by kernel and copy.
 
 The line before the last is the card's name and power limit; the one before
 that is the kernels' JSON; the last line is the result JSON. Without a CUDA
@@ -61,12 +76,21 @@ LIVE_FRAMES = 8
 BATCH = 4
 SOURCE = "nu_scaler_tpu_torch/kernels/csrc/resample_fused.cu"
 SOFT_SOURCE = "nu_scaler_tpu_torch/kernels/csrc/soft_warp.cu"
+FSR_SOURCE = "nu_scaler_tpu_torch/kernels/csrc/fsr.cu"
 REPLACES = {
     "resample_fused": "nu_scaler_tpu/kernels/resample_pallas.py:268",
     "resample_fused_batched": "nu_scaler_tpu/kernels/resample_pallas.py:139",
     "resample_fused_blend": "nu_scaler_tpu/kernels/resample_pallas.py:371",
     "soft_warp_blend": "nu_scaler_tpu/kernels/soft_warp_pallas.py:984",
+    "fsr": "nu_scaler_tpu/kernels/fsr_pallas.py:207",
+    "fsr_batched": "nu_scaler_tpu/kernels/fsr_pallas.py:246",
 }
+FSR_GATE_DB, FSR_GATE_LSB = 40.0, 12  # the JAX side's psnr_fsr_db contract
+# the FSR path's other sizes: 720p→4K (s = 3) and 540p (s = 4 in phase 3)
+SIZES = {"720p": (720, 1280), "540p": (540, 960)}
+GENERAL = ((768, 1366), (1080, 1920))  # a non-integer scale: the general path
+# flow_soft frames that the warp tile does not divide: (h, w, preset)
+RAGGED = ((768, 1366, None), (900, 1600, None), (1080, 1920, "tall8x32"))
 SOFT_TILES = ((8, 128), (8, 32))  # the default preset's warp tile, and "tall"'s at 1080p
 FLOW_TILE_GATE_PX = 1e-2  # flow tiles, card vs CPU
 SPLIT_STEPS = 10
@@ -123,11 +147,18 @@ def wave_pattern(width: int, height: int, shift: float) -> np.ndarray:
     return img
 
 
+def bench_frame(h: int, w: int) -> np.ndarray:
+    """The bench input at h×w: the gradient pattern with a white box (at
+    1080p rows 480:600, columns 640:760)."""
+    a = gradient_pattern(w, h)
+    a[h * 4 // 9: h * 5 // 9, w // 3: w * 19 // 48, :3] = 255
+    return a
+
+
 def make_frames(rng) -> dict:
     """Frame a is the bench input (gradient + white box); b is a rolled by 16
     columns; n1, n2 are seeded noise, the hardest case for 1-LSB parity."""
-    a = gradient_pattern(IN_W, IN_H)
-    a[480:600, 640:760, :3] = 255
+    a = bench_frame(IN_H, IN_W)
     return {
         "a": a,
         "b": np.roll(a, 16, axis=1),
@@ -270,6 +301,32 @@ def soft_warp_work(torch, swc, a, tiles, t: float, tile, k: int, rng: int) -> tu
     return moved, 126 * h * w + 42 * distinct
 
 
+def fsr_work(torch, fc, src, s: int, sharp: float) -> tuple[int, int]:
+    """(bytes, fp32 operations) of the fused FSR kernel on `src` u8
+    [N, H, W, 4]: the input read once and the output written once; per input
+    pixel 3 to load, 31 for the direction, 3 per phase (offs), 3 per tap
+    (base), per tap and phase 2 (distance) + 2 (d², d³) + 1 (compare) + 7
+    (accumulate) + 5 for the cubic where d ≤ 2 or 1 further compare where not,
+    and per phase 9 to normalise and take luma (+9 with the sharpness mix);
+    51 per output pixel for RCAS; as csrc/fsr.cu issues them, without its
+    ring's recomputation. The cubic's share is counted on this input."""
+    n, h, w = src.shape[0], src.shape[1], src.shape[2]
+    rgb = src[..., :3].permute(0, 3, 1, 2).to(torch.float32) * fc.INV_255
+    wx, wy = fc._direction(rgb)
+    near = 0
+    for py in range(s):
+        for px in range(s):
+            offs = float(np.float32((px + 0.5) / s)) * wx + float(np.float32((py + 0.5) / s)) * wy
+            for ty in range(4):
+                for tx in range(4):
+                    near += int(((float(tx) * wx + float(ty) * wy - offs).abs() <= 2.0).sum().item())
+    px_in = n * h * w
+    mix = 9 if sharp > fc.SHARP_MIX_MIN else 0
+    ops = px_in * (3 + 31 + 3 * s * s + 16 * 3 + 16 * s * s * 13 + s * s * (9 + mix))
+    ops += 4 * near + 51 * px_in * s * s
+    return px_in * 4 * (1 + s * s), ops
+
+
 def main() -> int:
     import torch
 
@@ -277,8 +334,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
 
-    from nu_scaler_tpu_torch.core import PyWgpuUpscaler, WgpuFrameInterpolator
+    from nu_scaler_tpu_torch.core import (
+        PyFsrUpscaler,
+        PyWgpuUpscaler,
+        WgpuFrameInterpolator,
+        create_fsr_upscaler,
+    )
     from nu_scaler_tpu_torch.kernels import _build
+    from nu_scaler_tpu_torch.kernels import fsr_cuda as fc
     from nu_scaler_tpu_torch.kernels import reference as ref
     from nu_scaler_tpu_torch.kernels import resample_cuda as rc
     from nu_scaler_tpu_torch.kernels import soft_warp_cuda as swc
@@ -381,6 +444,38 @@ def main() -> int:
                         f"max {max_d} LSB, exact {exact:.7f}")
                     check(max_d <= 1, f"soft_warp_blend: {max_d} LSB")
                     errs["soft_warp_blend"] = max(errs["soft_warp_blend"], max_d)
+
+        # the fused FSR kernel, single frames and batches, at the main path's
+        # sizes (s = 2 from 1080p, s = 3 from 720p), s = 4 from 540p, s = 1,
+        # and an odd size
+        sized = {key: bench_frame(h, w) for key, (h, w) in SIZES.items()}
+        sized.update({f"{key}-noise": rng.integers(0, 256, (h, w, 4), np.uint8)
+                      for key, (h, w) in SIZES.items()})
+        sized["odd-noise"] = rng.integers(0, 256, (37, 53, 4), np.uint8)
+        on_dev.update({k: torch.from_numpy(v).to(dev) for k, v in sized.items()})
+        tiers = dict(ref.FSR_SHARPNESS, zero=0.0)
+        fsr_cases = [(key, 2, name) for key in ("a", "n1") for name in tiers]
+        fsr_cases += [(key, 3, name) for key in ("720p", "720p-noise") for name in ("quality", "zero")]
+        fsr_cases += [(key, 4, name) for key in ("540p", "540p-noise") for name in ("quality", "performance")]
+        fsr_cases += [("n1", 1, "quality")]
+        fsr_cases += [("odd-noise", s_, "ultra") for s_ in (2, 3, 4)]
+        fsr_cases += [(("a", "b", "n1", "n2"), 2, "quality"), (("720p", "720p-noise") * 2, 3, "ultra")]
+        errs["fsr"] = errs["fsr_batched"] = 0
+        for key, s_, name in fsr_cases:
+            batched = isinstance(key, tuple)
+            src = torch.stack([on_dev[k] for k in key]) if batched else on_dev[key]
+            kout = (fc.fsr_batched if batched else fc.fsr)(src, s_, tiers[name])
+            pout = fc.fsr_plain(src, s_, tiers[name])
+            torch.cuda.synchronize()
+            check(kout.shape == pout.shape, f"fsr shape {tuple(kout.shape)} != {tuple(pout.shape)}")
+            d = (kout.to(torch.int16) - pout.to(torch.int16)).abs()
+            n_diff, max_d = int((d > 0).sum().item()), int(d.max().item())
+            say(f"fsr{'_batched' if batched else ''} s={s_} {name} "
+                f"[{'+'.join(key) if batched else key}] {tuple(src.shape)}: "
+                f"{n_diff} of {d.numel()} bytes differ, max {max_d} LSB")
+            check(max_d <= 1, f"fsr: {max_d} LSB")
+            row = "fsr_batched" if batched else "fsr"
+            errs[row] = max(errs[row], max_d)
 
     with Phase("4 main path"):
         t0 = time.perf_counter()
@@ -564,6 +659,112 @@ def main() -> int:
             **{f"{k}_median": float(np.median(v)) for k, v in split.items()},
         }))
 
+    with Phase("4c fsr path"):
+        # the app's fsr tier at 1080p→4K; the counts are read for this path
+        t0 = time.perf_counter()
+        sharp = ref.FSR_SHARPNESS["quality"]
+        fsr_golden = ref.rcas_ref(ref.easu_ref(frames["a"], OUT_H, OUT_W, sharp), sharp)
+        say(f"easu_ref → rcas_ref golden of a at 1080p→4K on the host: "
+            f"{time.perf_counter() - t0:.2f} s")
+        fsr_up = create_fsr_upscaler("quality")
+        fsr_up.initialize(IN_W, IN_H, OUT_W, OUT_H)
+        up720 = create_fsr_upscaler("quality")
+        up720.initialize(SIZES["720p"][1], SIZES["720p"][0], OUT_W, OUT_H)
+        fsr_interp = interp.make_interpolator(IN_H, IN_W, "flow_soft")
+
+        def make_fsr_pipe():
+            return LivePipeline(fsr_up.upscale_arr, fsr_interp, depth=2)
+
+        rc.reset_launches()
+        swc.reset_launches()
+        fc.reset_launches()
+        fsr_a = np.frombuffer(fsr_up.upscale(frames["a"].tobytes()), np.uint8).reshape(OUT_H, OUT_W, 4)
+        batch_keys = ("a", "b", "n1", "n2")
+        fsr_batch = fsr_up.upscale_batch([frames[k].tobytes() for k in batch_keys])
+        fsr_720 = up720.upscale(sized["720p"].tobytes())
+        fpipe = make_fsr_pipe()
+        fsr_live = []
+        for f in live_in:
+            fsr_live += fpipe.put(f)
+        fsr_live += fpipe.drain()
+        torch.cuda.synchronize()
+        fsr_counts = {**fc.launches, **swc.launches}
+        say(f"launches on the FSR path: {json.dumps(fsr_counts)} (resample: {json.dumps(rc.launches)})")
+        check(all(n > 0 for n in fsr_counts.values()), f"a kernel of the FSR path never ran: {fsr_counts}")
+
+        gates = {"psnr_fsr_db": psnr(fsr_a, fsr_golden),
+                 "fsr_max_lsb": int(np.abs(fsr_a.astype(int) - fsr_golden).max()),
+                 "fsr_exact": float((fsr_a == fsr_golden).mean())}
+        singles = [fsr_up.upscale(frames[k].tobytes()) for k in batch_keys]
+        gates["batch_equals_singles"] = fsr_batch == singles
+        plain720 = fc.fsr_plain(on_dev["720p"], 3, sharp).cpu().numpy()
+        gates["fsr_720p_vs_plain_max_lsb"] = int(np.abs(
+            np.frombuffer(fsr_720, np.uint8).reshape(OUT_H, OUT_W, 4).astype(int) - plain720).max())
+        (gh, gw), (goh, gow) = GENERAL
+        g_in = bench_frame(gh, gw).tobytes()
+        g_card = create_fsr_upscaler("quality")
+        g_cpu = PyFsrUpscaler("quality", device="cpu")
+        for u in (g_card, g_cpu):
+            u.initialize(gw, gh, gow, goh)
+        g_out = [np.frombuffer(u.upscale(g_in), np.uint8).astype(int) for u in (g_card, g_cpu)]
+        gates["general_card_vs_cpu_max_lsb"] = int(np.abs(g_out[0] - g_out[1]).max())
+        # the live FSR step: every mid is the FSR upscale of the flow_soft mid
+        mid0 = fsr_interp(on_dev["a"], torch.from_numpy(live_in[1]).to(dev), 0.5)
+        gates["live_frames"] = len(fsr_live)
+        gates["live_mid_is_upscaled_mid"] = bool(np.array_equal(
+            fsr_live[1], fsr_up.upscale_arr(mid0).cpu().numpy()))
+        say("fsr gates: " + json.dumps(gates))
+        check(gates["psnr_fsr_db"] >= FSR_GATE_DB and gates["fsr_max_lsb"] <= FSR_GATE_LSB,
+              f"FSR vs golden: {gates['psnr_fsr_db']:.2f} dB, {gates['fsr_max_lsb']} LSB")
+        check(gates["batch_equals_singles"], "FSR upscale_batch != upscale of each frame")
+        check(gates["fsr_720p_vs_plain_max_lsb"] <= 1, "FSR 720p→4K != its plain version")
+        check(gates["general_card_vs_cpu_max_lsb"] <= 1, "FSR general path: card != CPU")
+        check(gates["live_frames"] == 2 * LIVE_FRAMES - 1, f"FSR live frames: {len(fsr_live)}")
+        check(all(o.shape == (OUT_H, OUT_W, 4) and o.dtype == np.uint8 for o in fsr_live),
+              "FSR live frame shape or type")
+        check(gates["live_mid_is_upscaled_mid"], "FSR live mid != upscale(flow_soft mid)")
+
+        # flow_soft on frames the warp tile does not divide: the card against
+        # the CPU, on a texture moved 8 px
+        ragged = {}
+        for h_, w_, preset in RAGGED:
+            w0, w8 = (wave_pattern(w_, h_, s_).tobytes() for s_ in (0.0, 8.0))
+            card_i = WgpuFrameInterpolator(preset, mode="flow_soft")
+            cpu_i = WgpuFrameInterpolator(preset, mode="flow_soft", device="cpu")
+            check(not interp.soft_tiles_fit(h_, w_, card_i.warp_tile), "not a ragged case")
+            outs = [np.frombuffer(i_.interpolate_py(w0, w8, w_, h_), np.uint8).reshape(h_, w_, 4)
+                    for i_ in (card_i, cpu_i)]
+            key = f"{w_}x{h_} tile {card_i.warp_tile}"
+            ragged[key] = {"psnr_rgb_db": psnr(outs[0], outs[1]),
+                           "max_lsb": int(np.abs(outs[0].astype(int) - outs[1]).max())}
+            if preset is None and h_ == RAGGED[0][0]:
+                multi = [[np.frombuffer(m, np.uint8).reshape(h_, w_, 4)
+                          for m in i_.interpolate_multi_py(w0, w8, w_, h_)] for i_ in (card_i, cpu_i)]
+                ragged[key]["multi_psnr_rgb_db"] = min(psnr(x, y) for x, y in zip(*multi))
+        say("flow_soft ragged, card vs CPU: " + json.dumps(ragged))
+        for key, r_ in ragged.items():
+            check(min(v for k, v in r_.items() if "psnr" in k) >= PSNR_GATE_DB,
+                  f"flow_soft ragged {key}: {r_}")
+
+        # end to end: upscale(bytes) latency, device frames per second of
+        # upscale_arr, and the live FSR + flow_soft output fps
+        lat = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            fsr_up.upscale(frames["a"].tobytes())
+            lat.append((time.perf_counter() - t0) * 1e3)
+        fsr_up.upscale_arr(on_dev["a"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fsr_up.upscale_arr(on_dev["a"])
+        torch.cuda.synchronize()
+        say("e2e fsr: " + json.dumps({
+            "fsr_upscale_bytes_ms_median": float(np.median(lat[1:])),
+            "fsr_upscale_arr_fps_device": 20 / (time.perf_counter() - t0),
+            "live_fsr_flow_soft_output_fps_device": live_fps(torch, make_fsr_pipe, live_in, False),
+        }))
+
     with Phase("5 times"):
         flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
         tables = 4 * (OUT_H * (1 + lz.kv) + OUT_W * (1 + lz.kh))
@@ -650,6 +851,40 @@ def main() -> int:
             "bound_ms_random_motion": noise[2], "bound_by_random_motion": noise[3],
         })
 
+        # the FSR kernel at the main path's inputs: the bench frame, quality
+        # tier, 1080p→4K, 720p→4K, and a batch of 4 at 1080p→4K
+        sharp = ref.FSR_SHARPNESS["quality"]
+        fsr_batch_in = torch.stack([on_dev[k] for k in ("a", "b", "n1", "n2")])
+        fsr_timed = {
+            "1080p": (fc.fsr, on_dev["a"], 2),
+            "720p": (fc.fsr, on_dev["720p"], 3),
+            "batch4": (fc.fsr_batched, fsr_batch_in, 2),
+        }
+        fsr_ms = {}
+        for name, (fn, src, s_) in fsr_timed.items():
+            moved, ops = fsr_work(torch, fc, src if src.dim() == 4 else src[None], s_, sharp)
+            t_bytes, t_ops = moved / mem_bw * 1e3, ops / f32_rate * 1e3
+            b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+            ms = time_ms(torch, lambda: fn(src, s_, sharp), flush)
+            plain_ms = time_ms(torch, lambda: fc.fsr_plain(src, s_, sharp), flush)
+            say(f"time fsr [{name}] s={s_} {tuple(src.shape)}: {ms:.4f} ms (plain {plain_ms:.4f} ms; "
+                f"bound {b_ms:.4f} ms by {b_by}: {moved} bytes, {ops} fp32 operations; "
+                f"{100 * b_ms / ms:.1f}% of bound)")
+            fsr_ms[name] = (ms, plain_ms, b_ms, b_by)
+        for row, key, inputs in (("fsr", "1080p", "bench frame 1080p→4K, quality"),
+                                 ("fsr_batched", "batch4", "a, b, n1, n2 at 1080p→4K, quality")):
+            ms, plain_ms, b_ms, b_by = fsr_ms[key]
+            rows.append({
+                "name": row, "route": "cuda", "source": FSR_SOURCE, "replaces": REPLACES[row],
+                "launches": fsr_counts[row], "max_abs_err": errs[row], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                # no single PyTorch call computes EASU + RCAS
+                "library_ms": None, "inputs": inputs,
+            })
+        ms, plain_ms, b_ms, b_by = fsr_ms["720p"]
+        rows[-2].update({"ms_720p": ms, "plain_ms_720p": plain_ms, "bound_ms_720p": b_ms,
+                         "bound_by_720p": b_by})
+
     with Phase("6 trace"):
         # profiler windows over 7 live steps each (host frames in, device
         # frames out): where a step's time goes, and the device's idle share
@@ -661,6 +896,9 @@ def main() -> int:
         busy = trace_steps(torch, LivePipeline(up_fn, interp_fn, depth=2), live_in,
                            Path(_build.BUILD_DIR) / "flow_soft_trace.json")
         say("trace flow_soft: " + json.dumps(busy))
+        busy = trace_steps(torch, make_fsr_pipe(), live_in,
+                           Path(_build.BUILD_DIR) / "fsr_flow_soft_trace.json")
+        say("trace fsr + flow_soft: " + json.dumps(busy))
 
     say(f"total {time.perf_counter() - T_START:.1f} s")
     say(json.dumps({"kernels": rows}))

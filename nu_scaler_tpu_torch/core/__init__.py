@@ -8,10 +8,12 @@ from nu_scaler_tpu_torch.core._constants import (
     UpscalingQuality,
 )
 from nu_scaler_tpu_torch.core.interpolator import WgpuFrameInterpolator, create_interpolator
-from nu_scaler_tpu_torch.core.upscaler import PyWgpuUpscaler
+from nu_scaler_tpu_torch.core.upscaler import PyFsrUpscaler, PyWgpuUpscaler, create_fsr_upscaler
 
 __all__ = [
     "PyWgpuUpscaler",
+    "PyFsrUpscaler",
+    "create_fsr_upscaler",
     "WgpuFrameInterpolator",
     "create_interpolator",
     "UpscalingQuality",

@@ -86,9 +86,9 @@ class WgpuFrameInterpolator:
         ts = tuple(float(t) for t in times)
         if not ts or not all(0.0 <= t <= 1.0 for t in ts):
             raise ValueError(f"times must be non-empty, each in [0, 1]: {times!r}")
-        fn = _interp.make_multi_interpolator(
-            height, width, ts, self.mode, self.device, self.warp_tile
-        )
+        # as nu_scaler_core: a mode without a multi-time form serves flow_soft
+        mode = self.mode if self.mode in ("blend", "flow", "flow_soft", "flow_soft_ref") else "flow_soft"
+        fn = _interp.make_multi_interpolator(height, width, ts, mode, self.device, self.warp_tile)
         out = fn(ta, tb).cpu().numpy()
         return [out[i].tobytes() for i in range(out.shape[0])]
 

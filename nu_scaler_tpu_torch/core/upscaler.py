@@ -1,5 +1,6 @@
-"""`PyWgpuUpscaler` of the port — the API of `nu_scaler_core/upscaler.py`
-(the reference's PyO3 class) on the fused CUDA resample kernel.
+"""`PyWgpuUpscaler` and `PyFsrUpscaler` of the port — the API of
+`nu_scaler_core/upscaler.py` (the reference's PyO3 class) on the fused CUDA
+resample kernel and the fused FSR (EASU + RCAS) kernel.
 
 Contracts kept: case-insensitive constructor strings with silent fallbacks;
 `initialize` sets upscale_scale to the mean of the axis scales; the
@@ -17,6 +18,7 @@ import torch
 
 from nu_scaler_tpu_torch.core._constants import UpscalingQuality
 from nu_scaler_tpu_torch.device import resolve_device
+from nu_scaler_tpu_torch.ops import fsr as _fsr
 from nu_scaler_tpu_torch.ops import resample as _resample
 
 
@@ -57,11 +59,23 @@ class PyWgpuUpscaler:
         self.input_height = int(input_height)
         self.output_width = int(output_width)
         self.output_height = int(output_height)
-        self._fn = _resample.make_resampler(
+        self._fn = self._cached_kernel()
+        self._initialized = True
+
+    def _cached_kernel(self):
+        """This tier's kernel for the current sizes, shared through the cache."""
+        return _resample.make_resampler(
             self.input_height, self.input_width, self.output_height, self.output_width,
             self._algorithm, self.device,
         )
-        self._initialized = True
+
+    def _rebuild_kernel(self) -> None:
+        """Rebuild only this instance's kernel, bypassing the shared cache
+        (subclasses rebuild their own tier)."""
+        self._fn = _resample.Resampler(
+            self.input_height, self.input_width,
+            self.output_height, self.output_width, self._algorithm, self.device,
+        )
 
     # -- properties -------------------------------------------------------
 
@@ -124,13 +138,10 @@ class PyWgpuUpscaler:
 
     def reload_shader(self, path: str) -> None:
         """Shader hot-reload compat: there is no WGSL to reload; this
-        instance's resampler is rebuilt fresh, bypassing the shared cache."""
+        instance's kernel is rebuilt fresh, bypassing the shared cache."""
         self._shader_path = str(path)
         if self._initialized:
-            self._fn = _resample.Resampler(
-                self.input_height, self.input_width,
-                self.output_height, self.output_width, self._algorithm, self.device,
-            )
+            self._rebuild_kernel()
 
     def set_thread_count(self, n: int) -> None:
         if n > 0:
@@ -142,3 +153,33 @@ class PyWgpuUpscaler:
 
     def set_gpu_allocator(self, preset: str) -> None:
         self._gpu_allocator = str(preset)
+
+
+class PyFsrUpscaler(PyWgpuUpscaler):
+    """The FSR tier: EASU + RCAS (`ops/fsr.py`), one launch of the fused
+    kernel per frame or per batch at integer scales. A failed launch raises;
+    there is no per-frame fallback."""
+
+    def __init__(self, quality: str = "quality", device=None):
+        super().__init__(quality, "bilinear", device)
+
+    @property
+    def name(self) -> str:
+        return "FsrUpscaler"
+
+    def _cached_kernel(self):
+        return _fsr.make_fsr_upscaler(
+            self.input_height, self.input_width, self.output_height, self.output_width,
+            self._quality.value, self.device,
+        )
+
+    def _rebuild_kernel(self) -> None:
+        self._fn = _fsr.FsrUpscaler(
+            self.input_height, self.input_width, self.output_height, self.output_width,
+            self._quality.value, self.device,
+        )
+
+
+def create_fsr_upscaler(quality: str, device=None) -> PyFsrUpscaler:
+    """The `fsr` technology tier of the app."""
+    return PyFsrUpscaler(quality, device)

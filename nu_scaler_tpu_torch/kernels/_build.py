@@ -61,6 +61,12 @@ SIGNATURES = {
             _VP, _VP,  # out, stream
         ],
     },
+    "fsr": {
+        "nu_fsr": [
+            _INT, _VP, _INT, _INT, _INT, _INT,  # device, src, n, h, w, scale
+            _F32, _INT, _VP, _VP,  # sharp, mix, dst, stream
+        ],
+    },
 }
 
 

@@ -1,4 +1,4 @@
-"""Numpy golden references for the port's resample and soft-warp paths.
+"""Numpy golden references for the port's resample, soft-warp and FSR paths.
 
 The port's own copy of the resample goldens of the JAX package (it imports
 nothing from that package). They encode the semantics of the reference
@@ -271,3 +271,113 @@ def soft_warp_blend_ref(
                             )
                             out[gr, gc] += wgt * bw[c] * v
     return np.clip(np.round(out), 0, 255).astype(np.uint8)
+
+
+# ---------------------------------------------------------------------------
+# FSR (EASU + RCAS), the port's copy of the goldens in
+# nu_scaler_tpu/kernels/reference.py (the reference's FSR1-style WGSL pair)
+# ---------------------------------------------------------------------------
+
+# Sharpness by quality tier of the FSR path.
+FSR_SHARPNESS = {
+    "ultra": 0.25,
+    "quality": 0.17,
+    "balanced": 0.12,
+    "performance": 0.08,
+}
+
+
+def _fsr_cubic(d: np.ndarray) -> np.ndarray:
+    """FsrCubic: piecewise cubic on |d|."""
+    d2 = d * d
+    d3 = d2 * d
+    return np.where(
+        d <= 1.0,
+        2.0 - 1.5 * d - 0.5 * d3 + d2,
+        np.where(d <= 2.0, -0.5 * d + 2.5 * d2 - d3, 0.0),
+    )
+
+
+def easu_ref(img_u8: np.ndarray, out_h: int, out_w: int, sharpness: float) -> np.ndarray:
+    """Edge Adaptive Spatial Upsampling golden.
+
+    Per output pixel: map its center to input coordinates, take the edge
+    direction from central differences at trunc(inCoord), weight the 4×4
+    neighbourhood with the FSR cubic of the direction-projected distance,
+    then mix toward the center sample by `sharpness`. Alpha is 1.0.
+    """
+    in_h, in_w = img_u8.shape[:2]
+    rgb = unpack_u8(img_u8)[..., :3]
+
+    def fetch(py, px):
+        return rgb[np.clip(py, 0, in_h - 1), np.clip(px, 0, in_w - 1)]
+
+    ox, oy = np.meshgrid(
+        (np.arange(out_w, dtype=np.float32) + 0.5) * (in_w / out_w),
+        (np.arange(out_h, dtype=np.float32) + 0.5) * (in_h / out_h),
+    )
+    base_x = ox.astype(np.int64) - 1
+    base_y = oy.astype(np.int64) - 1
+    fr_x = ox - np.floor(ox)
+    fr_y = oy - np.floor(oy)
+
+    cx = ox.astype(np.int64)
+    cy = oy.astype(np.int64)
+    up = fetch(cy - 1, cx)
+    dn = fetch(cy + 1, cx)
+    lf = fetch(cy, cx - 1)
+    rt = fetch(cy, cx + 1)
+    vgx = np.abs(up - dn).sum(axis=-1) / 3.0
+    vgy = np.abs(lf - rt).sum(axis=-1) / 3.0
+    norm = np.sqrt((vgx + 1e-4) ** 2 + (vgy + 1e-4) ** 2)
+    dirx = (vgx + 1e-4) / norm
+    diry = (vgy + 1e-4) / norm
+    wx = np.abs(dirx) / (np.abs(dirx) + np.abs(diry))
+    wy = 1.0 - wx
+
+    sum_c = np.zeros(ox.shape + (3,), dtype=np.float32)
+    sum_w = np.zeros_like(ox)
+    for ty in range(4):
+        for tx in range(4):
+            dist = np.abs((tx - fr_x) * wx + (ty - fr_y) * wy)
+            wgt = _fsr_cubic(dist).astype(np.float32)
+            sum_c += fetch(base_y + ty, base_x + tx) * wgt[..., None]
+            sum_w += wgt
+    color = sum_c / np.maximum(sum_w, 1e-4)[..., None]
+    if sharpness > 1e-3:
+        center = fetch(cy, cx)
+        color = color + (center - color) * np.float32(sharpness)
+    out = np.empty((out_h, out_w, 4), dtype=np.float32)
+    out[..., :3] = color
+    out[..., 3] = 1.0
+    return pack_u8_trunc(out)
+
+
+def rcas_ref(img_u8: np.ndarray, sharpness: float) -> np.ndarray:
+    """Robust Contrast Adaptive Sharpening golden: a luma-contrast-gated
+    Laplacian sharpen with neighbours clamped at the image edge; alpha 1.0."""
+    h, w = img_u8.shape[:2]
+    rgb = unpack_u8(img_u8)[..., :3]
+
+    def fetch(dy, dx):
+        ys = np.clip(np.arange(h) + dy, 0, h - 1)
+        xs = np.clip(np.arange(w) + dx, 0, w - 1)
+        return rgb[ys][:, xs]
+
+    center = rgb
+    top = fetch(-1, 0)
+    bottom = fetch(1, 0)
+    left = fetch(0, -1)
+    right = fetch(0, 1)
+    lw = np.array([0.299, 0.587, 0.114], dtype=np.float32)
+    lums = [x @ lw for x in (center, top, bottom, left, right)]
+    min_l = np.minimum.reduce(lums)
+    max_l = np.maximum.reduce(lums)
+    t = np.clip((max_l - min_l) / 0.2, 0.0, 1.0)
+    smooth = t * t * (3.0 - 2.0 * t)  # smoothstep(0, 0.2, contrast)
+    strength = sharpness * (1.0 - smooth)
+    lap = 4.0 * center - top - bottom - left - right
+    out = np.empty((h, w, 4), dtype=np.float32)
+    out[..., :3] = center + lap * strength[..., None]
+    out[..., 3] = 1.0
+    return pack_u8_trunc(out)

@@ -9,12 +9,17 @@ flow_soft, per frame pair (u8 [H, W, 4] × 2):
     the upsampled flow + HS on the residual)  →  per-tile mean motion
     →  the overlapped-tile soft warp kernel (`kernels/soft_warp_cuda.py`).
 
+A frame that the warp tile does not divide (or that holds fewer than 2×2
+tiles) takes the JAX package's ragged branch instead: full-resolution flow,
+then the overlapped soft warp of `warp_blend_soft` in plain PyTorch, with the
+JAX function's bf16 slabs and accumulators.
+
 The flow stage was plain XLA in the JAX package and is plain PyTorch here:
 elementwise ops, gathers and small sums, all fp32 and none a matmul or a
 convolution, so the caller's TF32 settings cannot reach it. The soft warp is
 the one CUDA kernel of the mode. The other flow modes ("flow", "flow_exact")
-and the ragged-shape branch are ROADMAP queue 1, item 8; "flow_soft_ref" is
-item 10. They raise NotImplementedError.
+are ROADMAP queue 1, item 8; "flow_soft_ref" is item 10. They raise
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -61,13 +66,15 @@ def blend_only(frame_a: torch.Tensor, frame_b: torch.Tensor, time_t: float) -> t
     return torch.clamp(torch.round(out * 255.0), 0, 255).to(torch.uint8)
 
 
+def _not_ported(mode: str) -> NotImplementedError:
+    return NotImplementedError(f"interpolation mode {mode!r} is not ported yet ({_NOT_PORTED[mode]})")
+
+
 def check_mode(mode: str) -> None:
     if mode not in MODES:
         raise ValueError(f"unknown interpolation mode: {mode!r}")
     if mode not in PORTED_MODES:
-        raise NotImplementedError(
-            f"interpolation mode {mode!r} is not ported yet ({_NOT_PORTED[mode]})"
-        )
+        raise _not_ported(mode)
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +198,7 @@ def _tile_to_pixels(tiles: torch.Tensor, th: int, tw: int, h: int, w: int) -> to
 
 def block_warp_planar(
     img_p: torch.Tensor, offset_field: torch.Tensor, k: int = WARP_K, rng: int = WARP_RANGE,
-    tile: tuple = WARP_TILE, overlap: bool = False,
+    tile: tuple = WARP_TILE,
 ) -> torch.Tensor:
     """Sample planar `img_p` [C, H, W] f32 at p + offset(p), block-quantized:
     the top-K integer offsets of the tile means, each tile's nearest one, one
@@ -199,11 +206,6 @@ def block_warp_planar(
     tile's fractions. As in the JAX function, the lerp reads the +1
     neighbour under the pixel's own tile's offset even across a tile border
     (the 1-px "lerp after select" approximation)."""
-    if overlap:
-        raise NotImplementedError(
-            "block_warp_planar(overlap=True) (_soft_warp_accumulate) is not ported yet "
-            "(ROADMAP queue 1, item 8)"
-        )
     c, h, w = img_p.shape
     if tuple(offset_field.shape[:2]) != (h, w):
         raise ValueError(
@@ -275,20 +277,94 @@ def flow_tiles_fast(frame_a: torch.Tensor, frame_b: torch.Tensor, tile: tuple = 
 
 
 def soft_tiles_fit(h: int, w: int, tile: tuple) -> bool:
-    """The shapes the fused soft path takes: the tile divides the frame, and
+    """The shapes the soft warp kernel takes: the tile divides the frame, and
     the frame holds at least 2×2 tiles."""
     th, tw = tile
     return h % th == 0 and w % tw == 0 and h >= 2 * th and w >= 2 * tw
 
 
-def _check_soft(shape: tuple, tile: tuple) -> None:
-    h, w, c = shape
-    if c != 4 or not soft_tiles_fit(h, w, tile):
-        raise NotImplementedError(
-            f"flow_soft on a frame of {h}x{w}x{c} with warp tile {tuple(tile)}: the ragged "
-            "branch (full-resolution flow + the XLA soft warp) is not ported yet "
-            "(ROADMAP queue 1, item 8)"
-        )
+def _soft_warp_accumulate(acc, img_p: torch.Tensor, offset_field: torch.Tensor, k: int,
+                          rng: int, tile: tuple, weight: float):
+    """Add ``weight · soft_warp(img_p, offset_field)`` to the accumulator pair
+    ``(acc_p, acc_q)`` (bf16 [C, H, W+1]; None starts it): the port's copy of
+    `nu_scaler_tpu/ops/interpolate.py` _soft_warp_accumulate.
+
+    Per candidate i of the tile field's top K: the frame shifted by the
+    candidate (edge-clamped, on the (H+1)×(W+1) grid) as a bf16 slab, its
+    rows lerped by the pixel's fraction clip(smooth motion − cand, 0, 1), and
+    the pixel's weight on the candidate (the half-tile-shift bilinear mix of
+    its four corner tiles' one-hot assignments) split between P and Q by the
+    column fraction: out[j] = P[j] + Q[j + 1]. The bf16 casts are where the
+    JAX function has them: they decide the last LSB."""
+    c, h, w = img_p.shape
+    th, tw = min(tile[0], h), min(tile[1], w)
+    tiles = torch.clamp(_tile_mean(offset_field, th, tw), -rng, rng)
+    cand_y, cand_x, assign = candidates(tiles, k, rng)
+    dev = img_p.device
+    w1 = w + 1  # the coefficient fields live on the slab's W + 1 grid
+    img_bf = img_p.to(torch.bfloat16)
+    slab_rows = torch.arange(h + 1, device=dev)
+    slab_cols = torch.arange(w1, device=dev)
+
+    def frac(n: int, size: int) -> torch.Tensor:
+        f = ((np.arange(n, dtype=np.float64) + 0.5) / size - 0.5) % 1.0
+        return torch.from_numpy(f.astype(np.float32)).to(dev)
+
+    fyv, fxv = frac(h, th)[:, None], frac(w1, tw)[None, :]
+    hh, hw = th // 2, tw // 2
+    a_px = _tile_to_pixels(assign, th, tw, h, w1)
+    a_t, a_b = _shift_edge(a_px, -hh, 0), _shift_edge(a_px, th - hh, 0)
+    a_tl, a_tr = _shift_edge(a_t, -hw, 1), _shift_edge(a_t, tw - hw, 1)
+    a_bl, a_br = _shift_edge(a_b, -hw, 1), _shift_edge(a_b, tw - hw, 1)
+
+    def smooth(f: torch.Tensor) -> torch.Tensor:  # [Ty, Tx] → [H, W + 1]
+        fp = _tile_to_pixels(f, th, tw, h, w1)
+        fv = (1.0 - fyv) * _shift_edge(fp, -hh, 0) + fyv * _shift_edge(fp, th - hh, 0)
+        return (1.0 - fxv) * _shift_edge(fv, -hw, 1) + fxv * _shift_edge(fv, tw - hw, 1)
+
+    sx, sy = smooth(tiles[..., 0]), smooth(tiles[..., 1])
+    if acc is None:
+        acc = (torch.zeros((c, h, w1), dtype=torch.bfloat16, device=dev),) * 2
+    acc_p, acc_q = acc
+    for i in range(k):
+        rows = (slab_rows + cand_y[i]).clamp(0, h - 1)
+        cols = (slab_cols + cand_x[i]).clamp(0, w - 1)
+        s = img_bf[:, rows][:, :, cols]
+        wv_t = torch.where(a_tl == i, 1.0 - fxv, 0.0) + torch.where(a_tr == i, fxv, 0.0)
+        wv_b = torch.where(a_bl == i, 1.0 - fxv, 0.0) + torch.where(a_br == i, fxv, 0.0)
+        wk_i = ((1.0 - fyv) * wv_t + fyv * wv_b) * weight
+        fx = torch.clamp(sx - cand_x[i].to(torch.float32), 0.0, 1.0)
+        fy = torch.clamp(sy - cand_y[i].to(torch.float32), 0.0, 1.0).to(torch.bfloat16)[None]
+        row = s[:, :h] + fy * (s[:, 1:] - s[:, :h])
+        acc_p = acc_p + (wk_i * (1.0 - fx)).to(torch.bfloat16)[None] * row
+        acc_q = acc_q + (wk_i * fx).to(torch.bfloat16)[None] * row
+    return acc_p, acc_q
+
+
+def warp_blend_soft(frame_a: torch.Tensor, frame_b: torch.Tensor, flow: torch.Tensor,
+                    time_t: float, tile: tuple = WARP_TILE) -> torch.Tensor:
+    """The ragged branch's warp, `warp_blend_fast(overlap=True)` of the JAX
+    package: A warped by −t·flow at weight 1 − t and B by (1 − t)·flow at
+    weight t into one accumulator pair (K = `WARP_K`), alpha cross-faded,
+    rounded half to even. u8 [H, W, 4] × 2 + full-resolution flow → u8."""
+    t = np.float32(time_t)
+    one_minus_t = np.float32(1.0) - t
+    a4 = frame_a.to(torch.float32).permute(2, 0, 1)
+    b4 = frame_b.to(torch.float32).permute(2, 0, 1)
+    w = frame_a.shape[1]
+    acc = _soft_warp_accumulate(None, a4[:3], flow * float(-t), WARP_K, WARP_RANGE, tile,
+                                float(one_minus_t))
+    acc = _soft_warp_accumulate(acc, b4[:3], flow * float(one_minus_t), WARP_K, WARP_RANGE, tile,
+                                float(t))
+    rgb = (acc[0][:, :, :w] + acc[1][:, :, 1:]).to(torch.float32)
+    alpha = a4[3:] + (b4[3:] - a4[3:]) * float(t)
+    out = torch.clamp(torch.round(torch.cat([rgb, alpha])), 0, 255).to(torch.uint8)
+    return out.permute(1, 2, 0).contiguous()
+
+
+def _check_rgba(frame: torch.Tensor) -> None:
+    if frame.dim() != 3 or frame.shape[-1] != 4:
+        raise ValueError(f"flow_soft takes RGBA frames [H, W, 4], got {tuple(frame.shape)}")
 
 
 def soft_interp_fast(
@@ -296,8 +372,13 @@ def soft_interp_fast(
     k: int = SOFT_WARP_K,
 ) -> torch.Tensor:
     """The production "flow_soft" step: u8 [H, W, 4] × 2 → u8 [H, W, 4]:
-    tile motion (`flow_tiles_fast`), then one soft warp launch."""
-    _check_soft(tuple(frame_a.shape), tile)
+    tile motion (`flow_tiles_fast`), then one soft warp launch; a ragged
+    frame takes full-resolution flow and `warp_blend_soft`."""
+    _check_rgba(frame_a)
+    h, w = frame_a.shape[0], frame_a.shape[1]
+    if not soft_tiles_fit(h, w, tile):
+        flow = compute_flow_fast(frame_a, frame_b, base_level=0)
+        return warp_blend_soft(frame_a, frame_b, flow, time_t, tile)
     tiles = flow_tiles_fast(frame_a, frame_b, tile)
     return soft_warp_blend(frame_a, frame_b, tiles, time_t, tile=tile, rng=WARP_RANGE, k=k)
 
@@ -306,9 +387,13 @@ def soft_interp_multi(
     frame_a: torch.Tensor, frame_b: torch.Tensor, ts: Sequence[float], tile: tuple = WARP_TILE,
     k: int = SOFT_WARP_K,
 ) -> torch.Tensor:
-    """N-factor frame generation: one motion solve, one soft warp launch per
-    time → u8 [len(ts), H, W, 4]."""
-    _check_soft(tuple(frame_a.shape), tile)
+    """N-factor frame generation: one motion solve, one soft warp per time
+    → u8 [len(ts), H, W, 4]."""
+    _check_rgba(frame_a)
+    h, w = frame_a.shape[0], frame_a.shape[1]
+    if not soft_tiles_fit(h, w, tile):
+        flow = compute_flow_fast(frame_a, frame_b, base_level=0)
+        return torch.stack([warp_blend_soft(frame_a, frame_b, flow, t, tile) for t in ts])
     tiles = flow_tiles_fast(frame_a, frame_b, tile)
     return torch.stack([
         soft_warp_blend(frame_a, frame_b, tiles, t, tile=tile, rng=WARP_RANGE, k=k) for t in ts
@@ -329,15 +414,18 @@ def _check_frames(height: int, width: int, *frames) -> None:
 @functools.lru_cache(maxsize=64)
 def _interpolator(height: int, width: int, mode: str, dev: torch.device, warp_tile: tuple):
     check_mode(mode)
-    if mode == "flow_soft":
-        _check_soft((height, width, 4), warp_tile)
+    if mode == "blend":
+        def step(a, b, t):
+            return blend_only(a, b, t)
+    elif mode == "flow_soft":
+        def step(a, b, t):
+            return soft_interp_fast(a, b, t, tile=warp_tile)
+    else:
+        raise _not_ported(mode)
 
     def fn(a, b, t):
         _check_frames(height, width, a, b)
-        a, b = a.to(dev), b.to(dev)
-        if mode == "blend":
-            return blend_only(a, b, t)
-        return soft_interp_fast(a, b, t, tile=warp_tile)
+        return step(a.to(dev), b.to(dev), t)
 
     return fn
 
@@ -354,15 +442,18 @@ def make_interpolator(
 @functools.lru_cache(maxsize=64)
 def _multi_interpolator(height: int, width: int, ts: tuple, mode: str, dev, warp_tile: tuple):
     check_mode(mode)
-    if mode == "flow_soft":
-        _check_soft((height, width, 4), warp_tile)
+    if mode == "blend":
+        def step(a, b):
+            return torch.stack([blend_only(a, b, t) for t in ts])
+    elif mode == "flow_soft":
+        def step(a, b):
+            return soft_interp_multi(a, b, ts, tile=warp_tile)
+    else:
+        raise _not_ported(mode)
 
     def fn(a, b):
         _check_frames(height, width, a, b)
-        a, b = a.to(dev), b.to(dev)
-        if mode == "blend":
-            return torch.stack([blend_only(a, b, t) for t in ts])
-        return soft_interp_multi(a, b, ts, tile=warp_tile)
+        return step(a.to(dev), b.to(dev))
 
     return fn
 

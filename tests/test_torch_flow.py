@@ -236,14 +236,91 @@ def test_soft_interp_flow_beats_blend():
     assert psnr(mid, truth) > psnr(blend, truth) + 3.0
 
 
-def test_ragged_shapes_are_not_ported():
-    a = torch.zeros((60, 256, 4), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
+def _bench_pair(h: int, w: int):
+    """bench.py's pair at a small size: the gradient pattern with a white box,
+    and the same rolled 16 columns."""
+    y, x = np.mgrid[0:h, 0:w].astype(np.uint64)
+    a = np.empty((h, w, 4), np.uint8)
+    a[..., 0] = x * 255 // w
+    a[..., 1] = y * 255 // h
+    a[..., 2] = (x + y) * 255 // (w + h)
+    a[..., 3] = 255
+    a[h // 3: h // 2, w // 3: w // 2, :3] = 255
+    return a, np.roll(a, 16, axis=1)
+
+
+def _wave_pair(h: int, w: int):
+    """A smooth texture moved 8 columns: motion the flow recovers."""
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+
+    def wave(shift):
+        img = np.full((h, w, 4), 255, np.uint8)
+        for c in range(3):
+            img[..., c] = np.clip(127.5 + 60.0 * np.sin(2 * np.pi * (x - shift) / 60.0 + c)
+                                  + 40.0 * np.sin(2 * np.pi * y / 44.0 + 2 * c), 0, 255)
+        return img
+
+    return wave(0.0), wave(8.0)
+
+
+RAGGED = [((72, 200), (8, 128)), ((48, 112), (16, 64))]
+
+
+@pytest.mark.parametrize("shape, tile", RAGGED, ids=["72x200-tile8x128", "48x112-tile16x64"])
+@pytest.mark.parametrize("pair", [_bench_pair, _wave_pair], ids=["bench-roll", "moving-texture"])
+def test_ragged_soft_interp_matches_jax(shape, tile, pair):
+    """A frame the warp tile does not divide: full-resolution flow, then the
+    overlapped soft warp with bf16 slabs and accumulators, against JAX's
+    ragged branch (XLA, eager). Bound: RGB within 1 LSB (measured: equal);
+    alpha is cross-faded on both sides. The warp alone, fed JAX's own flow,
+    is equal."""
+    h, w = shape
+    a, b = pair(h, w)
+    assert not P.soft_tiles_fit(h, w, tile)
+    got = P.soft_interp_fast(_t(a), _t(b), 0.5, tile=tile).numpy()
+    want = np.asarray(J.soft_interp_fast(a, b, 0.5, tile=tile))
+    ts = (1.0 / 3.0, 2.0 / 3.0)
+    got_m = P.soft_interp_multi(_t(a), _t(b), ts, tile=tile).numpy()
+    want_m = np.asarray(J.soft_interp_multi(a, b, ts, tile=tile))
+    assert got.shape == want.shape == (h, w, 4) and got_m.shape == want_m.shape == (2, h, w, 4)
+    for g, wnt, what in ((got, want, "t=0.5"), (got_m, want_m, "ts=(1/3, 2/3)")):
+        d = np.abs(g.astype(np.int32) - wnt.astype(np.int32))
+        print(f"{h}x{w} {tile} {pair.__name__} {what}: RGB max {d[..., :3].max()} LSB, "
+              f"exact {(d == 0).mean():.6f}")
+        assert d[..., :3].max() <= 1
+        np.testing.assert_array_equal(g[..., 3], wnt[..., 3])
+    flow = np.asarray(J.compute_flow_fast(a, b))
+    np.testing.assert_array_equal(
+        P.warp_blend_soft(_t(a), _t(b), _t(flow), 0.5, tile).numpy(),
+        np.asarray(J.warp_blend_fast(a, b, flow, np.float32(0.5), tile=tile, overlap=True)),
+    )
+
+
+def test_ragged_full_resolution_flow_matches_jax():
+    """The ragged branch's flow: every refinement level down to level 0."""
+    a, b = _wave_pair(72, 200)
+    got = P.compute_flow_fast(_t(a), _t(b), base_level=0).numpy()
+    want = np.asarray(J.compute_flow_fast(a, b))
+    assert got.shape == want.shape == (72, 200, 2)
+    assert _max_abs(got, want) <= 1e-4
+
+
+def test_flow_soft_takes_rgba_only():
+    a = torch.zeros((16, 128, 3), dtype=torch.uint8)
+    with pytest.raises(ValueError, match=r"RGBA frames \[H, W, 4\]"):
         P.soft_interp_fast(a, a, 0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-        P.make_interpolator(60, 256, "flow_soft", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 8"):
-        P.block_warp_planar(torch.zeros(1, 16, 128), torch.zeros(16, 128, 2), overlap=True)
+    with pytest.raises(ValueError, match=r"RGBA frames \[H, W, 4\]"):
+        P.soft_interp_multi(a, a, (0.5,))
+
+
+def test_factories_dispatch_each_mode(monkeypatch):
+    """A mode past `check_mode` that the factories do not serve raises; it is
+    never served as flow_soft."""
+    monkeypatch.setattr(P, "check_mode", lambda mode: None)
+    with pytest.raises(NotImplementedError, match="'flow'.*ROADMAP queue 1, item 8"):
+        P.make_interpolator(16, 128, "flow", device="cpu")
+    with pytest.raises(NotImplementedError, match="'flow'.*ROADMAP queue 1, item 8"):
+        P.make_multi_interpolator(16, 128, (0.5,), "flow", device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -281,6 +358,39 @@ def test_interpolate_multi_py_flow_soft_matches_core():
         _check_mid(np.frombuffer(g, np.uint8).reshape(h, w, 4),
                    np.frombuffer(wb, np.uint8).reshape(h, w, 4), same,
                    f"interpolate_multi_py t={t:.4f}")
+
+
+@pytest.mark.parametrize("preset, shape", [(None, (72, 200)), ("16x16", (48, 112))],
+                         ids=["wide32x8-72x200", "16x16-48x112"])
+def test_api_serves_ragged_frames(preset, shape):
+    """`interpolate_py` and `interpolate_multi_py` in flow_soft on frames the
+    preset's warp tile does not divide: the bytes of the ragged branch, and
+    against nu_scaler_core (which runs it under jit) RGB ≥ 50 dB."""
+    h, w = shape
+    a, b = _wave_pair(h, w)
+    port = pc.WgpuFrameInterpolator(preset, mode="flow_soft", device="cpu")
+    assert not P.soft_tiles_fit(h, w, port.warp_tile)
+    mid = port.interpolate_py(a.tobytes(), b.tobytes(), w, h, time_t=0.5)
+    assert mid == P.soft_interp_fast(_t(a), _t(b), 0.5, tile=port.warp_tile).numpy().tobytes()
+    mids = port.interpolate_multi_py(a.tobytes(), b.tobytes(), w, h)
+    want = P.soft_interp_multi(_t(a), _t(b), (1.0 / 3.0, 2.0 / 3.0), tile=port.warp_tile).numpy()
+    assert mids == [m.tobytes() for m in want]
+    ref = nsc.WgpuFrameInterpolator(preset, mode="flow_soft")
+    jmid = ref.interpolate_py(a.tobytes(), b.tobytes(), w, h, time_t=0.5)
+    got, jgot = (np.frombuffer(x, np.uint8).reshape(h, w, 4) for x in (mid, jmid))
+    print(f"{h}x{w} {port.warp_tile}: vs nu_scaler_core {psnr(got[..., :3], jgot[..., :3]):.2f} dB RGB")
+    assert psnr(got[..., :3], jgot[..., :3]) >= 50.0
+
+
+def test_interpolate_multi_py_maps_modes_as_core():
+    """A mode without a multi-time form (flow_exact) serves flow_soft, as
+    nu_scaler_core/interpolator.py maps it."""
+    h, w = 16, 128
+    a, b = _wave_pair(h, w)
+    interp = pc.WgpuFrameInterpolator(mode="flow_soft", device="cpu")
+    want = interp.interpolate_multi_py(a.tobytes(), b.tobytes(), w, h)
+    interp.mode = "flow_exact"
+    assert interp.interpolate_multi_py(a.tobytes(), b.tobytes(), w, h) == want
 
 
 def test_interpolate_multi_py_blend_and_checks(rng):

@@ -98,7 +98,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     finally:
         _build.load_library.cache_clear()
     paths = {name: _build.library_path(name) for name in _build.SIGNATURES}
-    assert sorted(paths) == ["resample_fused", "soft_warp"]
+    assert sorted(paths) == ["fsr", "resample_fused", "soft_warp"]
     assert len(set(paths.values())) == len(paths)
     for name, path in paths.items():
         assert path.parent == tmp_path and path.name.startswith(f"lib{name}_")
@@ -151,13 +151,18 @@ def test_import_compiles_nothing(tmp_path):
 
 def test_kernel_source_is_plain_c():
     """One CUDA source per library, no PyTorch headers, a C entry point per
-    wrapper call; every fp32 rounding written out."""
+    wrapper call; every fp32 rounding written out, and each packing as its
+    golden packs: the resample truncates and its blend rounds, the soft warp
+    rounds, FSR truncates."""
     sources = sorted(p.name for p in PKG.rglob("*.cu*"))
-    assert sources == ["resample_fused.cu", "soft_warp.cu"]
+    assert sources == ["fsr.cu", "resample_fused.cu", "soft_warp.cu"]
+    packing = {"resample_fused": ("truncf", "rintf"), "soft_warp": ("rintf",), "fsr": ("truncf",)}
+    assert sorted(packing) == sorted(_build.SIGNATURES)
     for name, fns in _build.SIGNATURES.items():
         text = _build.source_path(name).read_text()
         assert "torch/extension.h" not in text and "#include <torch" not in text
         assert 'extern "C"' in text and "nu_cuda_error_string" in text
         assert all(fn in text for fn in fns)
-        assert np.all([s in text for s in ("__fmul_rn", "__fadd_rn", "rintf")])
-    assert "truncf" in _build.source_path("resample_fused").read_text()
+        assert np.all([s in text for s in ("__fmul_rn", "__fadd_rn", *packing[name])])
+    fsr = _build.source_path("fsr").read_text()
+    assert np.all([s in fsr for s in ("__fsub_rn", "__fdiv_rn", "__fsqrt_rn")])
