@@ -9,8 +9,8 @@ Phases, each printed on its own line with its seconds:
 
 1. the card: its name, and its power limit as nvidia-smi reports it;
 2. the build: one nvcc call per source under nu_scaler_tpu_torch/kernels/csrc/
-   (resample_fused.cu, soft_warp.cu, fsr.cu), all started together, into
-   build/nu_scaler_tpu_torch/;
+   (resample_fused.cu, soft_warp.cu, fsr.cu, conv3x3.cu), all started
+   together, into build/nu_scaler_tpu_torch/;
 3. each kernel wrapper against its plain PyTorch version on the card, at
    1080p→4K: lanczos3, bilinear and nearest single frames (nearest bit-exact,
    the others ≤1 LSB), a batch of 4, and the blend epilogue with t = 0.5 and
@@ -20,7 +20,11 @@ Phases, each printed on its own line with its seconds:
    FSR kernel (≤1 LSB, bit-exact the target) at s = 2 (1080p, all four
    sharpness tiers and 0.0), 3 (720p), 4 (540p) and 1, batches of 4 at s = 2
    and 3, and an odd 37×53 frame, on the bench frame and seeded noise, with
-   the count of differing bytes;
+   the count of differing bytes; the bf16 3×3 conv (≤ 1 bf16 ulp, as
+   conv_cuda.ulp_tolerance states it) with ReLU on and off, with and without
+   round_sum, Cout 128, 256 and 1024, N = 1 and 4, at the learned tier's
+   trunk grids (270×480, 135×240) and a ragged 27×40, on seeded weights and
+   on the committed tpu4b2 / tpu4 weights;
 4. the main path through the entry points a user calls: PyWgpuUpscaler
    upscale / upscale_batch (lanczos3, ≥50 dB against the float64 golden),
    WgpuFrameInterpolator.interpolate_py (blend) and the fused LivePipeline
@@ -47,12 +51,25 @@ Phases, each printed on its own line with its seconds:
    default preset and 1080p under "tall8x32", on the card against the CPU
    (≥50 dB RGB). On the host clock and CUDA events: the FSR upscale latency
    and frames per second, and the live FSR output fps;
+4d. the learned "ultra" tier, its launch counts read on their own:
+   create_advanced_upscaler("ultra") with learned_prefer = "ultra" at
+   1080p→4K (x2, tpu4b2: 7 conv launches per frame) and 540p→4K (x4, tpu4:
+   9), upscale and upscale_batch of 4; the served bytes against the same
+   graph on the conv's plain version on the card (≥ 45 dB RGB, alpha equal)
+   and against the port's fp32 twin, ESRGANLiteTPU.forward (≥ 42 dB at x2,
+   ≥ 40 dB at x4: the JAX side's gates); upscale_batch equal to 4 upscale
+   calls; on the host clock the upscale(bytes) latency and the upscale_arr
+   device frames per second;
 5. times: per kernel the median of 20 CUDA-event timings after 3 warm-ups,
    the plain version's time, and the bound (the larger of bytes moved over
-   the memory rate and fp32 operations over the fp32 rate);
-6. torch.profiler traces of 7 fused live steps, of 7 flow_soft live steps
-   and of 7 FSR + flow_soft live steps: the device's busy share, kernel
-   launches per step and device time by kernel and copy.
+   the memory rate and operations over the rate of their type: fp32, or
+   bf16 on the tensor cores for the conv); for the conv, at each shape of
+   the learned path, also F.conv2d's time (bf16, channels-last, bias) as the
+   library's yardstick, which the port never calls;
+6. torch.profiler traces of 7 fused live steps, of 7 flow_soft live steps,
+   of 7 FSR + flow_soft live steps and of 7 learned x2 upscale_arr calls:
+   the device's busy share, kernel launches per step and device time by
+   kernel and copy.
 
 The line before the last is the card's name and power limit; the one before
 that is the kernels' JSON; the last line is the result JSON. Without a CUDA
@@ -77,6 +94,7 @@ BATCH = 4
 SOURCE = "nu_scaler_tpu_torch/kernels/csrc/resample_fused.cu"
 SOFT_SOURCE = "nu_scaler_tpu_torch/kernels/csrc/soft_warp.cu"
 FSR_SOURCE = "nu_scaler_tpu_torch/kernels/csrc/fsr.cu"
+CONV_SOURCE = "nu_scaler_tpu_torch/kernels/csrc/conv3x3.cu"
 REPLACES = {
     "resample_fused": "nu_scaler_tpu/kernels/resample_pallas.py:268",
     "resample_fused_batched": "nu_scaler_tpu/kernels/resample_pallas.py:139",
@@ -84,6 +102,7 @@ REPLACES = {
     "soft_warp_blend": "nu_scaler_tpu/kernels/soft_warp_pallas.py:984",
     "fsr": "nu_scaler_tpu/kernels/fsr_pallas.py:207",
     "fsr_batched": "nu_scaler_tpu/kernels/fsr_pallas.py:246",
+    "conv3x3": "nu_scaler_tpu/kernels/conv_pallas.py:50",
 }
 FSR_GATE_DB, FSR_GATE_LSB = 40.0, 12  # the JAX side's psnr_fsr_db contract
 # the FSR path's other sizes: 720p→4K (s = 3) and 540p (s = 4 in phase 3)
@@ -97,6 +116,12 @@ SPLIT_STEPS = 10
 # Published peaks (NVIDIA data sheets): device memory bytes/s, fp32 FLOP/s
 # outside the tensor cores. The H100 SXM row is the default.
 PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H200": (4.8e12, 67e12), "H100": (3.35e12, 67e12)}
+# bf16 FLOP/s on the tensor cores, dense (NVIDIA data sheets: H100 SXM and
+# H200 989 TFLOP/s, H100 PCIe 756)
+BF16_PEAKS = {"H100 PCIe": 756e12, "H200": 989e12, "H100": 989e12}
+# the learned tier: (upscale, input h, w, arch, step, the JAX side's twin gate)
+LEARNED = ((2, IN_H, IN_W, "tpu4b2", 76000, 42.0), (4, *SIZES["540p"], "tpu4", 52000, 40.0))
+LEARNED_GATE_DB = 45.0  # kernel path against the plain path, RGB
 T_START = time.perf_counter()
 
 
@@ -283,6 +308,35 @@ def trace_steps(torch, pipe, frames, path) -> dict:
     return busy
 
 
+def trace_calls(torch, fn, arg, n: int, path) -> dict:
+    """One profiler window over n calls of fn(arg) (outputs left on the
+    card), after a first call outside the window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(arg)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(arg)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    path.parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    busy = device_busy(path, wall_us)
+    busy["wall_us_per_call"] = wall_us / n
+    if busy.get("kernel_launches") is not None:
+        busy["kernel_launches_per_call"] = busy["kernel_launches"] / n
+    return busy
+
+
+def conv_work(n: int, h: int, w: int, cin: int, cout: int) -> tuple[int, int]:
+    """(bytes, bf16 tensor-core operations) of one 3×3 conv: the input, the
+    weights and the bias read once, the output written once (bf16); 2·9·Cin
+    operations per output value."""
+    return 2 * (n * h * w * (cin + cout) + 9 * cin * cout + cout), 2 * 9 * cin * cout * n * h * w
+
+
 def soft_warp_work(torch, swc, a, tiles, t: float, tile, k: int, rng: int) -> tuple[int, int]:
     """(bytes, fp32 operations) the soft warp needs on these inputs: frames a
     and b read once, the output written once, the tile arrays read once; per
@@ -338,13 +392,16 @@ def main() -> int:
         PyFsrUpscaler,
         PyWgpuUpscaler,
         WgpuFrameInterpolator,
+        create_advanced_upscaler,
         create_fsr_upscaler,
     )
     from nu_scaler_tpu_torch.kernels import _build
+    from nu_scaler_tpu_torch.kernels import conv_cuda as cc
     from nu_scaler_tpu_torch.kernels import fsr_cuda as fc
     from nu_scaler_tpu_torch.kernels import reference as ref
     from nu_scaler_tpu_torch.kernels import resample_cuda as rc
     from nu_scaler_tpu_torch.kernels import soft_warp_cuda as swc
+    from nu_scaler_tpu_torch.models import esrgan_lite as pel
     from nu_scaler_tpu_torch.ops import interpolate as interp
     from nu_scaler_tpu_torch.ops import resample
     from nu_scaler_tpu_torch.runtime.streaming import LivePipeline
@@ -363,8 +420,10 @@ def main() -> int:
         check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
         card = smi.stdout.strip().splitlines()[0]
         mem_bw, f32_rate = next((v for k, v in PEAKS.items() if k in kind), PEAKS["H100"])
+        bf16_rate = next((v for k, v in BF16_PEAKS.items() if k in kind), BF16_PEAKS["H100"])
         say(f"card: {kind} x{count}; nvidia-smi: {card}; torch {torch.__version__} "
-            f"cuda {torch.version.cuda}; peaks {mem_bw:.3g} B/s, {f32_rate:.3g} fp32 FLOP/s")
+            f"cuda {torch.version.cuda}; peaks {mem_bw:.3g} B/s, {f32_rate:.3g} fp32 FLOP/s, "
+            f"{bf16_rate:.3g} bf16 FLOP/s")
 
     with Phase("2 build"):
         built = _build.build()  # one nvcc per source, all started together
@@ -476,6 +535,52 @@ def main() -> int:
             check(max_d <= 1, f"fsr: {max_d} LSB")
             row = "fsr_batched" if batched else "fsr"
             errs[row] = max(errs[row], max_d)
+
+        # the bf16 conv: seeded weights, and the committed ones as the
+        # learned path feeds them (head, a block's conv, tail at x2 and x4)
+        served = {u: pel.make_pretrained_upscaler(h_, w_, u * h_, u * w_, "ultra", dev).serving
+                  for u, h_, w_, *_ in LEARNED}
+
+        def seeded(n_, h_, w_, cin, cout):
+            x = torch.from_numpy(rng.standard_normal((n_, h_, w_, cin), np.float32)).to(dev)
+            k = torch.from_numpy(rng.standard_normal((3, 3, cin, cout), np.float32) * 0.05).to(dev)
+            b = torch.from_numpy(rng.standard_normal(cout, np.float32) * 0.1).to(dev)
+            return tuple(t.to(torch.bfloat16) for t in (x, k, b))
+
+        def act(n_, h_, w_, cin):  # trunk-like activations, |x| up to ~4
+            return (torch.from_numpy(rng.standard_normal((n_, h_, w_, cin), np.float32)).to(dev)
+                    .to(torch.bfloat16))
+
+        th2, tw2 = IN_H // 4, IN_W // 4
+        th4, tw4 = LEARNED[1][1] // 4, LEARNED[1][2] // 4
+        conv_cases = []
+        for relu in (True, False):
+            for rs in (True, False):
+                conv_cases.append((f"seeded 1x{th2}x{tw2} 128->128", *seeded(1, th2, tw2, 128, 128), relu, rs))
+        conv_cases += [
+            ("seeded 4x27x40 128->256 (ragged)", *seeded(4, 27, 40, 128, 256), False, True),
+            ("seeded 1x27x40 128->128 (ragged)", *seeded(1, 27, 40, 128, 128), True, False),
+            ("seeded 4x27x40 128->1024 (ragged)", *seeded(4, 27, 40, 128, 1024), False, False),
+            (f"tpu4b2 head 1x{th2}x{tw2}", act(1, th2, tw2, 128), *served[2].head, False, True),
+            (f"tpu4b2 block0.conv1 4x{th2}x{tw2}", act(BATCH, th2, tw2, 128), *served[2].blocks[0][0], True, True),
+            (f"tpu4b2 tail 1x{th2}x{tw2} 128->256", act(1, th2, tw2, 128), *served[2].tail, False, True),
+            (f"tpu4 block2.conv2 1x{th4}x{tw4}", act(1, th4, tw4, 128), *served[4].blocks[2][1], False, True),
+            (f"tpu4 tail 4x{th4}x{tw4} 128->1024", act(BATCH, th4, tw4, 128), *served[4].tail, False, True),
+        ]
+        errs["conv3x3"] = 0.0
+        for name, x, k, b, relu, rs in conv_cases:
+            kout = cc.conv3x3(x, k, b, relu, rs)
+            pout = cc.conv3x3_plain(x, k, b, relu, rs)
+            torch.cuda.synchronize()
+            check(kout.shape == pout.shape and kout.dtype == torch.bfloat16, f"conv3x3 {name}: shape")
+            d = (kout.float() - pout.float()).abs()
+            tol = cc.ulp_tolerance(x, k, pout, rs)
+            over, max_d = int((d > tol).sum().item()), float(d.max().item())
+            say(f"conv3x3 [{name}] relu={relu} round_sum={rs}: {int((d > 0).sum().item())} of "
+                f"{d.numel()} values differ, max {max_d:.6g}, max |d|/tol "
+                f"{float((d / tol.clamp_min(1e-30)).max().item()):.3f}, over the bound {over}")
+            check(over == 0 and bool(torch.isfinite(kout.float()).all()), f"conv3x3 {name}: {over} over")
+            errs["conv3x3"] = max(errs["conv3x3"], max_d)
 
     with Phase("4 main path"):
         t0 = time.perf_counter()
@@ -765,6 +870,74 @@ def main() -> int:
             "live_fsr_flow_soft_output_fps_device": live_fps(torch, make_fsr_pipe, live_in, False),
         }))
 
+    with Phase("4d learned path"):
+        # the app's "ultra" learned tier, x2 from 1080p and x4 from 540p; the
+        # counts are read for this path on its own
+        torch.cuda.empty_cache()
+        learned_in = {2: frames["a"], 4: sized["540p"]}
+        ups = {}
+        for u, h_, w_, arch, ckpt_step, _ in LEARNED:
+            ups[u] = create_advanced_upscaler("ultra")
+            ups[u].learned_prefer = "ultra"
+            ups[u].initialize(w_, h_, u * w_, u * h_)
+            check(ups[u]._serving_tier == "learned" and ups[u]._fn.arch == arch
+                  and ups[u]._fn.step == ckpt_step, f"x{u}: {ups[u]._serving_tier} {ups[u]._fn.arch}")
+        batch4 = [np.roll(learned_in[2], 16 * i, axis=1).tobytes() for i in range(BATCH)]
+        cc.reset_launches()
+        l_out = {u: ups[u].upscale(learned_in[u].tobytes()) for u in ups}
+        l_batch = ups[2].upscale_batch(batch4)
+        torch.cuda.synchronize()
+        learned_counts = dict(cc.launches)
+        per_frame = {u: ups[u]._fn.serving.convs_per_frame for u in ups}
+        say(f"launches on the learned path: {json.dumps(learned_counts)} "
+            f"(conv launches per frame or batch: {json.dumps(per_frame)})")
+        check(learned_counts["conv3x3"] == 2 * per_frame[2] + per_frame[4] and per_frame == {2: 7, 4: 9},
+              f"conv3x3 launches on the learned path: {learned_counts}")
+        check(all(ups[u]._serving_tier == "learned" and ups[u].get_quality_str() == "ultra" for u in ups),
+              "the adaptive ladder left the learned tier")
+
+        gates = {}
+        for u, h_, w_, arch, _, twin_gate in LEARNED:
+            got = np.frombuffer(l_out[u], np.uint8).reshape(u * h_, u * w_, 4)
+            model, _ = pel.load_model(arch, u)
+            plain_fn = pel.make_serving_fn_fused(model, h_, w_, dev, conv=cc.conv3x3_plain)
+            plain = plain_fn(torch.from_numpy(learned_in[u][None]).to(dev))[0].cpu().numpy()
+            x01 = torch.from_numpy(learned_in[u][None, ..., :3].astype(np.float32) / 255.0).to(dev)
+            twin = model.to(dev)(x01)[0]
+            twin_u8 = torch.clamp(torch.round(twin * 255.0), 0, 255).to(torch.uint8).cpu().numpy()
+            gates[f"x{u}_vs_plain_path_db"] = psnr(got, plain)
+            gates[f"x{u}_vs_plain_path_max_lsb"] = int(np.abs(got.astype(int) - plain).max())
+            gates[f"x{u}_alpha_equal"] = bool(np.array_equal(got[..., 3], plain[..., 3]))
+            gates[f"x{u}_vs_twin_db"] = psnr(got, twin_u8)
+            check(gates[f"x{u}_vs_plain_path_db"] >= LEARNED_GATE_DB and gates[f"x{u}_alpha_equal"],
+                  f"learned x{u} kernel path vs plain path: {gates[f'x{u}_vs_plain_path_db']:.2f} dB")
+            check(gates[f"x{u}_vs_twin_db"] >= twin_gate,
+                  f"learned x{u} vs twin: {gates[f'x{u}_vs_twin_db']:.2f} dB < {twin_gate}")
+            check(got.shape == (OUT_H, OUT_W, 4) and np.all(got[..., 3] == 255), f"learned x{u} shape/alpha")
+        singles = [ups[2].upscale(f) for f in batch4]
+        gates["x2_batch_equals_singles"] = l_batch == singles
+        say("learned gates: " + json.dumps(gates))
+        check(gates["x2_batch_equals_singles"], "learned upscale_batch != upscale of each frame")
+
+        # end to end: upscale(bytes) latency and upscale_arr device frames/s
+        e2e = {}
+        for u in ups:
+            lat = []
+            for _ in range(6):
+                t0 = time.perf_counter()
+                ups[u].upscale(learned_in[u].tobytes())
+                lat.append((time.perf_counter() - t0) * 1e3)
+            src = torch.from_numpy(learned_in[u]).to(dev)
+            ups[u].upscale_arr(src)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                ups[u].upscale_arr(src)
+            torch.cuda.synchronize()
+            e2e[f"learned_x{u}_upscale_bytes_ms_median"] = float(np.median(lat[1:]))
+            e2e[f"learned_x{u}_upscale_arr_fps_device"] = 20 / (time.perf_counter() - t0)
+        say("e2e learned: " + json.dumps(e2e))
+
     with Phase("5 times"):
         flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
         tables = 4 * (OUT_H * (1 + lz.kv) + OUT_W * (1 + lz.kh))
@@ -885,6 +1058,48 @@ def main() -> int:
         rows[-2].update({"ms_720p": ms, "plain_ms_720p": plain_ms, "bound_ms_720p": b_ms,
                          "bound_by_720p": b_by})
 
+        # the conv at each shape of the learned path, with the committed
+        # weights on trunk-like activations; F.conv2d (bf16, channels-last,
+        # bias) on the same inputs is the library's yardstick
+        main_shape = f"x2 block 1x{th2}x{tw2} 128->128"
+        conv_timed = {
+            main_shape: (1, th2, tw2, *served[2].blocks[0][1], False),
+            f"x2 tail 1x{th2}x{tw2} 128->256": (1, th2, tw2, *served[2].tail, False),
+            f"x2 block {BATCH}x{th2}x{tw2} 128->128": (BATCH, th2, tw2, *served[2].blocks[0][1], False),
+            f"x4 block 1x{th4}x{tw4} 128->128": (1, th4, tw4, *served[4].blocks[0][1], False),
+            f"x4 tail 1x{th4}x{tw4} 128->1024": (1, th4, tw4, *served[4].tail, False),
+        }
+        conv_ms = {}
+        for name, (n_, h_, w_, k, b, relu) in conv_timed.items():
+            x = act(n_, h_, w_, k.shape[2])
+            cin, cout = k.shape[2], k.shape[3]
+            moved, ops = conv_work(n_, h_, w_, cin, cout)
+            t_bytes, t_ops = moved / mem_bw * 1e3, ops / bf16_rate * 1e3
+            b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+            xc = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+            wc = k.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            lib_out = torch.nn.functional.conv2d(xc, wc, b, padding=1)
+            ker_out = cc.conv3x3(x, k, b, relu, True)
+            lib_d = float((lib_out.permute(0, 2, 3, 1).float() - ker_out.float()).abs().max().item())
+            ms = time_ms(torch, lambda: cc.conv3x3(x, k, b, relu, True), flush)
+            plain_ms = time_ms(torch, lambda: cc.conv3x3_plain(x, k, b, relu, True), flush)
+            lib_ms = time_ms(torch, lambda: torch.nn.functional.conv2d(xc, wc, b, padding=1), flush)
+            say(f"time conv3x3 [{name}]: {ms:.4f} ms (plain {plain_ms:.4f} ms; F.conv2d {lib_ms:.4f} ms, "
+                f"max |F.conv2d - kernel| {lib_d:.4g}; bound {b_ms:.4f} ms by {b_by}: {moved} bytes, "
+                f"{ops} bf16 operations; {100 * b_ms / ms:.1f}% of bound, "
+                f"{ops / ms / 1e9:.1f} TFLOP/s)")
+            conv_ms[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                             "bound_by": b_by}
+        main = conv_ms[main_shape]
+        rows.append({
+            "name": "conv3x3", "route": "cuda", "source": CONV_SOURCE, "replaces": REPLACES["conv3x3"],
+            "launches": learned_counts["conv3x3"], "max_abs_err": errs["conv3x3"], **main,
+            "inputs": f"a tpu4b2 block conv's committed weights on trunk-like activations, "
+                      f"1x{th2}x{tw2}x128 -> 128 (the x2 trunk grid of the input)",
+            "max_abs_err_units": "bf16 value, every value within conv_cuda.ulp_tolerance",
+            "shapes": conv_ms,
+        })
+
     with Phase("6 trace"):
         # profiler windows over 7 live steps each (host frames in, device
         # frames out): where a step's time goes, and the device's idle share
@@ -899,6 +1114,9 @@ def main() -> int:
         busy = trace_steps(torch, make_fsr_pipe(), live_in,
                            Path(_build.BUILD_DIR) / "fsr_flow_soft_trace.json")
         say("trace fsr + flow_soft: " + json.dumps(busy))
+        busy = trace_calls(torch, ups[2].upscale_arr, torch.from_numpy(frames["a"]).to(dev), 7,
+                           Path(_build.BUILD_DIR) / "learned_x2_trace.json")
+        say("trace learned x2 upscale_arr: " + json.dumps(busy))
 
     say(f"total {time.perf_counter() - T_START:.1f} s")
     say(json.dumps({"kernels": rows}))

@@ -8,12 +8,24 @@ from nu_scaler_tpu_torch.core._constants import (
     UpscalingQuality,
 )
 from nu_scaler_tpu_torch.core.interpolator import WgpuFrameInterpolator, create_interpolator
-from nu_scaler_tpu_torch.core.upscaler import PyFsrUpscaler, PyWgpuUpscaler, create_fsr_upscaler
+from nu_scaler_tpu_torch.core.upscaler import (
+    PyAdvancedWgpuUpscaler,
+    PyFsrUpscaler,
+    PyVramStats,
+    PyWgpuUpscaler,
+    create_advanced_upscaler,
+    create_best_upscaler,
+    create_fsr_upscaler,
+)
 
 __all__ = [
     "PyWgpuUpscaler",
     "PyFsrUpscaler",
+    "PyAdvancedWgpuUpscaler",
+    "PyVramStats",
     "create_fsr_upscaler",
+    "create_advanced_upscaler",
+    "create_best_upscaler",
     "WgpuFrameInterpolator",
     "create_interpolator",
     "UpscalingQuality",

@@ -1,6 +1,7 @@
-"""`PyWgpuUpscaler` and `PyFsrUpscaler` of the port — the API of
-`nu_scaler_core/upscaler.py` (the reference's PyO3 class) on the fused CUDA
-resample kernel and the fused FSR (EASU + RCAS) kernel.
+"""`PyWgpuUpscaler`, `PyFsrUpscaler` and `PyAdvancedWgpuUpscaler` of the
+port — the API of `nu_scaler_core/upscaler.py` (the reference's PyO3 classes)
+on the fused CUDA resample kernel, the fused FSR (EASU + RCAS) kernel and the
+learned tier's conv kernel.
 
 Contracts kept: case-insensitive constructor strings with silent fallbacks;
 `initialize` sets upscale_scale to the mean of the axis scales; the
@@ -18,8 +19,28 @@ import torch
 
 from nu_scaler_tpu_torch.core._constants import UpscalingQuality
 from nu_scaler_tpu_torch.device import resolve_device
+from nu_scaler_tpu_torch.models import esrgan_lite as _learned
 from nu_scaler_tpu_torch.ops import fsr as _fsr
 from nu_scaler_tpu_torch.ops import resample as _resample
+from nu_scaler_tpu_torch.runtime.detector import device_info
+from nu_scaler_tpu_torch.runtime.memory import AllocationStrategy, MemoryPool, MemoryPressure
+
+
+class PyVramStats:
+    """Parity with `PyVramStats` (gpu/memory.rs:732-765)."""
+
+    def __init__(self, total_mb: float, used_mb: float, free_mb: float, app_allocated_mb: float):
+        self.total_mb = float(total_mb)
+        self.used_mb = float(used_mb)
+        self.free_mb = float(free_mb)
+        self.app_allocated_mb = float(app_allocated_mb)
+        self.usage_percent = (used_mb / total_mb) * 100.0 if total_mb > 0 else 0.0
+
+    def __repr__(self) -> str:
+        return (
+            f"PyVramStats(total_mb={self.total_mb:.1f}, used_mb={self.used_mb:.1f}, "
+            f"free_mb={self.free_mb:.1f}, usage={self.usage_percent:.1f}%)"
+        )
 
 
 class PyWgpuUpscaler:
@@ -183,3 +204,200 @@ class PyFsrUpscaler(PyWgpuUpscaler):
 def create_fsr_upscaler(quality: str, device=None) -> PyFsrUpscaler:
     """The `fsr` technology tier of the app."""
     return PyFsrUpscaler(quality, device)
+
+
+class PyAdvancedWgpuUpscaler(PyWgpuUpscaler):
+    """`PyAdvancedWgpuUpscaler` (`nu_scaler_core/upscaler.py:200-441`): device
+    detection, memory stats, allocation strategy, adaptive quality and
+    cleanup, and the learned tier.
+
+    Quality "ultra" serves the learned network (`models/esrgan_lite.py`) for
+    the ladder named by `learned_prefer` (set by the caller, as the app's
+    facade does; default "quality"). The port serves the "ultra" ladder
+    (bf16, through the conv kernel); any other learned request, ratio or
+    frame size it does not serve raises `NotImplementedError` naming its
+    ROADMAP item, at `initialize`: there is no silent classical fallback.
+    Other qualities run the classical resample kernel."""
+
+    _QUALITY_RANK = {
+        UpscalingQuality.ULTRA: 5,
+        UpscalingQuality.QUALITY: 4,
+        UpscalingQuality.BALANCED: 3,
+        UpscalingQuality.PERFORMANCE: 2,
+        UpscalingQuality.ULTRA_PERFORMANCE: 1,
+        UpscalingQuality.NATIVE: 0,
+    }
+    _DOWN = {
+        UpscalingQuality.ULTRA: UpscalingQuality.QUALITY,
+        UpscalingQuality.QUALITY: UpscalingQuality.BALANCED,
+        UpscalingQuality.BALANCED: UpscalingQuality.PERFORMANCE,
+    }
+    _UP = {
+        UpscalingQuality.QUALITY: UpscalingQuality.ULTRA,
+        UpscalingQuality.BALANCED: UpscalingQuality.QUALITY,
+        UpscalingQuality.PERFORMANCE: UpscalingQuality.BALANCED,
+        UpscalingQuality.ULTRA_PERFORMANCE: UpscalingQuality.PERFORMANCE,
+    }
+
+    def __init__(self, quality: str = "quality", algorithm: str = "nearest",
+                 adaptive_quality: bool = True, device=None):
+        super().__init__(quality, algorithm, device)
+        self._adaptive_quality = bool(adaptive_quality)
+        # the tier the user asked for: pressure may step below it and later
+        # back up to it, never beyond
+        self._requested_quality = self._quality
+        self.learned_prefer = "quality"
+        self._serving_tier = "classical"
+        self.recommended_quality = self._quality
+        self._pool = MemoryPool(self.device)
+        # "force GPU activation" at construction (lib.rs:370-375)
+        self._pool.force_gpu_usage()
+
+    # -- lifecycle --------------------------------------------------------
+
+    def initialize(
+        self, input_width: int, input_height: int, output_width: int, output_height: int
+    ) -> None:
+        super().initialize(input_width, input_height, output_width, output_height)
+        self._upscale_scale = output_width / input_width  # lib.rs:434 (width only)
+        self._serving_tier = "classical"
+        if self._quality == UpscalingQuality.ULTRA:
+            try:
+                self._fn = _learned.make_pretrained_upscaler(
+                    self.input_height, self.input_width, self.output_height, self.output_width,
+                    self.learned_prefer, self.device,
+                )
+            except NotImplementedError:
+                self._initialized = False  # nothing serves this request
+                raise
+            self._serving_tier = "learned"
+        self._pool.set_allocation_strategy(AllocationStrategy.for_frame(input_width, input_height))
+        self._pool.update_vram_usage(force=True)
+
+    def _rebuild_kernel(self) -> None:
+        # re-run the tier choice (classical kernel or learned tier)
+        self.initialize(self.input_width, self.input_height, self.output_width, self.output_height)
+
+    # -- core path --------------------------------------------------------
+
+    def upscale(self, data: bytes) -> bytes:
+        # pressure check before the work (lib.rs:492-501)
+        if self._pool.get_current_memory_pressure() in (MemoryPressure.HIGH, MemoryPressure.CRITICAL):
+            self.cleanup_memory()
+        out = super().upscale(data)
+        if self._adaptive_quality:
+            self._update_adaptive_quality()
+        return out
+
+    def upscale_batch(self, frames: Iterable[bytes]) -> list[bytes]:
+        """The learned tier takes the stacked batch through its graph in one
+        pass (one launch per conv layer); classical tiers take the batched
+        resample launch."""
+        if self._serving_tier != "learned":
+            return super().upscale_batch(frames)
+        self._check_ready()
+        stacked = np.stack([self._to_array(bytes(f)) for f in frames])
+        bfn = _learned.make_pretrained_batch_upscaler(
+            self.input_height, self.input_width, self.output_height, self.output_width,
+            self.learned_prefer, self.device,
+        )
+        out = bfn(stacked).cpu().numpy()
+        if self._adaptive_quality:
+            self._update_adaptive_quality()
+        return [out[i].tobytes() for i in range(out.shape[0])]
+
+    def _update_adaptive_quality(self) -> None:
+        """The memory-pressure quality ladder (upscale/mod.rs:355-409): above
+        85% usage one tier down, below 50% one tier back up toward (never
+        beyond) the requested quality. A change rebuilds the serving kernel,
+        so a downgraded ULTRA instance swaps the learned net for the
+        classical kernel on the next call, and back."""
+        pct = self._pool.get_vram_stats().usage_percent
+        new_q = self._quality
+        if pct > 85.0:
+            new_q = self._DOWN.get(self._quality, self._quality)
+        elif pct < 50.0:
+            cand = self._UP.get(self._quality, self._quality)
+            if self._QUALITY_RANK[cand] <= self._QUALITY_RANK[self._requested_quality]:
+                new_q = cand
+        self.recommended_quality = new_q
+        if new_q != self._quality:
+            self._quality = new_q
+            if self._initialized:
+                self._rebuild_kernel()
+
+    # -- advanced features ------------------------------------------------
+
+    def force_gpu_activation(self) -> None:
+        self._pool.force_gpu_usage()
+        self._pool.update_vram_usage(force=True)
+
+    def get_vram_stats(self) -> PyVramStats:
+        s = self._pool.get_vram_stats()
+        return PyVramStats(s.total_mb, s.used_mb, s.free_mb, s.app_allocated_mb)
+
+    def set_memory_strategy(self, strategy: str) -> None:
+        self._pool.set_allocation_strategy(strategy)
+
+    def get_vram_usage_percent(self) -> float:
+        return self._pool.get_vram_stats().usage_percent
+
+    @property
+    def adaptive_quality(self) -> bool:
+        return self._adaptive_quality
+
+    @adaptive_quality.setter
+    def adaptive_quality(self, enabled: bool) -> None:
+        self._adaptive_quality = bool(enabled)
+
+    def cleanup_memory(self) -> None:
+        self._pool.cleanup_memory()
+
+    def get_quality_str(self) -> str:
+        return self._quality.value
+
+    @property
+    def quality(self) -> str:
+        return self._quality.value
+
+    @quality.setter
+    def quality(self, q: str) -> None:
+        self._quality = UpscalingQuality.parse(q)
+        self._requested_quality = self._quality
+        if self._initialized:
+            self._rebuild_kernel()
+
+    def update_gpu_stats(self) -> None:
+        self._pool.update_vram_usage(force=True)
+
+    def get_gpu_info(self) -> dict:
+        """Dict-key parity with lib.rs:667-704, for the device this instance
+        runs on."""
+        d = device_info(self.device).as_dict()
+        d["allocated_buffers"] = self._pool.get_allocated_buffers_count()
+        d["allocated_bytes"] = self._pool.get_allocated_bytes()
+        s = self._pool.get_vram_stats()
+        d["total_vram_mb"] = s.total_mb
+        d["used_vram_mb"] = s.used_mb
+        d["free_vram_mb"] = s.free_mb
+        return d
+
+    def force_cleanup(self) -> None:
+        self.cleanup_memory()
+        self._pool.update_vram_usage(force=True)
+
+    def get_native_device_handle(self) -> torch.device:
+        """The `torch.device` this instance runs on (the role of
+        `GpuResources::get_native_device_handle`, gpu/mod.rs:103-240)."""
+        return self.device
+
+
+def create_advanced_upscaler(quality: str, device=None) -> PyAdvancedWgpuUpscaler:
+    """lib.rs:737-740."""
+    return PyAdvancedWgpuUpscaler(quality, "bilinear", True, device)
+
+
+def create_best_upscaler(quality: str, device=None) -> PyAdvancedWgpuUpscaler:
+    """The function the reference's benchmark calls (`create_best_upscaler`,
+    provided by `nu_scaler_core/upscaler.py`)."""
+    return PyAdvancedWgpuUpscaler(quality, "bilinear", True, device)

@@ -67,6 +67,13 @@ SIGNATURES = {
             _F32, _INT, _VP, _VP,  # sharp, mix, dst, stream
         ],
     },
+    "conv3x3": {
+        "nu_conv3x3": [
+            _INT, _VP, _VP, _VP, _VP,  # device, x, k, b, out
+            _INT, _INT, _INT, _INT, _INT, _INT, _INT,  # n, h, w, cin, cout, relu, round_sum
+            _VP,  # stream
+        ],
+    },
 }
 
 

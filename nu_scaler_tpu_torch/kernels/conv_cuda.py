@@ -1,0 +1,171 @@
+"""Wrapper of the bf16 tensor-core 3×3 conv kernel (`csrc/conv3x3.cu`) and
+its plain PyTorch version.
+
+`conv3x3` replaces `nu_scaler_tpu/kernels/conv_pallas.py:50` make_conv3x3
+(→ `_make_kernel` :26): a 3×3 SAME (zero padding) convolution of bf16 NHWC
+``[N, H, W, Cin]`` with bf16 HWIO weights ``[3, 3, Cin, Cout]`` and a bf16
+bias ``[Cout]`` to bf16 ``[N, H, W, Cout]``, Cin and Cout multiples of 128.
+What both versions compute, in the Pallas kernel's order of rounding: the 9
+taps' products summed in fp32 (bf16 × bf16 is exact in fp32), the bias added
+in fp32 after the sum, then ReLU if asked, then one rounding to bf16. With
+``round_sum=True`` the sum is rounded to bf16 first and the bias is added to
+it in bf16: the rounding of the JAX serving graph, whose XLA conv returns
+bf16 before its separate bias add (`esrgan_lite.py:1025-1030`). The learned
+tier serves that form; it moves the served bytes by up to 12 LSB against
+the single rounding (on the trained tpu4b2 x2 weights, 40.4 dB against JAX's
+served bytes with one rounding, 68.2 dB with two, on a 32×64 noise frame).
+
+The sums run in another order in the kernel (tensor-core fragments over
+32-channel chunks) than in the plain version (9 fp32 matmuls), so the two
+agree to one bf16 ulp, or, where the sum cancels, to a small multiple of the
+fp32 rounding of the terms' magnitude: `ulp_tolerance` states the bound. A
+wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+import torch.nn.functional as F
+
+# Launches since the last `reset_launches()`; the wrapper adds one where it
+# launches its kernel and nowhere else.
+launches = {"conv3x3": 0}
+
+LANES = 128  # Cin and Cout must be multiples of this (the Pallas kernel's rule)
+# the cancellation term of the tolerance: 2^-20 of Σ|x|·|w| at the element
+CANCEL_REL = 2.0 ** -20
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch version
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def full_fp32_matmul():
+    """fp32 matmuls in full fp32 (no TF32 on the card) inside the block."""
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(old)
+
+
+def conv_valid_f32(xp: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """3×3 VALID conv of `xp` [N, H + 2, W + 2, Cin] (already padded) with
+    `k` [3, 3, Cin, Cout]: Σ over the 9 taps of the shifted
+    ``[P, Cin] · [Cin, Cout]`` products, in fp32 on their values → fp32
+    [N, H, W, Cout]."""
+    n, h, w, cin = xp.shape[0], xp.shape[1] - 2, xp.shape[2] - 2, xp.shape[3]
+    xp, kf = xp.float(), k.float()
+    acc = None
+    with full_fp32_matmul():
+        for dy in range(3):
+            for dx in range(3):
+                tap = xp[:, dy : dy + h, dx : dx + w, :].reshape(-1, cin) @ kf[dy, dx]
+                acc = tap if acc is None else acc.add_(tap)
+    return acc.reshape(n, h, w, -1)
+
+
+def conv3x3_f32(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """3×3 SAME (zero padding) conv of `x` [N, H, W, Cin] in fp32 → fp32
+    [N, H, W, Cout]."""
+    return conv_valid_f32(F.pad(x.float(), (0, 0, 1, 1, 1, 1)), k)
+
+
+def conv3x3_plain(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor, relu: bool,
+                  round_sum: bool = False) -> torch.Tensor:
+    """The kernel's function in PyTorch ops: bf16 in, fp32 sums (rounded to
+    bf16 with `round_sum`), bias then ReLU in fp32, one rounding to bf16."""
+    acc = conv3x3_f32(x, k)
+    if round_sum:
+        acc = acc.to(torch.bfloat16).float()
+    acc = acc + b.float()
+    if relu:
+        acc = torch.clamp_min(acc, 0.0)
+    return acc.to(torch.bfloat16)
+
+
+def ulp_bf16(v: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at |v| (fp32 out; 0 where v is 0)."""
+    v = v.float().abs()
+    _, e = torch.frexp(v)
+    return torch.where(v > 0, torch.exp2((e - 8).float()), torch.zeros_like(v))
+
+
+def ulp_tolerance(x: torch.Tensor, k: torch.Tensor, plain: torch.Tensor,
+                  round_sum: bool = False) -> torch.Tensor:
+    """The bound "≤ 1 bf16 ulp" of kernel against plain, per element:
+    max(ulp_bf16(|plain|), 2⁻²⁰ · Σ|x|·|w|), the second term for sums that
+    cancel, where fp32 sums in another order differ by more than one ulp of
+    a small result. With `round_sum`, one bf16 ulp of the sum is added: the
+    two sums may round to neighbouring bf16 values before the bias."""
+    tol = torch.maximum(ulp_bf16(plain), CANCEL_REL * conv3x3_f32(x.abs(), k.abs()))
+    return tol + ulp_bf16(conv3x3_f32(x, k)) if round_sum else tol
+
+
+# ---------------------------------------------------------------------------
+# kernel wrapper
+# ---------------------------------------------------------------------------
+
+
+def check_inputs(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor) -> None:
+    for name, t in (("x", x), ("k", k), ("b", b)):
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: expected a bfloat16 torch.Tensor")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous tensor")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+    if x.dim() != 4 or 0 in x.shape:
+        raise ValueError(f"x: expected NHWC [N, H, W, Cin], got {tuple(x.shape)}")
+    cin = x.shape[-1]
+    if k.dim() != 4 or k.shape[:3] != (3, 3, cin):
+        raise ValueError(f"k: expected HWIO [3, 3, {cin}, Cout], got {tuple(k.shape)}")
+    cout = k.shape[-1]
+    if tuple(b.shape) != (cout,):
+        raise ValueError(f"b: expected [{cout}], got {tuple(b.shape)}")
+    if cin % LANES or cout % LANES:
+        raise ValueError(f"the conv kernel takes Cin and Cout in multiples of {LANES}, "
+                         f"got {cin} and {cout}")
+
+
+def _launch(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor, relu: bool,
+            round_sum: bool) -> torch.Tensor:
+    if x.device.type != "cuda":
+        raise RuntimeError(f"the CUDA kernel needs a CUDA tensor, got {x.device}")
+    from nu_scaler_tpu_torch.kernels import _build
+
+    lib = _build.load_library("conv3x3")
+    n, h, w, cin = x.shape
+    cout = k.shape[-1]
+    out = torch.empty((n, h, w, cout), dtype=torch.bfloat16, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.nu_conv3x3(
+        x.device.index or 0, x.data_ptr(), k.data_ptr(), b.data_ptr(), out.data_ptr(),
+        n, h, w, cin, cout, int(relu), int(round_sum), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"conv3x3 launch failed: {lib.nu_cuda_error_string(err).decode()} ({err})")
+    return out
+
+
+def conv3x3(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor, relu: bool = False,
+            round_sum: bool = False) -> torch.Tensor:
+    """bf16 [N, H, W, Cin] → bf16 [N, H, W, Cout]: 3×3 SAME conv + bias
+    (+ ReLU), one launch (batch = grid z)."""
+    check_inputs(x, k, b)
+    if x.device.type == "cpu":
+        return conv3x3_plain(x, k, b, relu, round_sum)
+    out = _launch(x, k, b, relu, round_sum)
+    launches["conv3x3"] += 1
+    return out

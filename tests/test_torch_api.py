@@ -4,6 +4,7 @@ bytes as the JAX `nu_scaler_core` classes up to a stated bound."""
 
 import numpy as np
 import pytest
+import torch
 
 import nu_scaler_core as nsc
 from nu_scaler_tpu.kernels import reference as jref
@@ -17,7 +18,9 @@ def _up(*args, **kw):
 
 def test_module_surface():
     for name in ["PyWgpuUpscaler", "WgpuFrameInterpolator", "create_interpolator", "UpscalingQuality",
-                 "QUALITY_ULTRA", "QUALITY_QUALITY", "QUALITY_BALANCED", "QUALITY_PERFORMANCE"]:
+                 "QUALITY_ULTRA", "QUALITY_QUALITY", "QUALITY_BALANCED", "QUALITY_PERFORMANCE",
+                 "PyAdvancedWgpuUpscaler", "PyVramStats", "create_advanced_upscaler",
+                 "create_best_upscaler"]:
         assert hasattr(pc, name), f"missing export: {name}"
 
 
@@ -191,3 +194,149 @@ def test_interpolator_warp_tile_matches_core(preset):
     want = nsc.WgpuFrameInterpolator(preset)
     assert got.workgroup_preset == want.workgroup_preset
     assert got.warp_tile == want.warp_tile
+
+
+# -- PyAdvancedWgpuUpscaler: the learned "ultra" tier and the adaptive ladder
+
+
+def _ultra(w=32, h=32, ow=64, oh=64, quality="ultra"):
+    up = pc.create_advanced_upscaler(quality, device="cpu")
+    up.learned_prefer = "ultra"
+    up.initialize(w, h, ow, oh)
+    return up
+
+
+def test_advanced_ultra_serves_the_learned_tier(rng):
+    """create_advanced_upscaler("ultra") with learned_prefer = "ultra" gives
+    the bytes of the served function (tpu4b2 at x2, tpu4 at x4)."""
+    from nu_scaler_tpu_torch.models import esrgan_lite as pel
+
+    for (w, h, ow, oh), arch in (((64, 32, 128, 64), "tpu4b2"), ((32, 16, 128, 64), "tpu4")):
+        up = _ultra(w, h, ow, oh)
+        assert up._serving_tier == "learned" and up._fn.arch == arch
+        assert up.upscale_scale == ow / w
+        img = rng.integers(0, 256, (h, w, 4), np.uint8)
+        want = pel.make_pretrained_upscaler(h, w, oh, ow, device="cpu")(img).numpy().tobytes()
+        assert up.upscale(img.tobytes()) == want
+        assert torch.equal(up.upscale_arr(img), torch.from_numpy(np.frombuffer(want, np.uint8).reshape(oh, ow, 4).copy()))
+
+
+def test_advanced_learned_batch_equals_frames(rng):
+    up = _ultra(64, 32, 128, 64)
+    frames = [rng.integers(0, 256, (32, 64, 4), np.uint8).tobytes() for _ in range(3)]
+    outs = up.upscale_batch(frames)
+    assert len(outs) == 3 and all(len(o) == 128 * 64 * 4 for o in outs)
+    assert outs == [up.upscale(f) for f in frames]
+
+
+def test_advanced_adaptive_downgrade_swaps_serving_tier(pattern, monkeypatch):
+    """As tests/test_api.py checks the JAX class: pressure above 85% steps
+    ultra → quality (the learned net swapped for the classical kernel) →
+    balanced; below 50% back up to the requested tier, never beyond."""
+    import types
+
+    up = _ultra()
+    assert up._serving_tier == "learned"
+    learned_fn = up._fn
+    fake = types.SimpleNamespace(usage_percent=95.0, total_mb=100.0, used_mb=95.0, free_mb=5.0,
+                                 app_allocated_mb=0.0)
+    monkeypatch.setattr(up._pool, "get_vram_stats", lambda: fake)
+    up.upscale(pattern(32, 32).tobytes())
+    assert up.get_quality_str() == "quality" and up.recommended_quality == pc.QUALITY_QUALITY
+    assert up._serving_tier == "classical" and up._fn is not learned_fn
+    out = up.upscale(pattern(32, 32).tobytes())
+    assert len(out) == 64 * 64 * 4
+    assert up.get_quality_str() == "balanced"
+    fake.usage_percent, fake.used_mb = 30.0, 30.0
+    up.upscale(pattern(32, 32).tobytes())  # balanced -> quality
+    up.upscale(pattern(32, 32).tobytes())  # quality -> ultra (the requested tier)
+    assert up.get_quality_str() == "ultra" and up._serving_tier == "learned"
+    up.upscale(pattern(32, 32).tobytes())
+    assert up.get_quality_str() == "ultra"  # never beyond the requested tier
+
+
+def test_advanced_adaptive_upgrade_capped_at_requested(pattern, monkeypatch):
+    import types
+
+    up = pc.PyAdvancedWgpuUpscaler("balanced", "bilinear", True, device="cpu")
+    up.initialize(16, 16, 32, 32)
+    fake = types.SimpleNamespace(usage_percent=20.0, total_mb=100.0, used_mb=20.0, free_mb=80.0,
+                                 app_allocated_mb=0.0)
+    monkeypatch.setattr(up._pool, "get_vram_stats", lambda: fake)
+    up.upscale(pattern(16, 16).tobytes())
+    assert up.get_quality_str() == "balanced" and up._serving_tier == "classical"
+
+
+@pytest.mark.parametrize("prefer, sizes, item", [
+    ("quality", (32, 32, 64, 64), 14),      # the default: the int8 ladder
+    ("performance", (32, 32, 64, 64), 14),
+    ("ultra", (32, 32, 96, 96), 9),          # x3 lands on no exact ratio
+    ("ultra", (30, 30, 60, 60), 9),          # stride 4 does not divide 30
+])
+def test_advanced_unported_learned_requests_raise(prefer, sizes, item):
+    """An unported learned request raises at initialize, naming its ROADMAP
+    item, and leaves the instance uninitialized: no classical stand-in."""
+    up = pc.create_advanced_upscaler("ultra", device="cpu")
+    up.learned_prefer = prefer
+    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}\\b"):
+        up.initialize(*sizes)
+    with pytest.raises(RuntimeError, match="Upscaler not initialized"):
+        up.upscale(b"\x00" * (sizes[0] * sizes[1] * 4))
+
+
+def test_advanced_classical_tier_matches_core(rng):
+    """Below ultra the advanced class runs the bilinear resample, as
+    nu_scaler_core's does (within the resample's 2 LSB bound)."""
+    img = rng.integers(0, 256, (24, 32, 4), np.uint8)
+    outs = []
+    for up in (pc.create_advanced_upscaler("quality", device="cpu"), nsc.create_advanced_upscaler("quality")):
+        up.initialize(32, 24, 64, 48)
+        assert up._serving_tier == "classical" and up.upscale_scale == 2.0
+        outs.append(np.frombuffer(up.upscale(img.tobytes()), np.uint8).astype(np.int32))
+    assert np.abs(outs[0] - outs[1]).max() <= 2
+
+
+def test_advanced_stats_and_info_keys():
+    up = pc.create_best_upscaler("balanced", device="cpu")
+    ref = nsc.create_best_upscaler("balanced")
+    up.initialize(16, 16, 32, 32)
+    ref.initialize(16, 16, 32, 32)
+    assert sorted(up.get_gpu_info()) == sorted(ref.get_gpu_info())
+    s = up.get_vram_stats()
+    assert isinstance(s, pc.PyVramStats) and s.total_mb > 0 and s.free_mb <= s.total_mb
+    assert 0.0 <= up.get_vram_usage_percent() <= 100.0 and "PyVramStats(total_mb=" in repr(s)
+    assert up.get_native_device_handle() == torch.device("cpu")
+    assert up._pool.strategy.value == "aggressive"  # a 16x16 frame
+    up.initialize(2560, 1440, 5120, 2880)
+    assert up._pool.strategy.value == "balanced"
+    up.set_memory_strategy("bogus")
+    assert up._pool.strategy.value == "balanced"
+    up.adaptive_quality = False
+    assert not up.adaptive_quality
+    up.quality = "Performance"
+    assert up.quality == "performance" and up._requested_quality == pc.QUALITY_PERFORMANCE
+    for call in (up.cleanup_memory, up.force_cleanup, up.update_gpu_stats, up.force_gpu_activation):
+        call()
+
+
+@pytest.mark.parametrize("pct, level", [(0.0, "Low"), (49.9, "Low"), (50.0, "Medium"), (74.9, "Medium"),
+                                        (75.0, "High"), (89.9, "High"), (90.0, "Critical")])
+def test_memory_pressure_thresholds_match_jax(pct, level):
+    from nu_scaler_tpu.runtime import memory as jmem
+    from nu_scaler_tpu_torch.runtime import memory as pmem
+
+    assert pmem.MemoryPressure.from_percent(pct).value == level
+    assert jmem.MemoryPressure.from_percent(pct).value == level
+
+
+def test_detector_lists_the_host():
+    from nu_scaler_tpu_torch.runtime import detector
+
+    det = detector.DeviceDetector()
+    infos = det.detect_gpus()
+    assert infos[-1].platform == "cpu" and det.get_primary_device() is not None
+    if not torch.cuda.is_available():
+        assert det.get_primary_device() == torch.device("cpu")
+        assert det.determine_best_upscaling_technology() == "fallback"
+    assert set(infos[-1].as_dict()) == {"name", "vendor", "device_type", "backend", "vendor_id",
+                                        "device_id", "driver_info", "is_discrete"}

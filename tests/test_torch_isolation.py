@@ -17,7 +17,7 @@ from nu_scaler_tpu_torch.kernels import _build
 from nu_scaler_tpu_torch.ops import resample
 
 PKG = Path(nu_scaler_tpu_torch.__file__).resolve().parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "nu_scaler_tpu", "nu_scaler_core")
+FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "nu_scaler_tpu", "nu_scaler_core")
 
 
 def _forbidden(name: str) -> bool:
@@ -27,7 +27,9 @@ def _forbidden(name: str) -> bool:
 def test_import_leaves_jax_side_out():
     code = (
         "import sys, nu_scaler_tpu_torch, nu_scaler_tpu_torch.core, "
-        "nu_scaler_tpu_torch.runtime.streaming, nu_scaler_tpu_torch.kernels._build; "
+        "nu_scaler_tpu_torch.runtime.streaming, nu_scaler_tpu_torch.kernels._build, "
+        "nu_scaler_tpu_torch.models.esrgan_lite, nu_scaler_tpu_torch.kernels.conv_cuda, "
+        "nu_scaler_tpu_torch.runtime.detector, nu_scaler_tpu_torch.runtime.memory; "
         "print('\\n'.join(sys.modules))"
     )
     proc = subprocess.run(
@@ -72,6 +74,23 @@ def test_cuda_without_a_card_raises(monkeypatch):
         nu_scaler_tpu_torch.resolve_device("meta")
 
 
+def test_learned_tier_needs_a_card_by_default(monkeypatch):
+    """The learned tier and the advanced upscaler default to the card and
+    raise without one; the conv launcher refuses a CPU tensor."""
+    from nu_scaler_tpu_torch.kernels import conv_cuda
+    from nu_scaler_tpu_torch.models import esrgan_lite
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        core.create_advanced_upscaler("ultra")
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        esrgan_lite.make_pretrained_upscaler(32, 64, 64, 128, "ultra")
+    x = torch.zeros((1, 4, 4, 128), dtype=torch.bfloat16)
+    k = torch.zeros((3, 3, 128, 128), dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="needs a CUDA tensor"):
+        conv_cuda._launch(x, k, k[0, 0, 0].contiguous(), False, True)
+
+
 def test_kernel_launch_needs_a_cuda_tensor():
     """The launcher refuses anything but a CUDA tensor before it builds."""
     from nu_scaler_tpu_torch.kernels import resample_cuda as rc
@@ -98,7 +117,7 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     finally:
         _build.load_library.cache_clear()
     paths = {name: _build.library_path(name) for name in _build.SIGNATURES}
-    assert sorted(paths) == ["fsr", "resample_fused", "soft_warp"]
+    assert sorted(paths) == ["conv3x3", "fsr", "resample_fused", "soft_warp"]
     assert len(set(paths.values())) == len(paths)
     for name, path in paths.items():
         assert path.parent == tmp_path and path.name.startswith(f"lib{name}_")
@@ -153,16 +172,23 @@ def test_kernel_source_is_plain_c():
     """One CUDA source per library, no PyTorch headers, a C entry point per
     wrapper call; every fp32 rounding written out, and each packing as its
     golden packs: the resample truncates and its blend rounds, the soft warp
-    rounds, FSR truncates."""
+    rounds, FSR truncates, the conv rounds to bf16 to nearest (its products
+    and sums are the tensor cores' own, fp32 accumulation)."""
     sources = sorted(p.name for p in PKG.rglob("*.cu*"))
-    assert sources == ["fsr.cu", "resample_fused.cu", "soft_warp.cu"]
-    packing = {"resample_fused": ("truncf", "rintf"), "soft_warp": ("rintf",), "fsr": ("truncf",)}
+    assert sources == ["conv3x3.cu", "fsr.cu", "resample_fused.cu", "soft_warp.cu"]
+    written_out = ("__fmul_rn", "__fadd_rn")
+    packing = {
+        "resample_fused": (*written_out, "truncf", "rintf"),
+        "soft_warp": (*written_out, "rintf"),
+        "fsr": (*written_out, "truncf"),
+        "conv3x3": ("__fadd_rn", "__float2bfloat16_rn", "wmma::mma_sync"),
+    }
     assert sorted(packing) == sorted(_build.SIGNATURES)
     for name, fns in _build.SIGNATURES.items():
         text = _build.source_path(name).read_text()
         assert "torch/extension.h" not in text and "#include <torch" not in text
         assert 'extern "C"' in text and "nu_cuda_error_string" in text
         assert all(fn in text for fn in fns)
-        assert np.all([s in text for s in ("__fmul_rn", "__fadd_rn", *packing[name])])
+        assert np.all([s in text for s in packing[name]])
     fsr = _build.source_path("fsr").read_text()
     assert np.all([s in fsr for s in ("__fsub_rn", "__fdiv_rn", "__fsqrt_rn")])

@@ -1,0 +1,93 @@
+"""Export the learned tier's serving checkpoints for the PyTorch port.
+
+The port (`nu_scaler_tpu_torch`) imports neither JAX nor orbax, so it reads
+its weights from numpy files committed inside its package. This tool
+restores the orbax checkpoints the JAX package serves as its "ultra" tier
+(`nu_scaler_tpu.models.train.load_checkpoint`) and writes, per checkpoint,
+
+    nu_scaler_tpu_torch/weights/esrgan_{arch}_x{upscale}_{step}.npz
+    nu_scaler_tpu_torch/weights/esrgan_{arch}_x{upscale}_{step}.json
+
+The npz holds every parameter as float32 under its flax path joined by "/"
+(``head/kernel``, ``block0/conv1/bias``, ...), exactly as restored. The JSON
+sidecar records the arch, the stage count, the upscale, the model's keyword
+arguments, the step and the npz's sha256, which the port checks on load.
+
+Run it where JAX and orbax are installed, from the root of the checkout:
+
+    python tools/export_torch_weights.py
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import sys
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parents[1]
+OUT_DIR = ROOT / "nu_scaler_tpu_torch" / "weights"
+
+# (arch, stages, step the JAX package serves, model kwargs): the "ultra"
+# ladder's checkpoints (esrgan_lite.py _ARCH_LADDER["ultra"]): tpu4b2 at x2,
+# tpu4 at x4 (there is no tpu4b2 x4 checkpoint)
+EXPORTS = (
+    ("tpu4b2", 1, 76000, dict(stride=4, features=128, blocks=2)),
+    ("tpu4", 2, 52000, dict(stride=4, features=128, blocks=3)),
+)
+
+
+def flatten(tree, prefix: str = "") -> dict:
+    """Nested mapping of arrays → {"a/b/c": float32 array}, the "params"
+    level dropped."""
+    if "params" in tree and prefix == "":
+        tree = tree["params"]
+    flat = {}
+    for key, val in tree.items():
+        path = f"{prefix}{key}"
+        if hasattr(val, "items"):
+            flat.update(flatten(val, path + "/"))
+        else:
+            flat[path] = np.asarray(val, np.float32)
+    return flat
+
+
+def export(arch: str, stages: int, step: int, kwargs: dict, out_dir: Path = OUT_DIR) -> Path:
+    sys.path.insert(0, str(ROOT))
+    from nu_scaler_tpu.models.train import load_checkpoint
+
+    restored = load_checkpoint(stages, arch)
+    if restored is None:
+        raise FileNotFoundError(f"no checkpoint for {arch} x{2 ** stages}")
+    params, got_step = restored
+    if got_step != step:
+        raise ValueError(f"{arch} x{2 ** stages}: latest step is {got_step}, expected {step}")
+    flat = flatten(params)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    stem = out_dir / f"esrgan_{arch}_x{2 ** stages}_{step}"
+    npz = stem.with_suffix(".npz")
+    np.savez(npz, **flat)
+    meta = {
+        "arch": arch,
+        "stages": stages,
+        "upscale": 2 ** stages,
+        "model": kwargs,
+        "step": step,
+        "parameters": int(sum(a.size for a in flat.values())),
+        "sha256": hashlib.sha256(npz.read_bytes()).hexdigest(),
+    }
+    stem.with_suffix(".json").write_text(json.dumps(meta, indent=1) + "\n")
+    return npz
+
+
+def main() -> int:
+    for arch, stages, step, kwargs in EXPORTS:
+        npz = export(arch, stages, step, kwargs)
+        print(f"{npz.relative_to(ROOT)}: {npz.stat().st_size} bytes")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
