@@ -9,8 +9,8 @@ Phases, each printed on its own line with its seconds:
 
 1. the card: its name, and its power limit as nvidia-smi reports it;
 2. the build: one nvcc call per source under nu_scaler_tpu_torch/kernels/csrc/
-   (resample_fused.cu, soft_warp.cu, fsr.cu, conv3x3.cu), all started
-   together, into build/nu_scaler_tpu_torch/;
+   (resample_fused.cu, soft_warp.cu, fsr.cu, conv3x3.cu, trunk_fused.cu,
+   resample_twopass.cu), all started together, into build/nu_scaler_tpu_torch/;
 3. each kernel wrapper against its plain PyTorch version on the card, at
    1080p→4K: lanczos3, bilinear and nearest single frames (nearest bit-exact,
    the others ≤1 LSB), a batch of 4, and the blend epilogue with t = 0.5 and
@@ -24,7 +24,14 @@ Phases, each printed on its own line with its seconds:
    conv_cuda.ulp_tolerance states it) with ReLU on and off, with and without
    round_sum, Cout 128, 256 and 1024, N = 1 and 4, at the learned tier's
    trunk grids (270×480, 135×240) and a ragged 27×40, on seeded weights and
-   on the committed tpu4b2 / tpu4 weights;
+   on the committed tpu4b2 / tpu4 weights; the fused trunk (within
+   trunk_cuda.ulp_tolerance, bf16 ulps of the output, with the share of
+   values bit-equal to the plain version and to the chain of conv3x3
+   launches) at ×2 (1×270×480, 2 blocks, Cout 256), ×4 (1×135×240, 3 blocks,
+   Cout 1024), N = 4 at ×2 and a ragged 27×40, both roundings, on seeded
+   weights and on the committed weights fed the s2d of frames; the two-call
+   resample at 1080p→4K (lanczos3, bilinear, nearest, a batch of 4): bit-equal
+   to resample_fused or ≤ 1 LSB of the plain version (nearest bit-exact);
 4. the main path through the entry points a user calls: PyWgpuUpscaler
    upscale / upscale_batch (lanczos3, ≥50 dB against the float64 golden),
    WgpuFrameInterpolator.interpolate_py (blend) and the fused LivePipeline
@@ -58,18 +65,31 @@ Phases, each printed on its own line with its seconds:
    graph on the conv's plain version on the card (≥ 45 dB RGB, alpha equal)
    and against the port's fp32 twin, ESRGANLiteTPU.forward (≥ 42 dB at x2,
    ≥ 40 dB at x4: the JAX side's gates); upscale_batch equal to 4 upscale
-   calls; on the host clock the upscale(bytes) latency and the upscale_arr
-   device frames per second;
+   calls. Then the same tier with trunk_impl="fused" (make_pretrained_upscaler
+   and make_pretrained_batch_upscaler at x2 and x4), its counts read on their
+   own: one trunk_fused launch and no conv3x3 launch per call; its bytes
+   against the layered path's (≥ 50 dB RGB, alpha equal) and the twin (≥ 42 /
+   40 dB). On the host clock the upscale(bytes) latency and the upscale_arr
+   device frames per second of both trunk_impls;
+4e. the two-call resample (make_twopass_resampler, the counterpart of the
+   JAX package's make_pallas_resampler) at 1080p→4K lanczos3, a frame and a
+   batch of 4, its counts read on their own (two launches a call), against
+   the float64 golden (≥ 50 dB), and its device frames per second (the
+   counterpart of bench.py's pallas_twocall_lanczos3_fps);
 5. times: per kernel the median of 20 CUDA-event timings after 3 warm-ups,
    the plain version's time, and the bound (the larger of bytes moved over
    the memory rate and operations over the rate of their type: fp32, or
    bf16 on the tensor cores for the conv); for the conv, at each shape of
    the learned path, also F.conv2d's time (bf16, channels-last, bias) as the
-   library's yardstick, which the port never calls;
+   library's yardstick, which the port never calls; the fused trunk at ×2,
+   ×4 and N = 4 against the same chain as conv3x3 launches and as F.conv2d
+   calls (no single PyTorch call computes it), and at ×2 and ×4 with other
+   tiles than its planner's (the same bytes); the two-call resample, both
+   launches and each alone, against resample_fused;
 6. torch.profiler traces of 7 fused live steps, of 7 flow_soft live steps,
-   of 7 FSR + flow_soft live steps and of 7 learned x2 upscale_arr calls:
-   the device's busy share, kernel launches per step and device time by
-   kernel and copy.
+   of 7 FSR + flow_soft live steps and of 7 learned x2 upscale_arr calls,
+   with the layered and with the fused trunk: the device's busy share,
+   kernel launches per step and device time by kernel and copy.
 
 The line before the last is the card's name and power limit; the one before
 that is the kernels' JSON; the last line is the result JSON. Without a CUDA
@@ -95,6 +115,8 @@ SOURCE = "nu_scaler_tpu_torch/kernels/csrc/resample_fused.cu"
 SOFT_SOURCE = "nu_scaler_tpu_torch/kernels/csrc/soft_warp.cu"
 FSR_SOURCE = "nu_scaler_tpu_torch/kernels/csrc/fsr.cu"
 CONV_SOURCE = "nu_scaler_tpu_torch/kernels/csrc/conv3x3.cu"
+TRUNK_SOURCE = "nu_scaler_tpu_torch/kernels/csrc/trunk_fused.cu"
+TWOPASS_SOURCE = "nu_scaler_tpu_torch/kernels/csrc/resample_twopass.cu"
 REPLACES = {
     "resample_fused": "nu_scaler_tpu/kernels/resample_pallas.py:268",
     "resample_fused_batched": "nu_scaler_tpu/kernels/resample_pallas.py:139",
@@ -103,6 +125,8 @@ REPLACES = {
     "fsr": "nu_scaler_tpu/kernels/fsr_pallas.py:207",
     "fsr_batched": "nu_scaler_tpu/kernels/fsr_pallas.py:246",
     "conv3x3": "nu_scaler_tpu/kernels/conv_pallas.py:50",
+    "trunk_fused": "nu_scaler_tpu/kernels/conv_pallas.py:183",
+    "resample_twopass": "nu_scaler_tpu/kernels/resample_pallas.py:65",
 }
 FSR_GATE_DB, FSR_GATE_LSB = 40.0, 12  # the JAX side's psnr_fsr_db contract
 # the FSR path's other sizes: 720p→4K (s = 3) and 540p (s = 4 in phase 3)
@@ -122,6 +146,7 @@ BF16_PEAKS = {"H100 PCIe": 756e12, "H200": 989e12, "H100": 989e12}
 # the learned tier: (upscale, input h, w, arch, step, the JAX side's twin gate)
 LEARNED = ((2, IN_H, IN_W, "tpu4b2", 76000, 42.0), (4, *SIZES["540p"], "tpu4", 52000, 40.0))
 LEARNED_GATE_DB = 45.0  # kernel path against the plain path, RGB
+FUSED_TRUNK_GATE_DB = 50.0  # trunk_impl="fused" against "layers", RGB
 T_START = time.perf_counter()
 
 
@@ -337,6 +362,25 @@ def conv_work(n: int, h: int, w: int, cin: int, cout: int) -> tuple[int, int]:
     return 2 * (n * h * w * (cin + cout) + 9 * cin * cout + cout), 2 * 9 * cin * cout * n * h * w
 
 
+def trunk_work(x, params) -> tuple[int, int]:
+    """(bytes, bf16 tensor-core operations) of the fused trunk on x
+    [N, H, W, cin]: x, every layer's weights and bias read once, the output
+    written once (bf16); each layer's operations as `conv_work` counts them."""
+    n, h, w = x.shape[0], x.shape[1], x.shape[2]
+    ops = sum(conv_work(n, h, w, k.shape[2], k.shape[3])[1] for k in params[::2])
+    weights = sum(k.numel() for k in params[::2]) + sum(b.numel() for b in params[1::2])
+    return 2 * (x.numel() + weights + n * h * w * params[-1].shape[0]), ops
+
+
+def conv2d(x, k, b, relu: bool, round_sum: bool):
+    """F.conv2d (bf16, channels-last NCHW, OIHW weights) in the kernel's call
+    form, the library's yardstick for the trunk chain: its own rounding."""
+    import torch
+
+    y = torch.nn.functional.conv2d(x, k, b, padding=1)
+    return torch.relu(y) if relu else y
+
+
 def soft_warp_work(torch, swc, a, tiles, t: float, tile, k: int, rng: int) -> tuple[int, int]:
     """(bytes, fp32 operations) the soft warp needs on these inputs: frames a
     and b read once, the output written once, the tile arrays read once; per
@@ -401,6 +445,7 @@ def main() -> int:
     from nu_scaler_tpu_torch.kernels import reference as ref
     from nu_scaler_tpu_torch.kernels import resample_cuda as rc
     from nu_scaler_tpu_torch.kernels import soft_warp_cuda as swc
+    from nu_scaler_tpu_torch.kernels import trunk_cuda as tc
     from nu_scaler_tpu_torch.models import esrgan_lite as pel
     from nu_scaler_tpu_torch.ops import interpolate as interp
     from nu_scaler_tpu_torch.ops import resample
@@ -582,6 +627,79 @@ def main() -> int:
             check(over == 0 and bool(torch.isfinite(kout.float()).all()), f"conv3x3 {name}: {over} over")
             errs["conv3x3"] = max(errs["conv3x3"], max_d)
 
+        # the fused trunk: seeded weights on trunk-like activations, and the
+        # committed ones on the served graph's input (the s2d of frames), at
+        # the learned path's grids, a batch of 4 and a ragged 27x40
+        def seeded_params(blocks, cout):
+            out = []
+            for layer in range(tc.depth(blocks)):
+                co = cout if layer == tc.depth(blocks) - 1 else 128
+                k = rng.standard_normal((3, 3, 128, co), np.float32) * 0.05
+                b = rng.standard_normal(co, np.float32) * 0.1
+                out += [torch.from_numpy(a).to(dev).to(torch.bfloat16) for a in (k, b)]
+            return tuple(out)
+
+        def s2d_in(u, keys):  # the trunk's input in the served graph of x{u}
+            return served[u].trunk_input(torch.stack([on_dev[k] for k in keys]))[1]
+
+        ragged4 = pel.make_serving_fn_fused(pel.load_model("tpu4", 4)[0], 108, 160, dev).trunk_input(
+            torch.from_numpy(rng.integers(0, 256, (1, 108, 160, 4), np.uint8)).to(dev))[1]
+        trunk_cases = [
+            (f"seeded 1x{th2}x{tw2} 2 blocks ->256", act(1, th2, tw2, 128), seeded_params(2, 256), 2,
+             (True, False)),
+            (f"seeded 1x{th4}x{tw4} 3 blocks ->1024", act(1, th4, tw4, 128), seeded_params(3, 1024), 3,
+             (False,)),
+            ("seeded 4x27x40 2 blocks ->256 (ragged)", act(BATCH, 27, 40, 128), seeded_params(2, 256), 2,
+             (True, False)),
+            (f"tpu4b2, s2d of a, 1x{th2}x{tw2}", s2d_in(2, ("a",)), served[2].trunk_params, 2, (True, False)),
+            (f"tpu4b2, s2d of n1, 1x{th2}x{tw2}", s2d_in(2, ("n1",)), served[2].trunk_params, 2, (True,)),
+            (f"tpu4b2, s2d of a b n1 n2, 4x{th2}x{tw2}", s2d_in(2, ("a", "b", "n1", "n2")),
+             served[2].trunk_params, 2, (True,)),
+            (f"tpu4, s2d of 540p, 1x{th4}x{tw4}", s2d_in(4, ("540p",)), served[4].trunk_params, 3,
+             (True, False)),
+            (f"tpu4, s2d of 540p-noise, 1x{th4}x{tw4}", s2d_in(4, ("540p-noise",)), served[4].trunk_params,
+             3, (True,)),
+            ("tpu4, s2d of noise, 1x27x40 (ragged)", ragged4, served[4].trunk_params, 3, (True,)),
+        ]
+        errs["trunk_fused"] = 0.0
+        for name, x, params, blocks, roundings in trunk_cases:
+            for rs in roundings:
+                kout = tc.trunk_fused(x, params, blocks, rs)
+                pout = tc.trunk_fused_plain(x, params, blocks, rs)
+                chain = tc.trunk_chain(cc.conv3x3, x, params, blocks, rs)
+                torch.cuda.synchronize()
+                check(kout.shape == pout.shape and kout.dtype == torch.bfloat16, f"trunk_fused {name}: shape")
+                d = (kout.float() - pout.float()).abs()
+                tol = tc.ulp_tolerance(pout)
+                over, max_d = int((d > tol).sum().item()), float(d.max().item())
+                say(f"trunk_fused [{name}] round_sum={rs}: max |d| {max_d:.6g}, max |d|/tol "
+                    f"{float((d / tol).max().item()):.3f} (tol {float(tol):.6g} = {tc.TOL_ULPS} ulps of "
+                    f"max |plain| {float(pout.float().abs().max().item()):.6g}), bit-equal "
+                    f"{float((d == 0).double().mean().item()):.7f}; bit-equal to the chain of "
+                    f"{tc.depth(blocks)} conv3x3 launches {float((kout == chain).double().mean().item()):.7f}; "
+                    f"over the bound {over}")
+                check(over == 0 and bool(torch.isfinite(kout.float()).all()), f"trunk_fused {name}: {over} over")
+                errs["trunk_fused"] = max(errs["trunk_fused"], max_d)
+
+        # the two-call resample against resample_fused and the plain version
+        errs["resample_twopass"] = 0
+        two_cases = [(algo, key, on_dev[key]) for algo in plans for key in ("a", "n1")]
+        two_cases.append(("lanczos3", "a+b+n1+n2", batch))
+        for algo, key, src in two_cases:
+            plan = plans[algo]
+            k = rc.resample_twopass(src, plan)
+            f = (rc.resample_fused_batched if src.dim() == 4 else rc.resample_fused)(src, plan)
+            p = rc.resample_plain(src, plan)
+            torch.cuda.synchronize()
+            max_d, exact = diff_stats(k, p)
+            n_diff = int((k != p).sum().item())
+            same = bool(torch.equal(k, f))
+            say(f"resample_twopass {algo} [{key}] {tuple(src.shape)}: equal to resample_fused {same}; "
+                f"vs plain max {max_d} LSB, {n_diff} bytes differ, exact {exact:.7f}")
+            check(max_d == 0 if algo == "nearest" else (same or max_d <= 1),
+                  f"resample_twopass {algo}: {max_d} LSB, equal to resample_fused {same}")
+            errs["resample_twopass"] = max(errs["resample_twopass"], max_d)
+
     with Phase("4 main path"):
         t0 = time.perf_counter()
         wv = torch.from_numpy(ref.filter_weights(IN_H, OUT_H, "lanczos3")).cuda().double()
@@ -610,7 +728,8 @@ def main() -> int:
             live_out += pipe.put(f)
         live_out += pipe.drain()
         torch.cuda.synchronize()
-        counts = dict(rc.launches)
+        counts = {k: rc.launches[k] for k in ("resample_fused", "resample_fused_batched",
+                                              "resample_fused_blend")}
         say(f"launches on the main path: {json.dumps(counts)}")
         check(all(n > 0 for n in counts.values()), f"a kernel of the path never ran: {counts}")
 
@@ -896,7 +1015,7 @@ def main() -> int:
         check(all(ups[u]._serving_tier == "learned" and ups[u].get_quality_str() == "ultra" for u in ups),
               "the adaptive ladder left the learned tier")
 
-        gates = {}
+        gates, twins = {}, {}
         for u, h_, w_, arch, _, twin_gate in LEARNED:
             got = np.frombuffer(l_out[u], np.uint8).reshape(u * h_, u * w_, 4)
             model, _ = pel.load_model(arch, u)
@@ -905,6 +1024,7 @@ def main() -> int:
             x01 = torch.from_numpy(learned_in[u][None, ..., :3].astype(np.float32) / 255.0).to(dev)
             twin = model.to(dev)(x01)[0]
             twin_u8 = torch.clamp(torch.round(twin * 255.0), 0, 255).to(torch.uint8).cpu().numpy()
+            twins[u] = twin_u8
             gates[f"x{u}_vs_plain_path_db"] = psnr(got, plain)
             gates[f"x{u}_vs_plain_path_max_lsb"] = int(np.abs(got.astype(int) - plain).max())
             gates[f"x{u}_alpha_equal"] = bool(np.array_equal(got[..., 3], plain[..., 3]))
@@ -919,7 +1039,55 @@ def main() -> int:
         say("learned gates: " + json.dumps(gates))
         check(gates["x2_batch_equals_singles"], "learned upscale_batch != upscale of each frame")
 
-        # end to end: upscale(bytes) latency and upscale_arr device frames/s
+        # the same tier with the whole trunk in one kernel (trunk_impl="fused");
+        # the counts are read for it on its own: one trunk_fused launch and no
+        # conv3x3 launch per call
+        fused_ups = {u: pel.make_pretrained_upscaler(h_, w_, u * h_, u * w_, "ultra", dev, "fused")
+                     for u, h_, w_, *_ in LEARNED}
+        fused_batch = pel.make_pretrained_batch_upscaler(IN_H, IN_W, OUT_H, OUT_W, "ultra", dev, "fused")
+        check(all(f.serving.trunk_impl == "fused" and f.arch == ups[u]._fn.arch for u, f in fused_ups.items()),
+              "the fused trunk's upscalers")
+        batch4_arr = np.stack([np.frombuffer(f, np.uint8).reshape(IN_H, IN_W, 4) for f in batch4])
+        cc.reset_launches()
+        tc.reset_launches()
+        f_out, per_call = {}, []
+        for u in fused_ups:
+            f_out[u] = fused_ups[u](learned_in[u]).cpu().numpy()
+            per_call.append((tc.launches["trunk_fused"], cc.launches["conv3x3"]))
+        f_batch = fused_batch(batch4_arr).cpu().numpy()
+        per_call.append((tc.launches["trunk_fused"], cc.launches["conv3x3"]))
+        torch.cuda.synchronize()
+        fused_counts = {**tc.launches, **cc.launches}
+        say(f"launches on the fused-trunk learned path: {json.dumps(fused_counts)} (running "
+            f"(trunk_fused, conv3x3) after x2, x4, the x2 batch of 4: {per_call})")
+        check(per_call == [(1, 0), (2, 0), (3, 0)], f"fused trunk launches: {per_call}")
+
+        fgates = {}
+        for u, h_, w_, arch, _, twin_gate in LEARNED:
+            got = f_out[u]
+            layered = np.frombuffer(l_out[u], np.uint8).reshape(u * h_, u * w_, 4)
+            fgates[f"x{u}_fused_vs_layers_db"] = psnr(got, layered)
+            fgates[f"x{u}_fused_vs_layers_equal"] = float((got == layered).mean())
+            fgates[f"x{u}_fused_alpha_equal"] = bool(np.array_equal(got[..., 3], layered[..., 3]))
+            fgates[f"x{u}_fused_vs_twin_db"] = psnr(got, twins[u])
+            check(got.shape == (OUT_H, OUT_W, 4) and np.all(got[..., 3] == 255), f"fused x{u} shape/alpha")
+            check(fgates[f"x{u}_fused_vs_layers_db"] >= FUSED_TRUNK_GATE_DB and fgates[f"x{u}_fused_alpha_equal"],
+                  f"fused x{u} vs layers: {fgates[f'x{u}_fused_vs_layers_db']:.2f} dB")
+            check(fgates[f"x{u}_fused_vs_twin_db"] >= twin_gate,
+                  f"fused x{u} vs twin: {fgates[f'x{u}_fused_vs_twin_db']:.2f} dB < {twin_gate}")
+        l_batch_arr = [np.frombuffer(f, np.uint8).reshape(OUT_H, OUT_W, 4) for f in l_batch]
+        fgates["x2_batch_fused_vs_layers_db"] = min(psnr(x, y) for x, y in zip(f_batch, l_batch_arr))
+        fgates["x2_batch_fused_alpha_equal"] = all(
+            np.array_equal(x[..., 3], y[..., 3]) for x, y in zip(f_batch, l_batch_arr))
+        fgates["x2_batch_first_equals_single"] = bool(np.array_equal(f_batch[0], f_out[2]))
+        say("learned fused-trunk gates: " + json.dumps(fgates))
+        check(fgates["x2_batch_fused_vs_layers_db"] >= FUSED_TRUNK_GATE_DB
+              and fgates["x2_batch_fused_alpha_equal"], "fused batch vs layered batch")
+        check(fgates["x2_batch_first_equals_single"], "fused batch[0] != the fused single frame")
+
+        # end to end: upscale(bytes) latency and upscale_arr device frames/s,
+        # the layered and the fused trunk (the same call, upscale_arr's
+        # self._fn(arr))
         e2e = {}
         for u in ups:
             lat = []
@@ -927,16 +1095,48 @@ def main() -> int:
                 t0 = time.perf_counter()
                 ups[u].upscale(learned_in[u].tobytes())
                 lat.append((time.perf_counter() - t0) * 1e3)
-            src = torch.from_numpy(learned_in[u]).to(dev)
-            ups[u].upscale_arr(src)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(20):
-                ups[u].upscale_arr(src)
-            torch.cuda.synchronize()
             e2e[f"learned_x{u}_upscale_bytes_ms_median"] = float(np.median(lat[1:]))
-            e2e[f"learned_x{u}_upscale_arr_fps_device"] = 20 / (time.perf_counter() - t0)
+            src = torch.from_numpy(learned_in[u]).to(dev)
+            for impl, fn in (("", ups[u].upscale_arr), ("_fused", fused_ups[u])):
+                fn(src)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(20):
+                    fn(src)
+                torch.cuda.synchronize()
+                e2e[f"learned_x{u}{impl}_upscale_arr_fps_device"] = 20 / (time.perf_counter() - t0)
         say("e2e learned: " + json.dumps(e2e))
+
+    with Phase("4e two-call resample path"):
+        # the counterpart of make_pallas_resampler at 1080p→4K lanczos3; the
+        # counts are read for this path on its own (two launches a call)
+        two = resample.make_twopass_resampler(IN_H, IN_W, OUT_H, OUT_W, "lanczos3")
+        rc.reset_launches()
+        two_a = two(frames["a"]).cpu().numpy()
+        two_batch = two(np.stack([frames[k] for k in ("a", "b", "n1", "n2")])).cpu().numpy()
+        torch.cuda.synchronize()
+        two_counts = dict(rc.launches)
+        say(f"launches on the two-call path: {json.dumps(two_counts)}")
+        check(two_counts["resample_twopass"] == 4 and sum(two_counts.values()) == 4,
+              f"two-call launches: {two_counts}")
+        tgates = {"twocall_vs_golden_db": psnr(two_a, g["a"]),
+                  "twocall_max_lsb": int(np.abs(two_a.astype(int) - g["a"]).max()),
+                  "twocall_batch_b_vs_golden_db": psnr(two_batch[1], g["b"]),
+                  "twocall_equals_fused_upscale": bool(np.array_equal(two_a, out_a)),
+                  "twocall_batch_first_equals_single": bool(np.array_equal(two_batch[0], two_a))}
+        src = on_dev["a"]
+        two(src)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            two(src)
+        torch.cuda.synchronize()
+        tgates["twocall_lanczos3_fps_device"] = 20 / (time.perf_counter() - t0)
+        say("two-call gates: " + json.dumps(tgates))
+        check(tgates["twocall_vs_golden_db"] >= PSNR_GATE_DB
+              and tgates["twocall_batch_b_vs_golden_db"] >= PSNR_GATE_DB,
+              f"two-call resample vs golden: {tgates['twocall_vs_golden_db']:.2f} dB")
+        check(tgates["twocall_batch_first_equals_single"], "two-call batch[0] != the single frame")
 
     with Phase("5 times"):
         flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -1100,6 +1300,90 @@ def main() -> int:
             "shapes": conv_ms,
         })
 
+        # the fused trunk at the learned path's inputs (the committed weights
+        # on the s2d of the bench frame, round_sum as served), against the
+        # same chain as conv3x3 launches and as F.conv2d calls
+        trunk_timed = {
+            "x2": (s2d_in(2, ("a",)), served[2].trunk_params, 2),
+            "x4": (s2d_in(4, ("540p",)), served[4].trunk_params, 3),
+            f"x2 N={BATCH}": (s2d_in(2, ("a", "b", "n1", "n2")), served[2].trunk_params, 2),
+        }
+        trunk_ms = {}
+        for name, (x, params, blocks) in trunk_timed.items():
+            moved, ops = trunk_work(x, params)
+            t_bytes, t_ops = moved / mem_bw * 1e3, ops / bf16_rate * 1e3
+            b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+            # F.conv2d's operands: channels-last NCHW, OIHW weights
+            xc = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+            convs = [t.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                     if t.dim() == 4 else t for t in params]
+            ms = time_ms(torch, lambda: tc.trunk_fused(x, params, blocks, True), flush)
+            chain_ms = time_ms(torch, lambda: tc.trunk_chain(cc.conv3x3, x, params, blocks, True), flush)
+            lib_ms = time_ms(torch, lambda: tc.trunk_chain(conv2d, xc, convs, blocks), flush)
+            plain_ms = time_ms(torch, lambda: tc.trunk_fused_plain(x, params, blocks, True), flush)
+            tile = tc.tile_plan(*x.shape[:3], blocks, x.shape[3], params[0].shape[-1], params[-1].shape[0],
+                                tc.BLOCKS_PER_SM * torch.cuda.get_device_properties(dev).multi_processor_count)
+            say(f"time trunk_fused [{name}] {tuple(x.shape)}, {tc.depth(blocks)} layers, tile (h, w, grid) "
+                f"{tile}: {ms:.4f} ms (the chain of {tc.depth(blocks)} conv3x3 launches {chain_ms:.4f} ms; "
+                f"of {tc.depth(blocks)} F.conv2d calls {lib_ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+                f"{b_ms:.4f} ms by {b_by}: {moved} bytes, {ops} bf16 operations; {100 * b_ms / ms:.1f}% of "
+                f"bound, {ops / ms / 1e9:.1f} TFLOP/s)")
+            trunk_ms[name] = {"ms": ms, "plain_ms": plain_ms, "conv3x3_chain_ms": chain_ms,
+                              "library_chain_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by, "tile": tile}
+        # the planner's tile against others it weighed: every tile must give
+        # the planned tile's bytes
+        by_tile = {}
+        for name, tiles in (("x2", ((16, 32), (8, 32), (16, 48), (24, 32), (32, 32))),
+                            ("x4", ((8, 16), (16, 16), (8, 32), (16, 32)))):
+            x, params, blocks = trunk_timed[name]
+            planned = tc.trunk_fused(x, params, blocks, True)
+            for tile in tiles:
+                check(torch.equal(tc._launch(x, params, blocks, True, tile), planned),
+                      f"trunk_fused {name}: tile {tile} changes the bytes")
+                by_tile[f"{name} {tile}"] = time_ms(
+                    torch, lambda: tc._launch(x, params, blocks, True, tile), flush)
+        say("time trunk_fused by tile (ms; every tile gives the planned tile's bytes): "
+            + json.dumps(by_tile))
+        main = {k: v for k, v in trunk_ms["x2"].items() if k != "tile"}
+        rows.append({
+            "name": "trunk_fused", "route": "cuda", "source": TRUNK_SOURCE, "replaces": REPLACES["trunk_fused"],
+            "launches": fused_counts["trunk_fused"], "max_abs_err": errs["trunk_fused"], **main,
+            # no single PyTorch call computes the trunk: library_chain_ms is
+            # the same chain as 7 (x2) or 9 (x4) F.conv2d calls
+            "library_ms": None,
+            "inputs": f"the committed tpu4b2 weights on the s2d of the bench frame, 1x{th2}x{tw2}x128 -> "
+                      f"256, 2 blocks, round_sum (the x2 serving graph's trunk)",
+            "max_abs_err_units": "bf16 value, every value within trunk_cuda.ulp_tolerance",
+            "shapes": trunk_ms, "ms_by_tile": by_tile,
+        })
+
+        # the two-call resample at the main path's input (the bench frame,
+        # 1080p→4K lanczos3): both launches, each alone, and resample_fused
+        single4 = single[None]
+        mid = rc._launch_vert(single4, 1, lz)
+        b_ms, b_by = bound(1, 0)
+        inter = 2 * OUT_H * IN_W * 4 * 4  # the fp32 intermediate, written once and read once
+        b_inter = (frame_in + frame_out + tables + inter) / mem_bw * 1e3
+        ms = time_ms(torch, lambda: rc.resample_twopass(single, lz), flush)
+        vert_ms = time_ms(torch, lambda: rc._launch_vert(single4, 1, lz), flush)
+        horiz_ms = time_ms(torch, lambda: rc._launch_horiz(mid, 1, lz), flush)
+        fused_ms = time_ms(torch, lambda: rc.resample_fused(single, lz), flush)
+        plain_ms = time_ms(torch, lambda: rc.resample_plain(single, lz), flush)
+        say(f"time resample_twopass lanczos3: {ms:.4f} ms (vertical {vert_ms:.4f}, horizontal "
+            f"{horiz_ms:.4f}; resample_fused {fused_ms:.4f}; plain {plain_ms:.4f}; bound {b_ms:.4f} ms by "
+            f"{b_by}, {b_inter:.4f} ms with the fp32 intermediate; {100 * b_ms / ms:.1f}% and "
+            f"{100 * b_inter / ms:.1f}% of them)")
+        rows.append({
+            "name": "resample_twopass", "route": "cuda", "source": TWOPASS_SOURCE,
+            "replaces": REPLACES["resample_twopass"], "launches": two_counts["resample_twopass"],
+            "max_abs_err": errs["resample_twopass"], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by,
+            # no single PyTorch call computes a filter-table resample
+            "library_ms": None, "inputs": "bench frame 1080p→4K lanczos3, two launches a call",
+            "ms_vertical": vert_ms, "ms_horizontal": horiz_ms, "resample_fused_ms": fused_ms,
+            "bound_ms_with_intermediate": b_inter,
+        })
+
     with Phase("6 trace"):
         # profiler windows over 7 live steps each (host frames in, device
         # frames out): where a step's time goes, and the device's idle share
@@ -1117,6 +1401,9 @@ def main() -> int:
         busy = trace_calls(torch, ups[2].upscale_arr, torch.from_numpy(frames["a"]).to(dev), 7,
                            Path(_build.BUILD_DIR) / "learned_x2_trace.json")
         say("trace learned x2 upscale_arr: " + json.dumps(busy))
+        busy = trace_calls(torch, fused_ups[2], torch.from_numpy(frames["a"]).to(dev), 7,
+                           Path(_build.BUILD_DIR) / "learned_x2_fused_trace.json")
+        say("trace learned x2 upscale_arr, trunk_impl=fused: " + json.dumps(busy))
 
     say(f"total {time.perf_counter() - T_START:.1f} s")
     say(json.dumps({"kernels": rows}))

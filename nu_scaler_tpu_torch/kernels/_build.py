@@ -74,6 +74,27 @@ SIGNATURES = {
             _VP,  # stream
         ],
     },
+    "trunk_fused": {
+        "nu_trunk_fused": [
+            _INT, _VP, _VP, _VP, _INT,  # device, x, kernels[depth], biases[depth], depth
+            _VP, _VP, _INT, _INT, _INT,  # scratch, out, n, h, w
+            _INT, _INT, _INT, _INT,  # cin, cmid, cout, blocks
+            _INT, _INT, _INT, _INT,  # tile_h, tile_w, grid, round_sum
+            _VP,  # stream
+        ],
+    },
+    "resample_twopass": {
+        "nu_resample_vert": [
+            _INT, _VP, _INT, _INT, _INT,  # device, src, n, h, w
+            _VP, _VP, _INT, _INT,  # first_v, w_v, kv, oh
+            _VP, _VP,  # mid, stream
+        ],
+        "nu_resample_horiz": [
+            _INT, _VP, _INT, _INT, _INT,  # device, mid, n, oh, w
+            _VP, _VP, _INT, _INT,  # first_h, w_h, kh, ow
+            _VP, _VP,  # dst, stream
+        ],
+    },
 }
 
 

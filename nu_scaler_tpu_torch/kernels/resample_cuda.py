@@ -1,7 +1,8 @@
-"""Wrappers of the fused resample kernel (`csrc/resample_fused.cu`), their
-plain PyTorch versions, and the tap tables both share.
+"""Wrappers of the fused resample kernel (`csrc/resample_fused.cu`) and the
+two-launch resample (`csrc/resample_twopass.cu`), their plain PyTorch
+versions, and the tap tables they share.
 
-Three wrappers, one kernel template:
+Three wrappers of one kernel template, and one of two kernels:
 
 * `resample_fused`          u8 [H,W,4]   → [OH,OW,4]      (replaces
   `nu_scaler_tpu/kernels/resample_pallas.py:268` make_pallas_fused)
@@ -9,6 +10,10 @@ Three wrappers, one kernel template:
   `resample_pallas.py:139` make_pallas_fused_batched)
 * `resample_fused_blend`    cur [H,W,4], prev [OH,OW,4] → (cur_up, *mids)
   (replaces `resample_pallas.py:371` make_pallas_fused_blend)
+* `resample_twopass`        u8 [H,W,4] or [N,H,W,4] → [..,OH,OW,4] in two
+  launches, the fp32 intermediate in device memory (replaces
+  `resample_pallas.py:65` make_pallas_resampler); the same bytes as
+  `resample_fused`, whose plain version it shares
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises. The resample has no learned weights: the
@@ -30,7 +35,8 @@ from nu_scaler_tpu_torch.device import resolve_device
 
 # Launches per wrapper since the last `reset_launches()`; a wrapper adds one
 # where it launches its kernel and nowhere else.
-launches = {"resample_fused": 0, "resample_fused_batched": 0, "resample_fused_blend": 0}
+launches = {"resample_fused": 0, "resample_fused_batched": 0, "resample_fused_blend": 0,
+            "resample_twopass": 0}
 
 # Hopper: 227 KB of shared memory per block (opt-in above 48 KB).
 SMEM_LIMIT = 232448
@@ -276,3 +282,65 @@ def resample_fused_blend(
     outs = _launch(src, 1, plan, prev, ts)
     launches["resample_fused_blend"] += 1
     return tuple(outs)
+
+
+def _launch_vert(src: torch.Tensor, n: int, plan: ResamplePlan) -> torch.Tensor:
+    """Launch 1 of the two-pass kernel: u8 [n, H, W, 4] → fp32 [n, OH, W, 4]."""
+    if src.device.type != "cuda":
+        raise RuntimeError(f"the CUDA kernel needs a CUDA tensor, got {src.device}")
+    from nu_scaler_tpu_torch.kernels import _build
+
+    lib = _build.load_library("resample_twopass")
+    src = src.contiguous()
+    mid = torch.empty((n, plan.out_h, plan.in_w, 4), dtype=torch.float32, device=src.device)
+    err = lib.nu_resample_vert(
+        src.device.index or 0, src.data_ptr(), n, plan.in_h, plan.in_w,
+        plan.first_v.data_ptr(), plan.taps_v.data_ptr(), plan.kv, plan.out_h,
+        mid.data_ptr(), torch.cuda.current_stream(src.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"resample_twopass vertical launch failed: {lib.nu_cuda_error_string(err).decode()} ({err})"
+        )
+    return mid
+
+
+def _launch_horiz(mid: torch.Tensor, n: int, plan: ResamplePlan) -> torch.Tensor:
+    """Launch 2 of the two-pass kernel: fp32 [n, OH, W, 4] → u8 [n, OH, OW, 4]."""
+    if mid.device.type != "cuda":
+        raise RuntimeError(f"the CUDA kernel needs a CUDA tensor, got {mid.device}")
+    from nu_scaler_tpu_torch.kernels import _build
+
+    lib = _build.load_library("resample_twopass")
+    if mid.dtype != torch.float32 or tuple(mid.shape) != (n, plan.out_h, plan.in_w, 4):
+        raise ValueError(f"mid: expected fp32 [{n}, {plan.out_h}, {plan.in_w}, 4], "
+                         f"got {mid.dtype} {tuple(mid.shape)}")
+    mid = mid.contiguous()
+    dst = torch.empty((n, plan.out_h, plan.out_w, 4), dtype=torch.uint8, device=mid.device)
+    err = lib.nu_resample_horiz(
+        mid.device.index or 0, mid.data_ptr(), n, plan.out_h, plan.in_w,
+        plan.first_h.data_ptr(), plan.taps_h.data_ptr(), plan.kh, plan.out_w,
+        dst.data_ptr(), torch.cuda.current_stream(mid.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(
+            f"resample_twopass horizontal launch failed: {lib.nu_cuda_error_string(err).decode()} ({err})"
+        )
+    return dst
+
+
+def resample_twopass(src: torch.Tensor, plan: ResamplePlan) -> torch.Tensor:
+    """u8 [H,W,4] → u8 [OH,OW,4], or a batch [N,H,W,4] → [N,OH,OW,4], in two
+    launches (vertical, then horizontal; batch = grid z); counts one launch
+    for each."""
+    single = src.dim() == 3
+    n = 1 if single else src.shape[0]
+    _check_u8(src, (plan.in_h, plan.in_w, 4) if single else (n, plan.in_h, plan.in_w, 4),
+              "src", plan)
+    if src.device.type == "cpu":
+        return resample_plain(src, plan)
+    mid = _launch_vert(src, n, plan)
+    launches["resample_twopass"] += 1
+    out = _launch_horiz(mid, n, plan)
+    launches["resample_twopass"] += 1
+    return out[0] if single else out

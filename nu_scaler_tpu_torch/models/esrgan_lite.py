@@ -18,8 +18,12 @@ with alpha riding the bilinear base. Its seven (x2, tpu4b2) or nine (x4,
 tpu4) 3×3 convs go through `kernels.conv_cuda.conv3x3`, the port of the
 Pallas `make_conv3x3`, with ``round_sum=True``: the JAX graph's XLA conv
 rounds its sum to bf16 before the bias is added in bf16, and the kernel's
-epilogue does the same. The fixed base is an fp32 VALID conv, exact in any
-order. Every other cast to bf16 sits where the JAX graph puts it.
+epilogue does the same. With ``trunk_impl="fused"`` the whole chain, head to
+tail, is one launch of `kernels.trunk_cuda.trunk_fused`, the port of the
+Pallas `make_trunk_fused`, with the same rounding (the counterpart of the
+JAX model's `conv_impl` switch); "layers" stays the default. The fixed base
+is an fp32 VALID conv, exact in any order. Every other cast to bf16 sits
+where the JAX graph puts it.
 
 Weights come from the numpy files under `nu_scaler_tpu_torch/weights/`,
 written from the orbax checkpoints by `tools/export_torch_weights.py`.
@@ -42,7 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from nu_scaler_tpu_torch.device import resolve_device
-from nu_scaler_tpu_torch.kernels import conv_cuda
+from nu_scaler_tpu_torch.kernels import conv_cuda, trunk_cuda
 from nu_scaler_tpu_torch.ops.resample import to_device_u8
 
 WEIGHTS_DIR = Path(__file__).resolve().parents[1] / "weights"
@@ -269,17 +273,21 @@ def load_model(arch: str, upscale: int) -> Optional[tuple[ESRGANLiteTPU, dict]]:
 # ---------------------------------------------------------------------------
 
 ConvFn = Callable[..., torch.Tensor]  # (x, k, b, relu, round_sum) → bf16
+TRUNK_IMPLS = ("layers", "fused")
 
 
 class FusedServing:
     """The raw-domain bf16 serving graph of `make_serving_fn_fused`:
-    u8 RGBA [N, H, W, 4] → u8 RGBA [N, uH, uW, 4], one conv launch per layer
-    for the whole batch. `conv` is the conv used for the learned layers
-    (the kernel wrapper by default; `conv_cuda.conv3x3_plain` to run the
-    graph on its plain version)."""
+    u8 RGBA [N, H, W, 4] → u8 RGBA [N, uH, uW, 4] for the whole batch.
+    `trunk_impl` "layers" runs the learned layers as one conv launch each,
+    with `conv` (the kernel wrapper by default; `conv_cuda.conv3x3_plain` to
+    run the graph on its plain version); "fused" runs them as one launch of
+    the fused trunk kernel."""
 
     def __init__(self, model: ESRGANLiteTPU, in_h: int, in_w: int, device,
-                 conv: Optional[ConvFn] = None) -> None:
+                 conv: Optional[ConvFn] = None, trunk_impl: str = "layers") -> None:
+        if trunk_impl not in TRUNK_IMPLS:
+            raise ValueError(f"trunk_impl must be one of {TRUNK_IMPLS}, got {trunk_impl!r}")
         st, up = model.stride, model.upscale
         if in_h % st or in_w % st:
             raise ValueError(f"{in_w}x{in_h} is not a multiple of the stride {st}")
@@ -287,6 +295,7 @@ class FusedServing:
         self.in_hw = (in_h, in_w)
         self.stride, self.r = st, st * up
         self.conv = conv or conv_cuda.conv3x3
+        self.trunk_impl = trunk_impl
 
         def np32(t: torch.Tensor) -> np.ndarray:
             return t.detach().cpu().float().numpy()
@@ -312,30 +321,37 @@ class FusedServing:
         # taps are multiples of 1/16 (x2) or 1/64 (x4) on integers ≤ 255:
         # the fp32 base is exact in any order
         self.base_k = torch.from_numpy(_bilinear_base_kernel(4, up, st)).to(self.device)
-        self.c02 = torch.tensor(0.2, dtype=torch.bfloat16, device=self.device)
+        # the fused kernel's flat params: head, block convs, trunk, tail
+        self.trunk_params = (*self.head, *(t for blk in self.blocks for kb in blk for t in kb),
+                             *self.trunk, *self.tail)
 
     @property
     def convs_per_frame(self) -> int:
         return 3 + 2 * len(self.blocks)
 
-    def __call__(self, img: torch.Tensor) -> torch.Tensor:
-        n, h_in, w_in = img.shape[0], img.shape[1], img.shape[2]
-        if (h_in, w_in) != self.in_hw or img.shape[3] != 4 or img.dtype != torch.uint8:
+    def run_trunk(self, s2d_head: torch.Tensor) -> torch.Tensor:
+        """The learned layers, head to tail: bf16 [N, h, w, 128] → bf16
+        [N, h, w, r²·4], by `trunk_impl`."""
+        if self.trunk_impl == "fused":
+            return trunk_cuda.trunk_fused(s2d_head, self.trunk_params, len(self.blocks),
+                                          round_sum=True)
+        return trunk_cuda.trunk_chain(self.conv, s2d_head, self.trunk_params, len(self.blocks),
+                                      round_sum=True)
+
+    def trunk_input(self, img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """u8 [N, H, W, 4] → (the raw s2d, bf16 [N, h, w, st²·4]; the head's
+        input, its 64 lanes zero-padded to 128)."""
+        if tuple(img.shape[1:3]) != self.in_hw or img.shape[3] != 4 or img.dtype != torch.uint8:
             raise ValueError(f"expected u8 [N, {self.in_hw[0]}, {self.in_hw[1]}, 4], "
                              f"got {img.dtype} {tuple(img.shape)}")
-        conv, c02 = self.conv, self.c02
         s2d = _s2d(img.to(torch.bfloat16), self.stride)  # raw 0..255, exact in bf16
         if self.pad_c:
-            s2d_head = torch.cat([s2d, s2d.new_zeros((*s2d.shape[:3], self.pad_c))], dim=-1)
-        else:
-            s2d_head = s2d.contiguous()
-        feat = conv(s2d_head, *self.head, False, True)
-        h = feat
-        for (k1, b1), (k2, b2) in self.blocks:
-            t1 = conv(h, k1, b1, True, True)
-            h = h + c02 * conv(t1, k2, b2, False, True)
-        h = conv(h, *self.trunk, False, True) + feat
-        tail = conv(h, *self.tail, False, True)
+            return s2d, torch.cat([s2d, s2d.new_zeros((*s2d.shape[:3], self.pad_c))], dim=-1)
+        return s2d, s2d.contiguous()
+
+    def __call__(self, img: torch.Tensor) -> torch.Tensor:
+        s2d, s2d_head = self.trunk_input(img)
+        tail = self.run_trunk(s2d_head)
         base = conv_cuda.conv_valid_f32(_edge_pad(s2d.float()), self.base_k).to(torch.bfloat16)
         phases = tail + base  # [N, h, w, r²·4] raw-scale RGBA-interleaved
         ph_u8 = torch.clamp(torch.round(phases), 0, 255).to(torch.uint8)
@@ -343,9 +359,10 @@ class FusedServing:
 
 
 def make_serving_fn_fused(model: ESRGANLiteTPU, in_h: int, in_w: int, device=None,
-                          conv: Optional[ConvFn] = None) -> FusedServing:
+                          conv: Optional[ConvFn] = None,
+                          trunk_impl: str = "layers") -> FusedServing:
     """The bf16 branch of the JAX package's `make_serving_fn_fused`."""
-    return FusedServing(model, in_h, in_w, device, conv)
+    return FusedServing(model, in_h, in_w, device, conv, trunk_impl)
 
 
 def make_serving_fn(model: ESRGANLiteTPU, in_h: int, in_w: int, out_h: int, out_w: int,
@@ -386,7 +403,7 @@ def _cached_model(arch: str, upscale: int):
 
 
 @functools.lru_cache(maxsize=16)
-def _build_pretrained(in_h, in_w, out_h, out_w, prefer, device) -> LearnedUpscaler:
+def _build_pretrained(in_h, in_w, out_h, out_w, prefer, device, trunk_impl) -> LearnedUpscaler:
     if prefer != "ultra":
         raise NotImplementedError(NOT_PORTED_INT8)
     stages = scale_to_stages(in_h, out_h)
@@ -403,23 +420,28 @@ def _build_pretrained(in_h, in_w, out_h, out_w, prefer, device) -> LearnedUpscal
         if loaded is None:
             continue  # the port carries no weights of this arch at this scale
         model, meta = loaded
-        return LearnedUpscaler(FusedServing(model, in_h, in_w, device), arch, meta["step"])
+        serving = FusedServing(model, in_h, in_w, device, trunk_impl=trunk_impl)
+        return LearnedUpscaler(serving, arch, meta["step"])
     raise NotImplementedError(
         f"no ported learned arch serves x{u} at {in_w}x{in_h}: the stride-2 arch and "
         f"ESRGANLite, which the JAX ladder falls back to, {NOT_PORTED_ARCH}")
 
 
 def make_pretrained_upscaler(in_h: int, in_w: int, out_h: int, out_w: int,
-                             prefer: str = "ultra", device=None) -> LearnedUpscaler:
+                             prefer: str = "ultra", device=None,
+                             trunk_impl: str = "layers") -> LearnedUpscaler:
     """The learned tier for these sizes on `device` (the card unless "cpu"):
     the first arch of the `prefer` ladder whose stride divides the frame and
     whose weights the port carries. Only "ultra" (bf16) is served; cached per
-    (sizes, prefer, device)."""
-    return _build_pretrained(in_h, in_w, out_h, out_w, prefer, resolve_device(device))
+    (sizes, prefer, device, trunk_impl)."""
+    return _build_pretrained(in_h, in_w, out_h, out_w, prefer, resolve_device(device),
+                             trunk_impl)
 
 
 def make_pretrained_batch_upscaler(in_h: int, in_w: int, out_h: int, out_w: int,
-                                   prefer: str = "ultra", device=None) -> LearnedUpscaler:
+                                   prefer: str = "ultra", device=None,
+                                   trunk_impl: str = "layers") -> LearnedUpscaler:
     """Batched learned serving: u8 [N, H, W, 4] → u8 [N, uH, uW, 4], the batch
-    through the graph (one launch per conv layer), not a loop."""
-    return make_pretrained_upscaler(in_h, in_w, out_h, out_w, prefer, device)
+    through the graph (one launch per conv layer, or one for the fused trunk),
+    not a loop."""
+    return make_pretrained_upscaler(in_h, in_w, out_h, out_w, prefer, device, trunk_impl)

@@ -27,6 +27,7 @@ from nu_scaler_tpu_torch.kernels.resample_cuda import (
     resample_fused,
     resample_fused_batched,
     resample_fused_blend,
+    resample_twopass,
     taps_from_matrix,
 )
 
@@ -160,6 +161,27 @@ def make_resampler(
     cached per (shape, algorithm, device)."""
     dev = resolve_device(device)
     return _cached_resampler(in_h, in_w, out_h, out_w, normalize_algorithm(algorithm), dev)
+
+
+class TwoPassResampler(Resampler):
+    """``u8 [H,W,4] → u8 [OH,OW,4]`` (or a batch ``[N,H,W,4]``) through the
+    two-launch kernel: the counterpart of the JAX package's
+    `make_pallas_resampler`, with the same bytes as `Resampler`."""
+
+    def __call__(self, img) -> torch.Tensor:
+        x = to_device_u8(img, self.device)
+        if x.dim() not in (3, 4):
+            raise ValueError(f"expected [H, W, 4] or [N, H, W, 4], got {tuple(x.shape)}")
+        return resample_twopass(x, self.plan)
+
+
+def make_twopass_resampler(
+    in_h: int, in_w: int, out_h: int, out_w: int, algorithm: str, device=None
+) -> TwoPassResampler:
+    """Counterpart of `make_pallas_resampler` on `device` (the card unless
+    "cpu"): any sizes (the JAX function's None comes from the TPU's banded
+    tiling, which the tap tables do not need)."""
+    return TwoPassResampler(in_h, in_w, out_h, out_w, algorithm, resolve_device(device))
 
 
 class FusedBlendStep:

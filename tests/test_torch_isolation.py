@@ -29,6 +29,7 @@ def test_import_leaves_jax_side_out():
         "import sys, nu_scaler_tpu_torch, nu_scaler_tpu_torch.core, "
         "nu_scaler_tpu_torch.runtime.streaming, nu_scaler_tpu_torch.kernels._build, "
         "nu_scaler_tpu_torch.models.esrgan_lite, nu_scaler_tpu_torch.kernels.conv_cuda, "
+        "nu_scaler_tpu_torch.kernels.trunk_cuda, "
         "nu_scaler_tpu_torch.runtime.detector, nu_scaler_tpu_torch.runtime.memory; "
         "print('\\n'.join(sys.modules))"
     )
@@ -117,7 +118,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     finally:
         _build.load_library.cache_clear()
     paths = {name: _build.library_path(name) for name in _build.SIGNATURES}
-    assert sorted(paths) == ["conv3x3", "fsr", "resample_fused", "soft_warp"]
+    assert sorted(paths) == ["conv3x3", "fsr", "resample_fused", "resample_twopass", "soft_warp",
+                             "trunk_fused"]
     assert len(set(paths.values())) == len(paths)
     for name, path in paths.items():
         assert path.parent == tmp_path and path.name.startswith(f"lib{name}_")
@@ -171,17 +173,22 @@ def test_import_compiles_nothing(tmp_path):
 def test_kernel_source_is_plain_c():
     """One CUDA source per library, no PyTorch headers, a C entry point per
     wrapper call; every fp32 rounding written out, and each packing as its
-    golden packs: the resample truncates and its blend rounds, the soft warp
-    rounds, FSR truncates, the conv rounds to bf16 to nearest (its products
-    and sums are the tensor cores' own, fp32 accumulation)."""
+    golden packs: the resample truncates and its blend rounds (the two-pass
+    resample sums with the fused kernel's fmaf and truncates), the soft warp
+    rounds, FSR truncates, the conv and the fused trunk round to bf16 to
+    nearest (their products and sums are the tensor cores' own, fp32
+    accumulation; the trunk's skip additions are written out)."""
     sources = sorted(p.name for p in PKG.rglob("*.cu*"))
-    assert sources == ["conv3x3.cu", "fsr.cu", "resample_fused.cu", "soft_warp.cu"]
+    assert sources == ["conv3x3.cu", "fsr.cu", "resample_fused.cu", "resample_twopass.cu",
+                       "soft_warp.cu", "trunk_fused.cu"]
     written_out = ("__fmul_rn", "__fadd_rn")
     packing = {
         "resample_fused": (*written_out, "truncf", "rintf"),
         "soft_warp": (*written_out, "rintf"),
         "fsr": (*written_out, "truncf"),
         "conv3x3": ("__fadd_rn", "__float2bfloat16_rn", "wmma::mma_sync"),
+        "resample_twopass": ("fmaf", "truncf"),
+        "trunk_fused": (*written_out, "__float2bfloat16_rn", "wmma::mma_sync"),
     }
     assert sorted(packing) == sorted(_build.SIGNATURES)
     for name, fns in _build.SIGNATURES.items():
