@@ -22,9 +22,10 @@ Phases, each printed on its own line with its seconds:
    and 3, and an odd 37×53 frame, on the bench frame and seeded noise, with
    the count of differing bytes; the bf16 3×3 conv (≤ 1 bf16 ulp, as
    conv_cuda.ulp_tolerance states it) with ReLU on and off, with and without
-   round_sum, Cout 128, 256 and 1024, N = 1 and 4, at the learned tier's
-   trunk grids (270×480, 135×240) and a ragged 27×40, on seeded weights and
-   on the committed tpu4b2 / tpu4 weights; the fused trunk (within
+   round_sum, Cout 128, 256 and 1024, Cin 128 and 256 (two halo chunks),
+   N = 1 and 4, at the learned tier's trunk grids (270×480, 135×240), a
+   ragged 27×40 and a 17×33 that no tile divides, on seeded weights and on
+   the committed tpu4b2 / tpu4 weights; the fused trunk (within
    trunk_cuda.ulp_tolerance, bf16 ulps of the output, with the share of
    values bit-equal to the plain version and to the chain of conv3x3
    launches) at ×2 (1×270×480, 2 blocks, Cout 256), ×4 (1×135×240, 3 blocks,
@@ -81,7 +82,10 @@ Phases, each printed on its own line with its seconds:
    the memory rate and operations over the rate of their type: fp32, or
    bf16 on the tensor cores for the conv); for the conv, at each shape of
    the learned path, also F.conv2d's time (bf16, channels-last, bias) as the
-   library's yardstick, which the port never calls; the fused trunk at ×2,
+   library's yardstick, which the port never calls, the weights' repack
+   alone, and the kernel's four variants (16×16 or 8×32 tiles, 3 or 4
+   weight stages; each the default's bytes) with % of bound, TFLOP/s and
+   ptxas' registers and spill stores from the build log; the fused trunk at ×2,
    ×4 and N = 4 against the same chain as conv3x3 launches and as F.conv2d
    calls (no single PyTorch call computes it), and at ×2 and ×4 with other
    tiles than its planner's (the same bytes); the two-call resample, both
@@ -362,6 +366,20 @@ def conv_work(n: int, h: int, w: int, cin: int, cout: int) -> tuple[int, int]:
     return 2 * (n * h * w * (cin + cout) + 9 * cin * cout + cout), 2 * 9 * cin * cout * n * h * w
 
 
+def conv_registers(log: str) -> dict:
+    """{(tile width, stages): "R registers, S bytes of spill stores"} of the
+    conv's variants with relu off and round_sum on (the timed form), from
+    nvcc's -Xptxas=-v messages."""
+    import re
+
+    found = {}
+    for m in re.finditer(r"conv3x3_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb0ELb1E\S*\n"
+                         r"(?:.*\n)*?\s*\d+ bytes stack frame, (\d+) bytes spill stores.*\n"
+                         r"ptxas info\s*: Used (\d+) registers", log):
+        found[(int(m[2]), int(m[3]))] = f"{m[5]} registers, {m[4]} bytes of spill stores"
+    return found
+
+
 def trunk_work(x, params) -> tuple[int, int]:
     """(bytes, bf16 tensor-core operations) of the fused trunk on x
     [N, H, W, cin]: x, every layer's weights and bias read once, the output
@@ -606,6 +624,8 @@ def main() -> int:
             ("seeded 4x27x40 128->256 (ragged)", *seeded(4, 27, 40, 128, 256), False, True),
             ("seeded 1x27x40 128->128 (ragged)", *seeded(1, 27, 40, 128, 128), True, False),
             ("seeded 4x27x40 128->1024 (ragged)", *seeded(4, 27, 40, 128, 1024), False, False),
+            ("seeded 1x27x40 256->128 (two Cin chunks)", *seeded(1, 27, 40, 256, 128), True, True),
+            ("seeded 1x17x33 128->128 (ragged to the tile)", *seeded(1, 17, 33, 128, 128), False, True),
             (f"tpu4b2 head 1x{th2}x{tw2}", act(1, th2, tw2, 128), *served[2].head, False, True),
             (f"tpu4b2 block0.conv1 4x{th2}x{tw2}", act(BATCH, th2, tw2, 128), *served[2].blocks[0][0], True, True),
             (f"tpu4b2 tail 1x{th2}x{tw2} 128->256", act(1, th2, tw2, 128), *served[2].tail, False, True),
@@ -1269,7 +1289,8 @@ def main() -> int:
             f"x4 block 1x{th4}x{tw4} 128->128": (1, th4, tw4, *served[4].blocks[0][1], False),
             f"x4 tail 1x{th4}x{tw4} 128->1024": (1, th4, tw4, *served[4].tail, False),
         }
-        conv_ms = {}
+        conv_ms, by_variant = {}, {}
+        regs = conv_registers(_build.BUILD_LOGS.get("conv3x3", ""))
         for name, (n_, h_, w_, k, b, relu) in conv_timed.items():
             x = act(n_, h_, w_, k.shape[2])
             cin, cout = k.shape[2], k.shape[3]
@@ -1284,12 +1305,25 @@ def main() -> int:
             ms = time_ms(torch, lambda: cc.conv3x3(x, k, b, relu, True), flush)
             plain_ms = time_ms(torch, lambda: cc.conv3x3_plain(x, k, b, relu, True), flush)
             lib_ms = time_ms(torch, lambda: torch.nn.functional.conv2d(xc, wc, b, padding=1), flush)
-            say(f"time conv3x3 [{name}]: {ms:.4f} ms (plain {plain_ms:.4f} ms; F.conv2d {lib_ms:.4f} ms, "
+            pack_ms = time_ms(torch, lambda: cc.pack_weights(k), flush)
+            say(f"time conv3x3 [{name}]: {ms:.4f} ms with the weights' repack ({pack_ms:.4f} ms alone) "
+                f"(plain {plain_ms:.4f} ms; F.conv2d {lib_ms:.4f} ms, "
                 f"max |F.conv2d - kernel| {lib_d:.4g}; bound {b_ms:.4f} ms by {b_by}: {moved} bytes, "
                 f"{ops} bf16 operations; {100 * b_ms / ms:.1f}% of bound, "
                 f"{ops / ms / 1e9:.1f} TFLOP/s)")
             conv_ms[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
-                             "bound_by": b_by}
+                             "bound_by": b_by, "pack_ms": pack_ms}
+            # the kernel's tiles and ring depths: every variant gives the
+            # default's bytes (each output is summed in the same order)
+            for v in cc.VARIANTS:
+                check(torch.equal(cc._launch(x, k, b, relu, True, v), ker_out),
+                      f"conv3x3 [{name}]: variant {v} changes the bytes")
+                v_ms = time_ms(torch, lambda: cc._launch(x, k, b, relu, True, v), flush)
+                tag = f"tile {256 // v[0]}x{v[0]}, {v[1]} stages"
+                by_variant[f"{name}, {tag}"] = v_ms
+                say(f"  conv3x3 [{name}] {tag}{' (default)' if v == cc.DEFAULT_VARIANT else ''}: "
+                    f"{v_ms:.4f} ms, {100 * b_ms / v_ms:.1f}% of bound, {ops / v_ms / 1e9:.1f} TFLOP/s; "
+                    f"ptxas {regs.get(v, 'not in this build log')}")
         main = conv_ms[main_shape]
         rows.append({
             "name": "conv3x3", "route": "cuda", "source": CONV_SOURCE, "replaces": REPLACES["conv3x3"],
@@ -1297,7 +1331,8 @@ def main() -> int:
             "inputs": f"a tpu4b2 block conv's committed weights on trunk-like activations, "
                       f"1x{th2}x{tw2}x128 -> 128 (the x2 trunk grid of the input)",
             "max_abs_err_units": "bf16 value, every value within conv_cuda.ulp_tolerance",
-            "shapes": conv_ms,
+            "shapes": conv_ms, "ms_by_variant": by_variant,
+            "ptxas_by_variant": {f"tile {256 // v[0]}x{v[0]}, {v[1]} stages": r for v, r in regs.items()},
         })
 
         # the fused trunk at the learned path's inputs (the committed weights

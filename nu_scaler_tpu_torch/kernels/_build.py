@@ -34,6 +34,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 NVCC_TIMEOUT_S = 300
+# nvcc's messages (-Xptxas=-v: registers, spills, shared memory per kernel) of
+# each library built by this process
+BUILD_LOGS: dict = {}
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
@@ -69,9 +72,14 @@ SIGNATURES = {
     },
     "conv3x3": {
         "nu_conv3x3": [
-            _INT, _VP, _VP, _VP, _VP,  # device, x, k, b, out
+            _INT, _VP, _VP, _VP, _VP,  # device, x, k (packed), b, out
             _INT, _INT, _INT, _INT, _INT, _INT, _INT,  # n, h, w, cin, cout, relu, round_sum
             _VP,  # stream
+        ],
+        "nu_conv3x3_variant": [
+            _INT, _VP, _VP, _VP, _VP,  # device, x, k (packed), b, out
+            _INT, _INT, _INT, _INT, _INT, _INT, _INT,  # n, h, w, cin, cout, relu, round_sum
+            _INT, _INT, _VP,  # tile_w, stages, stream
         ],
     },
     "trunk_fused": {
@@ -134,6 +142,7 @@ def _compile(nvcc: str, name: str) -> float:
         raise RuntimeError(f"nvcc failed (rc {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
     seconds = time.perf_counter() - t0
+    BUILD_LOGS[name] = proc.stderr
     print(f"nvcc built {out.name} in {seconds:.2f} s", flush=True)
     if proc.stderr.strip():
         print(proc.stderr.strip(), flush=True)  # -Xptxas=-v: registers, spills, smem

@@ -15,8 +15,11 @@ tier serves that form; it moves the served bytes by up to 12 LSB against
 the single rounding (on the trained tpu4b2 x2 weights, 40.4 dB against JAX's
 served bytes with one rounding, 68.2 dB with two, on a 32×64 noise frame).
 
-The sums run in another order in the kernel (tensor-core fragments over
-32-channel chunks) than in the plain version (9 fp32 matmuls), so the two
+The kernel takes the weights repacked to ``[Cout, 3, 3, Cin]``
+(`pack_weights`: one copy of 9·Cin·Cout bf16 per launch, inside `_launch`),
+the K-major layout of its tensor-core B operand. The sums run in another
+order in the kernel (warpgroup MMAs over 16-channel steps, tap by tap) than
+in the plain version (9 fp32 matmuls), so the two
 agree to one bf16 ulp, or, where the sum cancels, to a small multiple of the
 fp32 rounding of the terms' magnitude: `ulp_tolerance` states the bound. A
 wrapper given CPU tensors runs the plain version; given CUDA tensors it
@@ -26,6 +29,7 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import contextlib
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +39,12 @@ import torch.nn.functional as F
 launches = {"conv3x3": 0}
 
 LANES = 128  # Cin and Cout must be multiples of this (the Pallas kernel's rule)
+# The kernel's variants, (tile width, weight stages): 16 → 16×16 positions,
+# 32 → 8×32; a ring of 3 or 4 weight stages. Every variant sums each output
+# in the same order. The C entry `nu_conv3x3`, which `conv3x3` launches, runs
+# DEFAULT_VARIANT.
+VARIANTS = ((16, 3), (16, 4), (32, 3), (32, 4))
+DEFAULT_VARIANT = (16, 4)
 # the cancellation term of the tolerance: 2^-20 of Σ|x|·|w| at the element
 CANCEL_REL = 2.0 ** -20
 
@@ -139,8 +149,19 @@ def check_inputs(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor) -> None:
                          f"got {cin} and {cout}")
 
 
+def pack_weights(k: torch.Tensor) -> torch.Tensor:
+    """HWIO ``[3, 3, Cin, Cout]`` → ``[Cout, 3, 3, Cin]``, contiguous:
+    ``packed[o, dy, dx, c] == k[dy, dx, c, o]``. Each output channel's 9·Cin
+    weights are one row, K-major, as the kernel's B operand takes them."""
+    return k.permute(3, 0, 1, 2).contiguous()
+
+
 def _launch(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor, relu: bool,
-            round_sum: bool) -> torch.Tensor:
+            round_sum: bool, variant: Optional[tuple[int, int]] = None) -> torch.Tensor:
+    """One launch of the kernel on the weights repacked by `pack_weights`:
+    its default, or `variant` (tile width, weight stages) from VARIANTS."""
+    if variant is not None and variant not in VARIANTS:
+        raise ValueError(f"variant {variant}: the kernel has {VARIANTS}")
     if x.device.type != "cuda":
         raise RuntimeError(f"the CUDA kernel needs a CUDA tensor, got {x.device}")
     from nu_scaler_tpu_torch.kernels import _build
@@ -148,12 +169,15 @@ def _launch(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor, relu: bool,
     lib = _build.load_library("conv3x3")
     n, h, w, cin = x.shape
     cout = k.shape[-1]
+    kp = pack_weights(k)
     out = torch.empty((n, h, w, cout), dtype=torch.bfloat16, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.nu_conv3x3(
-        x.device.index or 0, x.data_ptr(), k.data_ptr(), b.data_ptr(), out.data_ptr(),
-        n, h, w, cin, cout, int(relu), int(round_sum), stream,
-    )
+    args = (x.device.index or 0, x.data_ptr(), kp.data_ptr(), b.data_ptr(), out.data_ptr(),
+            n, h, w, cin, cout, int(relu), int(round_sum))
+    if variant is None:
+        err = lib.nu_conv3x3(*args, stream)
+    else:
+        err = lib.nu_conv3x3_variant(*args, *variant, stream)
     if err != 0:
         raise RuntimeError(f"conv3x3 launch failed: {lib.nu_cuda_error_string(err).decode()} ({err})")
     return out

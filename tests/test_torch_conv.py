@@ -125,3 +125,46 @@ def test_cpu_runs_plain_and_counts_no_launch(rng):
     assert cc.launches == {"conv3x3": 0}
     with pytest.raises(RuntimeError, match="needs a CUDA tensor"):
         cc._launch(x, k, b, True, False)
+
+
+@pytest.mark.parametrize("cin, cout", [(128, 128), (256, 128), (128, 1024)])
+def test_pack_weights_index_map(rng, cin, cout):
+    """packed[o, dy, dx, c] == k[dy, dx, c, o], contiguous: the kernel's
+    K-major B operand."""
+    _, k, _ = _inputs(rng, 1, 1, 1, cin, cout)
+    packed = cc.pack_weights(k)
+    assert packed.shape == (cout, 3, 3, cin) and packed.is_contiguous()
+    o, dy, dx, c = (rng.integers(0, n, 64) for n in (cout, 3, 3, cin))
+    assert torch.equal(packed[o, dy, dx, c], k[dy, dx, c, o])
+    assert torch.equal(packed.permute(1, 2, 3, 0), k)
+
+
+@pytest.mark.parametrize("variant", [None, *cc.VARIANTS])
+def test_launch_on_cpu_raises(rng, variant):
+    x, k, b = _inputs(rng, 1, 4, 4, 128, 128)
+    with pytest.raises(RuntimeError, match="needs a CUDA tensor"):
+        cc._launch(x, k, b, False, True, variant)
+
+
+def test_launch_rejects_unknown_variant(rng):
+    x, k, b = _inputs(rng, 1, 4, 4, 128, 128)
+    assert cc.DEFAULT_VARIANT in cc.VARIANTS
+    with pytest.raises(ValueError, match="variant"):
+        cc._launch(x, k, b, False, True, (24, 4))
+
+
+@pytest.mark.parametrize("cin, cout", [(192, 128), (128, 192), (64, 256)])
+def test_wrapper_rejects_channels_off_the_lanes(rng, cin, cout):
+    x, k, b = _inputs(rng, 1, 4, 4, cin, cout)
+    with pytest.raises(ValueError, match="multiples of 128"):
+        cc.conv3x3(x, k, b)
+
+
+def test_two_cin_chunks_match_pallas(rng):
+    """Cin = 256 (the kernel's two halo chunks) on a frame no 16×16 tile
+    divides: the wrapper's plain version against the Pallas kernel."""
+    x, k, b = _inputs(rng, 1, 17, 33, 256, 128)
+    fn = make_conv3x3(17, 33, 256, 128, relu=True)
+    want = torch.from_numpy(np.asarray(fn(_jnp(x[0]), _jnp(k), _jnp(b)), np.float32))[None]
+    got = cc.conv3x3(x, k, b, True)
+    assert _within(got, want.to(torch.bfloat16), cc.ulp_tolerance(x, k, want)) == 0.0
