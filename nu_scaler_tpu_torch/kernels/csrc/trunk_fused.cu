@@ -36,14 +36,16 @@
 //    walk the tiles of the batch, so the scratch stays bounded. Scratch is
 //    read with ld.global.cg (L2), after a __syncthreads that orders it after
 //    the writes of the layer before.
-//  * Each conv is conv3x3.cu's implicit GEMM on nvcuda::wmma 16x16x16 bf16
-//    fragments with fp32 accumulators, in the same order of accumulation
-//    (32-channel chunks of the input, taps 0..8, two k-steps of 16): an
-//    8 x 16-position sub-tile of the window x 128 output channels per pass,
-//    its input with a one-position halo and the 9 taps' weight slices staged
-//    in shared memory (95,616 bytes; two blocks per SM). A wider layer
-//    (the tails: 256 and 1024 outputs) loops its channel tiles of 128.
-//    Given the same inputs, each conv gives the bits conv3x3.cu gives.
+//  * Each conv is an implicit GEMM on nvcuda::wmma 16x16x16 bf16 fragments
+//    with fp32 accumulators (32-channel chunks of the input, taps 0..8, two
+//    k-steps of 16): an 8 x 16-position sub-tile of the window x 128 output
+//    channels per pass, its input with a one-position halo and the 9 taps'
+//    weight slices staged in shared memory (95,616 bytes; two blocks per
+//    SM). A wider layer (the tails: 256 and 1024 outputs) loops its channel
+//    tiles of 128. conv3x3.cu sums in another order (warpgroup MMAs, tap by
+//    tap over 16-channel steps), so the kernel and the chain of conv3x3
+//    launches agree within trunk_cuda.ulp_tolerance, not bit for bit;
+//    chip_smoke.py phase 3 prints the share of values that are equal.
 //  * A sub-tile that lies wholly outside the frame is not computed: its
 //    window positions are written as zeros.
 //  * The skip additions happen in the epilogues of the block's second conv

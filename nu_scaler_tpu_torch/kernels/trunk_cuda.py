@@ -24,10 +24,11 @@ tiles (`tile_plan`).
 The kernel sums each conv in another order than the plain version (as
 `conv3x3` does), and a flipped rounding of one layer travels through the
 layers after it, so the two agree to `TOL_ULPS` bf16 ulps of the output's
-largest magnitude (`ulp_tolerance`). Each of the kernel's convs sums in
-`conv3x3.cu`'s order, so given the same input the kernel gives the bits of
-the chain of `conv3x3` launches. A wrapper given CPU tensors runs the plain
-version; given CUDA tensors it launches the kernel or raises.
+largest magnitude (`ulp_tolerance`). The chain of `conv3x3` launches sums
+in a third order (`conv3x3.cu`'s warpgroup MMAs), so the kernel agrees with
+that chain within the same bound, not bit for bit. A wrapper given CPU
+tensors runs the plain version; given CUDA tensors it launches the kernel or
+raises.
 """
 
 from __future__ import annotations

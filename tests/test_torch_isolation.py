@@ -177,7 +177,8 @@ def test_kernel_source_is_plain_c():
     resample sums with the fused kernel's fmaf and truncates), the soft warp
     rounds, FSR truncates, the conv and the fused trunk round to bf16 to
     nearest (their products and sums are the tensor cores' own, fp32
-    accumulation; the trunk's skip additions are written out)."""
+    accumulation; the trunk's skip additions are written out). The conv runs
+    on warpgroup MMAs fed by cp.async, with no WMMA left in it."""
     sources = sorted(p.name for p in PKG.rglob("*.cu*"))
     assert sources == ["conv3x3.cu", "fsr.cu", "resample_fused.cu", "resample_twopass.cu",
                        "soft_warp.cu", "trunk_fused.cu"]
@@ -186,7 +187,7 @@ def test_kernel_source_is_plain_c():
         "resample_fused": (*written_out, "truncf", "rintf"),
         "soft_warp": (*written_out, "rintf"),
         "fsr": (*written_out, "truncf"),
-        "conv3x3": ("__fadd_rn", "__float2bfloat16_rn", "wmma::mma_sync"),
+        "conv3x3": ("__fadd_rn", "__float2bfloat16_rn", "wgmma.mma_async", "cp.async"),
         "resample_twopass": ("fmaf", "truncf"),
         "trunk_fused": (*written_out, "__float2bfloat16_rn", "wmma::mma_sync"),
     }
@@ -197,5 +198,6 @@ def test_kernel_source_is_plain_c():
         assert 'extern "C"' in text and "nu_cuda_error_string" in text
         assert all(fn in text for fn in fns)
         assert np.all([s in text for s in packing[name]])
+    assert "wmma::" not in _build.source_path("conv3x3").read_text()
     fsr = _build.source_path("fsr").read_text()
     assert np.all([s in fsr for s in ("__fsub_rn", "__fdiv_rn", "__fsqrt_rn")])
