@@ -131,6 +131,9 @@ REPLACES = {
     "conv3x3": "nu_scaler_tpu/kernels/conv_pallas.py:50",
     "trunk_fused": "nu_scaler_tpu/kernels/conv_pallas.py:183",
     "resample_twopass": "nu_scaler_tpu/kernels/resample_pallas.py:65",
+    # the int8 ladders' conv: an XLA conv in the JAX package, a mode of the
+    # conv kernel here
+    "conv3x3_q": "nu_scaler_tpu/models/esrgan_lite.py:719",
 }
 FSR_GATE_DB, FSR_GATE_LSB = 40.0, 12  # the JAX side's psnr_fsr_db contract
 # the FSR path's other sizes: 720p→4K (s = 3) and 540p (s = 4 in phase 3)
@@ -149,6 +152,12 @@ PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H200": (4.8e12, 67e12), "H100": (3.35e12
 BF16_PEAKS = {"H100 PCIe": 756e12, "H200": 989e12, "H100": 989e12}
 # the learned tier: (upscale, input h, w, arch, step, the JAX side's twin gate)
 LEARNED = ((2, IN_H, IN_W, "tpu4b2", 76000, 42.0), (4, *SIZES["540p"], "tpu4", 52000, 40.0))
+# the int8 ladders through create_advanced_upscaler("ultra"): (learned_prefer,
+# upscale, input h, w, arch, step, the JAX side's int8-twin gate, conv3x3_q and
+# conv3x3 launches per frame)
+INT8_LEARNED = (("quality", 2, IN_H, IN_W, "tpu4b2", 76000, 42.0, 8, 0),
+                ("quality", 4, *SIZES["540p"], "tpu4", 52000, 40.0, 8, 1),
+                ("performance", 2, IN_H, IN_W, "tpu4b1", 40000, 42.0, 6, 0))
 LEARNED_GATE_DB = 45.0  # kernel path against the plain path, RGB
 FUSED_TRUNK_GATE_DB = 50.0  # trunk_impl="fused" against "layers", RGB
 T_START = time.perf_counter()
@@ -647,6 +656,68 @@ def main() -> int:
             check(over == 0 and bool(torch.isfinite(kout.float()).all()), f"conv3x3 {name}: {over} over")
             errs["conv3x3"] = max(errs["conv3x3"], max_d)
 
+        # the conv's int8-grid mode, bit-equal to its plain version: seeded
+        # int8 grids (weights whose partial sums stay below 2^24, as the
+        # committed ones do), and the committed int8 weights of the served
+        # graphs fed quantised activations
+        served_q = {(prefer, u): pel.make_pretrained_upscaler(h_, w_, u * h_, u * w_, prefer, dev).serving
+                    for prefer, u, h_, w_, *_ in INT8_LEARNED}
+
+        def seeded_q(n_, h_, w_, cin, cout, bias):
+            xq = torch.from_numpy(rng.integers(-127, 128, (n_, h_, w_, cin)).astype(np.float32))
+            kq = np.clip(np.round(rng.standard_normal((3, 3, cin, cout)) * 20), -127, 127)
+            scale = torch.from_numpy((rng.random(cout) * 1e-3 + 1e-5).astype(np.float32))
+            b = torch.from_numpy(rng.standard_normal(cout).astype(np.float32)) if bias else None
+            return (xq.to(dev).to(torch.bfloat16), torch.from_numpy(kq.astype(np.float32)).to(dev)
+                    .to(torch.bfloat16), scale.to(dev), None if b is None else b.to(dev))
+
+        def served_case(prefer, u, conv, n_=1, relu=False):
+            s_ = served_q[(prefer, u)]
+            c = {"head": s_.q_head, "trunk": s_.q_trunk, "tail": s_.q_tail, "base": s_.q_base,
+                 "block0.conv1": s_.q_blocks[0][0], "block0.conv2": s_.q_blocks[0][1]}[conv]
+            hh, ww = s_.in_hw[0] // 4 + 2 * (conv == "base"), s_.in_hw[1] // 4 + 2 * (conv == "base")
+            if conv in ("head", "base"):  # the raw u8 s2d on the 128-lane input
+                x = torch.from_numpy(rng.integers(0, 256, (n_, hh, ww, 128)).astype(np.float32)).to(dev)
+                x[..., 64:] = 0
+            else:
+                x = torch.from_numpy(rng.standard_normal((n_, hh, ww, 128)).astype(np.float32)).to(dev)
+            label = f"{prefer} x{u} committed {conv} {n_}x{hh}x{ww} 128->{c.kq.shape[-1]}"
+            return (label, cc.quantize_act(x, c.ax), c.kq, c.scale, c.b, relu)
+
+        q_cases = []
+        for relu in (True, False):
+            for bias in (True, False):
+                q_cases.append((f"seeded 1x{th2}x{tw2} 128->128", *seeded_q(1, th2, tw2, 128, 128, bias), relu))
+        q_cases += [
+            (f"seeded 1x{th2}x{tw2} 128->256", *seeded_q(1, th2, tw2, 128, 256, True), False),
+            (f"seeded 1x{th4}x{tw4} 128->1024", *seeded_q(1, th4, tw4, 128, 1024, True), False),
+            (f"seeded 1x{th4}x{tw4} 128->128", *seeded_q(1, th4, tw4, 128, 128, False), True),
+            ("seeded 4x17x33 128->256 (ragged to the tile)", *seeded_q(BATCH, 17, 33, 128, 256, True), True),
+            ("seeded 1x17x33 128->128 (ragged to the tile)", *seeded_q(1, 17, 33, 128, 128, False), False),
+            served_case("quality", 2, "head"),
+            served_case("quality", 2, "block0.conv1", BATCH, relu=True),
+            served_case("quality", 2, "block0.conv2"),
+            served_case("quality", 2, "trunk"),
+            served_case("quality", 2, "tail"),
+            served_case("quality", 2, "base"),
+            served_case("quality", 4, "block0.conv1", relu=True),
+            served_case("quality", 4, "tail"),
+            served_case("performance", 2, "tail"),
+        ]
+        errs["conv3x3_q"] = 0.0
+        for name, xq, kq, scale, b, relu in q_cases:
+            check(cc.int8_sum_bound(kq) < 2.0 ** 24, f"conv3x3_q {name}: sums may leave fp32's integers")
+            kout = cc.conv3x3_q(xq, kq, scale, b, relu)
+            pout = cc.conv3x3_q_plain(xq, kq, scale, b, relu)
+            torch.cuda.synchronize()
+            check(kout.shape == pout.shape and kout.dtype == torch.bfloat16, f"conv3x3_q {name}: shape")
+            d = (kout.float() - pout.float()).abs()
+            n_diff, max_d = int((d > 0).sum().item()), float(d.max().item())
+            say(f"conv3x3_q [{name}] relu={relu} bias={b is not None}: {n_diff} of {d.numel()} values "
+                f"differ, max |d| {max_d:.6g}; sum bound {cc.int8_sum_bound(kq) / 2.0 ** 24:.4f} of 2^24")
+            check(n_diff == 0 and bool(torch.isfinite(kout.float()).all()), f"conv3x3_q {name}: {n_diff} differ")
+            errs["conv3x3_q"] = max(errs["conv3x3_q"], max_d)
+
         # the fused trunk: seeded weights on trunk-like activations, and the
         # committed ones on the served graph's input (the s2d of frames), at
         # the learned path's grids, a batch of 4 and a ragged 27x40
@@ -1127,6 +1198,85 @@ def main() -> int:
                 e2e[f"learned_x{u}{impl}_upscale_arr_fps_device"] = 20 / (time.perf_counter() - t0)
         say("e2e learned: " + json.dumps(e2e))
 
+        # the int8 ladders: create_advanced_upscaler("ultra") with the default
+        # learned_prefer ("quality") at x2 and x4, and "performance" at x2; the
+        # counts are read for each call on its own
+        check(create_advanced_upscaler("ultra").learned_prefer == "quality", "the default learned_prefer")
+        q_ups = {}
+        for prefer, u, h_, w_, arch, ckpt_step, *_ in INT8_LEARNED:
+            q_up = create_advanced_upscaler("ultra")
+            if prefer != q_up.learned_prefer:
+                q_up.learned_prefer = prefer
+            q_up.initialize(w_, h_, u * w_, u * h_)
+            got = (q_up._serving_tier, q_up._fn.arch, q_up._fn.step, q_up._fn.quantized)
+            check(got == ("learned", arch, ckpt_step, True), f"{prefer} x{u} serves {got}")
+            q_ups[(prefer, u)] = q_up
+        q_out, q_counts = {}, {}
+        for (prefer, u), q_up in q_ups.items():
+            cc.reset_launches()
+            q_out[(prefer, u)] = q_up.upscale(learned_in[u].tobytes())
+            torch.cuda.synchronize()
+            q_counts[f"{prefer} x{u}"] = dict(cc.launches)
+        cc.reset_launches()
+        q_batch = q_ups[("quality", 2)].upscale_batch(batch4)
+        torch.cuda.synchronize()
+        q_counts[f"quality x2 batch of {BATCH}"] = dict(cc.launches)
+        int8_launches = sum(c["conv3x3_q"] for c in q_counts.values())
+        say(f"launches on the int8 learned path: {json.dumps(q_counts)}")
+        for prefer, u, *_, n_q, n_bf16 in INT8_LEARNED:
+            check(q_counts[f"{prefer} x{u}"] == {"conv3x3": n_bf16, "conv3x3_q": n_q},
+                  f"{prefer} x{u} launches: {q_counts[f'{prefer} x{u}']}")
+        check(q_counts[f"quality x2 batch of {BATCH}"] == {"conv3x3": 0, "conv3x3_q": 8}, "batch launches")
+
+        qgates, q_twins = {}, {}
+        for prefer, u, h_, w_, arch, _, twin_gate, _, n_bf16 in INT8_LEARNED:
+            tag = f"{prefer}_x{u}"
+            got = np.frombuffer(q_out[(prefer, u)], np.uint8).reshape(u * h_, u * w_, 4)
+            model, _ = pel.load_model(arch, u)
+            scales = pel.load_act_scales(arch, u)
+            plain_fn = pel.make_serving_fn_fused(model, h_, w_, dev, conv=cc.conv3x3_plain,
+                                                 quant_scales=scales, conv_q=cc.conv3x3_q_plain)
+            plain = plain_fn(torch.from_numpy(learned_in[u][None]).to(dev))[0].cpu().numpy()
+            x01 = torch.from_numpy(learned_in[u][None, ..., :3].astype(np.float32) / 255.0).to(dev)
+            twin = pel.make_quant_apply(model, scales)(x01)[0]
+            q_twins[tag] = torch.clamp(torch.round(twin * 255.0), 0, 255).to(torch.uint8).cpu().numpy()
+            qgates[f"{tag}_vs_plain_path_db"] = psnr(got, plain)
+            qgates[f"{tag}_vs_plain_path_max_lsb"] = int(np.abs(got.astype(int) - plain).max())
+            qgates[f"{tag}_vs_plain_path_equal"] = float((got == plain).mean())
+            qgates[f"{tag}_alpha_equal"] = bool(np.array_equal(got[..., 3], plain[..., 3]))
+            qgates[f"{tag}_vs_int8_twin_db"] = psnr(got, q_twins[tag])
+            check(got.shape == (OUT_H, OUT_W, 4) and np.all(got[..., 3] == 255), f"{tag} shape/alpha")
+            check(qgates[f"{tag}_vs_plain_path_db"] >= LEARNED_GATE_DB and qgates[f"{tag}_alpha_equal"],
+                  f"{tag} kernel path vs plain path: {qgates[f'{tag}_vs_plain_path_db']:.2f} dB")
+            # every conv on the int8 grid is bit-equal to its plain version;
+            # only a bf16 head (x4: no "head" scale) may move a byte
+            check(n_bf16 > 0 or qgates[f"{tag}_vs_plain_path_equal"] == 1.0,
+                  f"{tag}: the all-int8 graph is not bit-equal to its plain path")
+            check(qgates[f"{tag}_vs_int8_twin_db"] >= twin_gate,
+                  f"{tag} vs the int8-grid twin: {qgates[f'{tag}_vs_int8_twin_db']:.2f} dB < {twin_gate}")
+        qgates["quality_x2_batch_equals_singles"] = q_batch == [q_ups[("quality", 2)].upscale(f)
+                                                                for f in batch4]
+        say("int8 learned gates: " + json.dumps(qgates))
+        check(qgates["quality_x2_batch_equals_singles"], "int8 upscale_batch != upscale of each frame")
+
+        q_e2e = {}
+        for (prefer, u), q_up in q_ups.items():
+            lat = []
+            for _ in range(6):
+                t0 = time.perf_counter()
+                q_up.upscale(learned_in[u].tobytes())
+                lat.append((time.perf_counter() - t0) * 1e3)
+            q_e2e[f"{prefer}_x{u}_upscale_bytes_ms_median"] = float(np.median(lat[1:]))
+            src = torch.from_numpy(learned_in[u]).to(dev)
+            q_up.upscale_arr(src)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                q_up.upscale_arr(src)
+            torch.cuda.synchronize()
+            q_e2e[f"{prefer}_x{u}_upscale_arr_fps_device"] = 20 / (time.perf_counter() - t0)
+        say("e2e int8 learned: " + json.dumps(q_e2e))
+
     with Phase("4e two-call resample path"):
         # the counterpart of make_pallas_resampler at 1080p→4K lanczos3; the
         # counts are read for this path on its own (two launches a call)
@@ -1335,6 +1485,50 @@ def main() -> int:
             "ptxas_by_variant": {f"tile {256 // v[0]}x{v[0]}, {v[1]} stages": r for v, r in regs.items()},
         })
 
+        # the int8-grid conv at each shape of the "quality" x2 and x4 frames,
+        # the committed int8 weights on quantised activations; bounds at the
+        # bf16 rate (the loop it runs; s8 wgmma would double the rate), and
+        # F.conv2d bf16 on the same values as the library's yardstick
+        q2, q4 = served_q[("quality", 2)], served_q[("quality", 4)]
+        q_timed = {
+            f"x2 head 1x{th2}x{tw2} 128->128": (1, th2, tw2, q2.q_head, False),
+            f"x2 block 1x{th2}x{tw2} 128->128": (1, th2, tw2, q2.q_blocks[0][1], False),
+            f"x2 tail 1x{th2}x{tw2} 128->256": (1, th2, tw2, q2.q_tail, False),
+            f"x2 base 1x{th2 + 2}x{tw2 + 2} 128->256": (1, th2 + 2, tw2 + 2, q2.q_base, False),
+            f"x2 block {BATCH}x{th2}x{tw2} 128->128": (BATCH, th2, tw2, q2.q_blocks[0][1], False),
+            f"x4 block 1x{th4}x{tw4} 128->128": (1, th4, tw4, q4.q_blocks[0][1], False),
+            f"x4 tail 1x{th4}x{tw4} 128->1024": (1, th4, tw4, q4.q_tail, False),
+        }
+        q_ms = {}
+        for name, (n_, h_, w_, c, relu) in q_timed.items():
+            xq = cc.quantize_act(act(n_, h_, w_, 128), c.ax)
+            cin, cout = c.kq.shape[2], c.kq.shape[3]
+            moved, ops = conv_work(n_, h_, w_, cin, cout)
+            moved += 4 * cout * (1 + (c.b is not None)) - 2 * cout  # fp32 scale and bias, not a bf16 bias
+            t_bytes, t_ops = moved / mem_bw * 1e3, ops / bf16_rate * 1e3
+            b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+            xc = xq.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+            wc = c.kq.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            bc = None if c.b is None else c.b.to(torch.bfloat16)
+            ms = time_ms(torch, lambda: cc.conv3x3_q(xq, c.kq, c.scale, c.b, relu), flush)
+            plain_ms = time_ms(torch, lambda: cc.conv3x3_q_plain(xq, c.kq, c.scale, c.b, relu), flush)
+            lib_ms = time_ms(torch, lambda: torch.nn.functional.conv2d(xc, wc, bc, padding=1), flush)
+            say(f"time conv3x3_q [{name}]: {ms:.4f} ms with the weights' repack (plain {plain_ms:.4f} ms; "
+                f"F.conv2d bf16 {lib_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by}: {moved} bytes, {ops} "
+                f"operations at the bf16 rate; {100 * b_ms / ms:.1f}% of bound, {ops / ms / 1e9:.1f} TOP/s)")
+            q_ms[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                          "bound_by": b_by}
+        rows.append({
+            "name": "conv3x3_q", "route": "cuda", "source": CONV_SOURCE, "replaces": REPLACES["conv3x3_q"],
+            "launches": int8_launches, "max_abs_err": errs["conv3x3_q"],
+            **q_ms[f"x2 block 1x{th2}x{tw2} 128->128"],
+            "inputs": f"the committed tpu4b2 block0.conv2 int8 weights on quantised activations, "
+                      f"1x{th2}x{tw2}x128 -> 128 (the quality x2 trunk grid)",
+            "max_abs_err_units": "bf16 value; bit-equal to conv_cuda.conv3x3_q_plain in every case",
+            "library_note": "F.conv2d in bf16 on the same integer values; PyTorch has no CUDA int8 conv",
+            "shapes": q_ms,
+        })
+
         # the fused trunk at the learned path's inputs (the committed weights
         # on the s2d of the bench frame, round_sum as served), against the
         # same chain as conv3x3 launches and as F.conv2d calls
@@ -1439,6 +1633,9 @@ def main() -> int:
         busy = trace_calls(torch, fused_ups[2], torch.from_numpy(frames["a"]).to(dev), 7,
                            Path(_build.BUILD_DIR) / "learned_x2_fused_trace.json")
         say("trace learned x2 upscale_arr, trunk_impl=fused: " + json.dumps(busy))
+        busy = trace_calls(torch, q_ups[("quality", 2)].upscale_arr, torch.from_numpy(frames["a"]).to(dev),
+                           7, Path(_build.BUILD_DIR) / "learned_quality_x2_trace.json")
+        say("trace learned quality x2 (int8) upscale_arr: " + json.dumps(busy))
 
     say(f"total {time.perf_counter() - T_START:.1f} s")
     say(json.dumps({"kernels": rows}))

@@ -213,9 +213,9 @@ class PyAdvancedWgpuUpscaler(PyWgpuUpscaler):
 
     Quality "ultra" serves the learned network (`models/esrgan_lite.py`) for
     the ladder named by `learned_prefer` (set by the caller, as the app's
-    facade does; default "quality"). The port serves the "ultra" ladder
-    (bf16, through the conv kernel); any other learned request, ratio or
-    frame size it does not serve raises `NotImplementedError` naming its
+    facade does; default "quality"): "ultra" in bf16, "quality" and
+    "performance" on the int8 grid, all through the conv kernel. A ratio or
+    frame size no ported arch serves raises `NotImplementedError` naming its
     ROADMAP item, at `initialize`: there is no silent classical fallback.
     Other qualities run the classical resample kernel."""
 

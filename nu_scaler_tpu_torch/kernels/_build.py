@@ -81,6 +81,11 @@ SIGNATURES = {
             _INT, _INT, _INT, _INT, _INT, _INT, _INT,  # n, h, w, cin, cout, relu, round_sum
             _INT, _INT, _VP,  # tile_w, stages, stream
         ],
+        "nu_conv3x3_q": [
+            _INT, _VP, _VP, _VP, _VP, _VP,  # device, x, k (packed), scale, b (or NULL), out
+            _INT, _INT, _INT, _INT, _INT, _INT,  # n, h, w, cin, cout, relu
+            _VP,  # stream
+        ],
     },
     "trunk_fused": {
         "nu_trunk_fused": [

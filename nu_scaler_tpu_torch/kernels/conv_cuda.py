@@ -24,6 +24,18 @@ agree to one bf16 ulp, or, where the sum cancels, to a small multiple of the
 fp32 rounding of the terms' magnitude: `ulp_tolerance` states the bound. A
 wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel or raises.
+
+`conv3x3_q` is the same kernel with its int8-grid epilogue: the counterpart
+of the XLA conv `_conv_i8` (`nu_scaler_tpu/models/esrgan_lite.py:719`) that
+the int8 learned ladders serve. Its input is already on the int8 grid
+(`quantize_act`: integers in [-127, 127], exact in bf16), its weights are
+the int8 kernel as integer-valued bf16, and per output channel it takes an
+fp32 ``scale = f32(dq) · f32(ax/127)`` and an optional fp32 bias:
+``bf16_rn(relu(sum · scale[o] + bias[o]))``, one fp32 multiply and one fp32
+add, no FMA. The products are integers below 2^14 and every partial sum of
+the committed weights stays below 0.311 · 2^24 for any input
+(`int8_sum_bound`), so the kernel's fp32 sums are the int32 sums of
+`_conv_i8` in any order: kernel and plain version agree bit for bit.
 """
 
 from __future__ import annotations
@@ -36,7 +48,7 @@ import torch.nn.functional as F
 
 # Launches since the last `reset_launches()`; the wrapper adds one where it
 # launches its kernel and nowhere else.
-launches = {"conv3x3": 0}
+launches = {"conv3x3": 0, "conv3x3_q": 0}
 
 LANES = 128  # Cin and Cout must be multiples of this (the Pallas kernel's rule)
 # The kernel's variants, (tile width, weight stages): 16 → 16×16 positions,
@@ -105,6 +117,43 @@ def conv3x3_plain(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor, relu: bool,
     return acc.to(torch.bfloat16)
 
 
+def quantize_act(x: torch.Tensor, ax: float, dtype=torch.bfloat16) -> torch.Tensor:
+    """`_conv_i8`'s activation quantiser (`esrgan_lite.py:730-734`):
+    clamp(round(x · f32(127/ax)), -127, 127), 127/ax formed in double and
+    cast, the product in fp32, ties to even; integer values, as `dtype`
+    (bf16 holds them exactly)."""
+    inv = torch.tensor(127.0 / ax, dtype=torch.float32, device=x.device)
+    return torch.clamp(torch.round(x.float() * inv), -127, 127).to(dtype)
+
+
+def qgrid_scale(dq, ax: float) -> torch.Tensor:
+    """The per-output-channel dequantisation `_conv_i8` applies:
+    f32(dq) · f32(ax/127), in fp32 (an fp32 tensor on dq's device, or the
+    CPU for a numpy dq)."""
+    dq = torch.as_tensor(dq, dtype=torch.float32)
+    return dq * torch.tensor(ax / 127.0, dtype=torch.float32, device=dq.device)
+
+
+def int8_sum_bound(kq) -> float:
+    """127 · max_o Σ|kq[..., o]|: no partial sum of a conv on the int8 grid
+    (|x| ≤ 127) exceeds it, in any order of summation."""
+    kq = torch.as_tensor(kq).double().abs()
+    return float(127.0 * kq.sum(dim=(0, 1, 2)).max())
+
+
+def conv3x3_q_plain(xq: torch.Tensor, kq: torch.Tensor, scale: torch.Tensor,
+                    b: Optional[torch.Tensor], relu: bool) -> torch.Tensor:
+    """The int8-grid kernel's function in PyTorch ops: the fp32 conv of the
+    integer values (exact below 2^24), · scale, + bias, each rounded in fp32,
+    ReLU, one rounding to bf16."""
+    acc = conv3x3_f32(xq, kq) * scale
+    if b is not None:
+        acc = acc + b
+    if relu:
+        acc = torch.clamp_min(acc, 0.0)
+    return acc.to(torch.bfloat16)
+
+
 def ulp_bf16(v: torch.Tensor) -> torch.Tensor:
     """One bf16 ulp at |v| (fp32 out; 0 where v is 0)."""
     v = v.float().abs()
@@ -149,6 +198,23 @@ def check_inputs(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor) -> None:
                          f"got {cin} and {cout}")
 
 
+def check_inputs_q(xq: torch.Tensor, kq: torch.Tensor, scale: torch.Tensor,
+                   b: Optional[torch.Tensor]) -> None:
+    """`check_inputs` for the int8-grid mode: bf16 x and k, fp32 scale and
+    bias (the bias may be None)."""
+    check_inputs(xq, kq, torch.empty(kq.shape[-1] if kq.dim() == 4 else 0,
+                                     dtype=torch.bfloat16, device=xq.device))
+    for name, t in (("scale", scale), ("b", b)):
+        if t is None and name == "b":
+            continue
+        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32:
+            raise TypeError(f"{name}: expected a float32 torch.Tensor")
+        if not t.is_contiguous() or t.device != xq.device:
+            raise ValueError(f"{name}: expected a contiguous tensor on {xq.device}")
+        if tuple(t.shape) != (kq.shape[-1],):
+            raise ValueError(f"{name}: expected [{kq.shape[-1]}], got {tuple(t.shape)}")
+
+
 def pack_weights(k: torch.Tensor) -> torch.Tensor:
     """HWIO ``[3, 3, Cin, Cout]`` → ``[Cout, 3, 3, Cin]``, contiguous:
     ``packed[o, dy, dx, c] == k[dy, dx, c, o]``. Each output channel's 9·Cin
@@ -180,6 +246,41 @@ def _launch(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor, relu: bool,
         err = lib.nu_conv3x3_variant(*args, *variant, stream)
     if err != 0:
         raise RuntimeError(f"conv3x3 launch failed: {lib.nu_cuda_error_string(err).decode()} ({err})")
+    return out
+
+
+def _launch_q(xq: torch.Tensor, kq: torch.Tensor, scale: torch.Tensor,
+              b: Optional[torch.Tensor], relu: bool) -> torch.Tensor:
+    """One launch of the kernel's int8-grid mode (default tile), weights
+    repacked by `pack_weights`; a None bias passes a null pointer."""
+    if xq.device.type != "cuda":
+        raise RuntimeError(f"the CUDA kernel needs a CUDA tensor, got {xq.device}")
+    from nu_scaler_tpu_torch.kernels import _build
+
+    lib = _build.load_library("conv3x3")
+    n, h, w, cin = xq.shape
+    cout = kq.shape[-1]
+    kp = pack_weights(kq)
+    out = torch.empty((n, h, w, cout), dtype=torch.bfloat16, device=xq.device)
+    stream = torch.cuda.current_stream(xq.device).cuda_stream
+    err = lib.nu_conv3x3_q(xq.device.index or 0, xq.data_ptr(), kp.data_ptr(), scale.data_ptr(),
+                           None if b is None else b.data_ptr(), out.data_ptr(),
+                           n, h, w, cin, cout, int(relu), stream)
+    if err != 0:
+        raise RuntimeError(f"conv3x3_q launch failed: {lib.nu_cuda_error_string(err).decode()} ({err})")
+    return out
+
+
+def conv3x3_q(xq: torch.Tensor, kq: torch.Tensor, scale: torch.Tensor,
+              b: Optional[torch.Tensor] = None, relu: bool = False) -> torch.Tensor:
+    """The int8-grid conv: integer-valued bf16 [N, H, W, Cin] (`quantize_act`)
+    and integer-valued bf16 HWIO weights → bf16 [N, H, W, Cout] =
+    bf16_rn(relu(sum · scale[o] + b[o])), 3×3 SAME, one launch."""
+    check_inputs_q(xq, kq, scale, b)
+    if xq.device.type == "cpu":
+        return conv3x3_q_plain(xq, kq, scale, b, relu)
+    out = _launch_q(xq, kq, scale, b, relu)
+    launches["conv3x3_q"] += 1
     return out
 
 

@@ -16,6 +16,17 @@
 // graph's XLA conv followed by its bias add (esrgan_lite.py:1025-1030),
 // which the learned tier serves.
 //
+// The int8-grid mode (nu_conv3x3_q) replaces the XLA conv _conv_i8
+// (nu_scaler_tpu/models/esrgan_lite.py:719) of the int8 learned ladders. x
+// holds integers in [-127, 127] and the weights integers in [-127, 127], both
+// as bf16 (exact); the epilogue reads an fp32 scale[o] = f32(dq) * f32(ax/127)
+// and an optional fp32 bias[o]: out = bf16_rn(act(__fadd_rn(__fmul_rn(sum,
+// scale[o]), bias[o]))), no FMA. Every product is an integer below 2^14 and,
+// on the committed weights, every partial sum stays below 0.311 * 2^24 for
+// any input (conv_cuda.int8_sum_bound), so the fp32 sums are the int32 sums
+// of _conv_i8 whatever their order: the mode is bit-equal to its plain
+// version. The main loop is the bf16 one; Hopper's s8 wgmma is a later step.
+//
 // What bounds it on an H100 SXM (989 TFLOP/s dense bf16 on the tensor
 // cores, 3.35 TB/s; published peaks). One output position of a 128 -> 128
 // conv costs 2*9*128*128 = 294,912 operations and moves 512 bytes (its
@@ -157,19 +168,27 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-template <bool RELU, bool ROUND_SUM>
-__device__ __forceinline__ float finish(float sum, float bias) {
-  if (ROUND_SUM) sum = __bfloat162float(__float2bfloat16_rn(sum));
+// The epilogue's modes: one rounding (the Pallas kernel's), the sum rounded
+// to bf16 before the bias (the serving graph's), the int8 grid's dequantise.
+enum Epilogue { kSingle = 0, kRoundSum = 1, kQGrid = 2 };
+
+// sum -> the value rounded to bf16: `scale` is read by kQGrid only; `bias`
+// is the bf16 bias as fp32, or kQGrid's fp32 bias (-0.0f without one: x +
+// -0 == x for every x, so the add is then the identity)
+template <bool RELU, int EPI>
+__device__ __forceinline__ float finish(float sum, float scale, float bias) {
+  if (EPI == kRoundSum) sum = __bfloat162float(__float2bfloat16_rn(sum));
+  if (EPI == kQGrid) sum = __fmul_rn(sum, scale);
   float val = __fadd_rn(sum, bias);
   if (RELU) val = fmaxf(val, 0.0f);
   return val;
 }
 
-template <int TH, int TW, int NS, bool RELU, bool ROUND_SUM>
+template <int TH, int TW, int NS, bool RELU, int EPI>
 __global__ void __launch_bounds__(kThreads, 1)
 conv3x3_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ kp,
-               const __nv_bfloat16* __restrict__ b, __nv_bfloat16* __restrict__ out, int h,
-               int w, int cin, int cout, int tiles_w) {
+               const void* __restrict__ b, const float* __restrict__ scale,
+               __nv_bfloat16* __restrict__ out, int h, int w, int cin, int cout, int tiles_w) {
   using L = Layout<TH, TW, NS>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -269,21 +288,32 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restr
   }
   wgmma_wait<0>();
 
-  // epilogue: registers -> bias, ReLU, bf16 -> the tile staged in shared
-  // memory (the halo's space) -> 16-byte stores
+  // epilogue: registers -> (scale,) bias, ReLU, bf16 -> the tile staged in
+  // shared memory (the halo's space) -> 16-byte stores
   __syncthreads();
 #pragma unroll
   for (int nb = 0; nb < 16; ++nb) {
     const int col = nb * 8 + (lane & 3) * 2;
-    const float b0 = __bfloat162float(b[n0 + col]), b1 = __bfloat162float(b[n0 + col + 1]);
+    float b0, b1, s0 = 1.0f, s1 = 1.0f;
+    if (EPI == kQGrid) {
+      const float* bq = static_cast<const float*>(b);
+      s0 = scale[n0 + col];
+      s1 = scale[n0 + col + 1];
+      b0 = bq ? bq[n0 + col] : -0.0f;
+      b1 = bq ? bq[n0 + col + 1] : -0.0f;
+    } else {
+      const __nv_bfloat16* bb = static_cast<const __nv_bfloat16*>(b);
+      b0 = __bfloat162float(bb[n0 + col]);
+      b1 = __bfloat162float(bb[n0 + col + 1]);
+    }
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
       for (int half = 0; half < 2; ++half) {
         const int m = wg * 128 + j * 64 + wr * 16 + (lane >> 2) + half * 8;
         const __nv_bfloat162 v = __floats2bfloat162_rn(
-            finish<RELU, ROUND_SUM>(acc[j][4 * nb + 2 * half], b0),
-            finish<RELU, ROUND_SUM>(acc[j][4 * nb + 2 * half + 1], b1));
+            finish<RELU, EPI>(acc[j][4 * nb + 2 * half], s0, b0),
+            finish<RELU, EPI>(acc[j][4 * nb + 2 * half + 1], s1, b1));
         *reinterpret_cast<__nv_bfloat162*>(stage_out + m * kRowBytes + col * 2) = v;
       }
   }
@@ -297,20 +327,19 @@ conv3x3_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restr
   }
 }
 
-template <int TH, int TW, int NS, bool RELU, bool ROUND_SUM>
-int launch(const void* x, const void* k, const void* b, void* out, int n, int h, int w, int cin,
-           int cout, cudaStream_t stream) {
+template <int TH, int TW, int NS, bool RELU, int EPI>
+int launch(const void* x, const void* k, const void* b, const float* scale, void* out, int n,
+           int h, int w, int cin, int cout, cudaStream_t stream) {
   constexpr int smem = Layout<TH, TW, NS>::kSmem;
-  auto kernel = conv3x3_kernel<TH, TW, NS, RELU, ROUND_SUM>;
+  auto kernel = conv3x3_kernel<TH, TW, NS, RELU, EPI>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles_w = (w + TW - 1) / TW;
   const int tiles_h = (h + TH - 1) / TH;
   const dim3 grid(tiles_w * tiles_h, cout / kBN, n);
   kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(b), static_cast<__nv_bfloat16*>(out), h, w, cin, cout,
-      tiles_w);
+      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(k), b, scale,
+      static_cast<__nv_bfloat16*>(out), h, w, cin, cout, tiles_w);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -318,11 +347,19 @@ template <int TH, int TW, int NS>
 int dispatch(const void* x, const void* k, const void* b, void* out, int n, int h, int w, int cin,
              int cout, int relu, int round_sum, cudaStream_t s) {
   if (relu) {
-    return round_sum ? launch<TH, TW, NS, true, true>(x, k, b, out, n, h, w, cin, cout, s)
-                     : launch<TH, TW, NS, true, false>(x, k, b, out, n, h, w, cin, cout, s);
+    return round_sum ? launch<TH, TW, NS, true, kRoundSum>(x, k, b, nullptr, out, n, h, w, cin, cout, s)
+                     : launch<TH, TW, NS, true, kSingle>(x, k, b, nullptr, out, n, h, w, cin, cout, s);
   }
-  return round_sum ? launch<TH, TW, NS, false, true>(x, k, b, out, n, h, w, cin, cout, s)
-                   : launch<TH, TW, NS, false, false>(x, k, b, out, n, h, w, cin, cout, s);
+  return round_sum ? launch<TH, TW, NS, false, kRoundSum>(x, k, b, nullptr, out, n, h, w, cin, cout, s)
+                   : launch<TH, TW, NS, false, kSingle>(x, k, b, nullptr, out, n, h, w, cin, cout, s);
+}
+
+bool bad_shape(int n, int h, int w, int cin, int cout, int tile_w) {
+  return n < 1 || n > 65535 || h < 1 || w < 1 || cin < kKC || cin % kKC || cout < kBN ||
+         cout % kBN || cout / kBN > 65535 ||
+         static_cast<long long>((w + tile_w - 1) / tile_w) *
+                 ((h + kBM / tile_w - 1) / (kBM / tile_w)) >
+             0x7fffffffLL;
 }
 
 }  // namespace
@@ -335,11 +372,8 @@ extern "C" {
 int nu_conv3x3_variant(int device, const void* x, const void* k, const void* b, void* out, int n,
                        int h, int w, int cin, int cout, int relu, int round_sum, int tile_w,
                        int stages, void* stream) {
-  if (n < 1 || n > 65535 || h < 1 || w < 1 || cin < kKC || cin % kKC || cout < kBN ||
-      cout % kBN || cout / kBN > 65535 || (tile_w != 16 && tile_w != 32) ||
-      (stages != 3 && stages != 4) ||
-      static_cast<long long>((w + tile_w - 1) / tile_w) * ((h + kBM / tile_w - 1) / (kBM / tile_w)) >
-          0x7fffffffLL) {
+  if ((tile_w != 16 && tile_w != 32) || (stages != 3 && stages != 4) ||
+      bad_shape(n, h, w, cin, cout, tile_w)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t e = cudaSetDevice(device);
@@ -358,6 +392,20 @@ int nu_conv3x3(int device, const void* x, const void* k, const void* b, void* ou
                int w, int cin, int cout, int relu, int round_sum, void* stream) {
   return nu_conv3x3_variant(device, x, k, b, out, n, h, w, cin, cout, relu, round_sum, 16, 4,
                             stream);
+}
+
+// The int8-grid mode at the default tile: x and k integer-valued bf16,
+// scale fp32 [cout], b fp32 [cout] or NULL (no bias).
+int nu_conv3x3_q(int device, const void* x, const void* k, const float* scale, const float* b,
+                 void* out, int n, int h, int w, int cin, int cout, int relu, void* stream) {
+  if (scale == nullptr || bad_shape(n, h, w, cin, cout, 16)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaError_t e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return relu ? launch<16, 16, 4, true, kQGrid>(x, k, b, scale, out, n, h, w, cin, cout, s)
+              : launch<16, 16, 4, false, kQGrid>(x, k, b, scale, out, n, h, w, cin, cout, s);
 }
 
 const char* nu_cuda_error_string(int code) {

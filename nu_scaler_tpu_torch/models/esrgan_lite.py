@@ -25,11 +25,21 @@ JAX model's `conv_impl` switch); "layers" stays the default. The fixed base
 is an fp32 VALID conv, exact in any order. Every other cast to bf16 sits
 where the JAX graph puts it.
 
-Weights come from the numpy files under `nu_scaler_tpu_torch/weights/`,
-written from the orbax checkpoints by `tools/export_torch_weights.py`.
-Only the "ultra" ladder is served; the int8 ladders ("quality",
-"performance"), the stride-2 and stride-8 archs and the non-exact-ratio
-path raise `NotImplementedError` with their ROADMAP item.
+With ``quant_scales`` (a checkpoint's int8 calibration) the graph is the
+int8 branch of `make_serving_fn_fused` (`esrgan_lite.py:950-1076`) that the
+"quality" (default) and "performance" ladders serve: every residual-block,
+trunk and tail conv is `_conv_i8` — the activation quantised by
+`conv_cuda.quantize_act`, then `conv_cuda.conv3x3_q`, the conv kernel's
+int8-grid epilogue — and, with "head" / "base" scales, the head and the
+fixed base too (the base VALID on the edge-padded 128-lane input: the
+kernel runs it SAME over the padded tensor and the interior is kept).
+`make_quant_apply` is its fp32 twin, the one the bench's gates compare with.
+
+Weights and int8 scales come from the files under
+`nu_scaler_tpu_torch/weights/`, written from the orbax checkpoints and their
+``act_scales.json`` by `tools/export_torch_weights.py`. The stride-2 and
+stride-8 archs and the non-exact-ratio path raise `NotImplementedError`
+with their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -38,7 +48,7 @@ import functools
 import hashlib
 import json
 from pathlib import Path
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -51,19 +61,32 @@ from nu_scaler_tpu_torch.ops.resample import to_device_u8
 
 WEIGHTS_DIR = Path(__file__).resolve().parents[1] / "weights"
 
-# The port's copy of the "ultra" row of `_ARCH_LADDER` (esrgan_lite.py:553):
-# (arch, model kwargs). Every entry serves bf16.
+# The port's copy of `_ARCH_LADDER` (esrgan_lite.py:547-589): (arch, model
+# kwargs, mode). Mode "quant" serves only when the checkpoint's int8 scales
+# match its step; "ultra" serves bf16, the other ladders serve int8 whenever
+# the served checkpoint has matching scales.
 ARCH_LADDER = {
     "ultra": (
-        ("tpu4b2", dict(stride=4, features=128, blocks=2)),
-        ("tpu4", dict(stride=4, features=128)),
-        ("tpu", {}),
+        ("tpu4b2", dict(stride=4, features=128, blocks=2), None),
+        ("tpu4", dict(stride=4, features=128), None),
+        ("tpu", {}, None),
+    ),
+    "quality": (
+        ("tpu4b2", dict(stride=4, features=128, blocks=2), "quant"),
+        ("tpu4", dict(stride=4, features=128), "quant"),
+        ("tpu4b2", dict(stride=4, features=128, blocks=2), None),
+        ("tpu4", dict(stride=4, features=128), None),
+        ("tpu", {}, None),
+    ),
+    "performance": (
+        ("tpu4b1", dict(stride=4, features=128, blocks=1), None),
+        ("tpu8w", dict(stride=8, features=192), None),
+        ("tpu8", dict(stride=8, features=128), None),
+        ("tpu4b2", dict(stride=4, features=128, blocks=2), None),
+        ("tpu4", dict(stride=4, features=128), None),
+        ("tpu", {}, None),
     ),
 }
-NOT_PORTED_INT8 = (
-    "the int8 learned ladders (learned_prefer 'quality' / 'performance': "
-    "_conv_i8 with act_scales.json) are not ported yet: ROADMAP queue 1, item 14"
-)
 NOT_PORTED_ARCH = "is not ported yet (ROADMAP queue 1, item 9)"
 
 
@@ -124,6 +147,27 @@ def _expand_out_rgba(k: np.ndarray, b: np.ndarray, r: int, scale: float):
         out[:, :, :, ph * 4 : ph * 4 + 3] = k[:, :, :, ph * 3 : ph * 3 + 3] * scale
         ob[ph * 4 : ph * 4 + 3] = b[ph * 3 : ph * 3 + 3] * scale
     return out, ob
+
+
+def _quant_kernel_i8(k: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """HWIO f32 kernel → (int8 kernel, per-output-channel f32 dequant scale):
+    kq[..., o] = round(k[..., o] / s_o), s_o = max|k[..., o]| / 127 (1 for an
+    all-zero channel, whose kq is 0)."""
+    amax = np.max(np.abs(k), axis=(0, 1, 2))
+    s = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
+    kq = np.clip(np.round(k / s), -127, 127).astype(np.int8)
+    return kq, s
+
+
+def _quant_kernel_i8_dc(k: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """`_quant_kernel_i8` with each channel's scale renormalised so the
+    quantised taps sum to the original tap sum (flat fields, the α ≡ 255
+    plane included, pass the fixed base exactly)."""
+    kq, s = _quant_kernel_i8(k)
+    qsum = kq.astype(np.float64).sum(axis=(0, 1, 2))
+    osum = k.astype(np.float64).sum(axis=(0, 1, 2))
+    s = np.where(qsum != 0, osum / np.where(qsum == 0, 1, qsum), s).astype(np.float32)
+    return kq, s
 
 
 # ---------------------------------------------------------------------------
@@ -233,14 +277,22 @@ def params_from_flax(tree) -> dict:
     return out
 
 
+def _sidecar(arch: str, upscale: int) -> Optional[dict]:
+    """The JSON sidecar of the newest committed weights of `arch` at
+    `upscale`, or None."""
+    sidecars = sorted(WEIGHTS_DIR.glob(f"esrgan_{arch}_x{upscale}_*.json"))
+    if not sidecars:
+        return None
+    return max((json.loads(p.read_text()) for p in sidecars), key=lambda m: m["step"])
+
+
 def load_weights(arch: str, upscale: int) -> Optional[tuple[dict, dict]]:
     """(nested flax-named numpy tree, sidecar metadata) of the committed
     weights of `arch` at `upscale`, or None when the port carries none. The
     npz's sha256 must match its sidecar's."""
-    sidecars = sorted(WEIGHTS_DIR.glob(f"esrgan_{arch}_x{upscale}_*.json"))
-    if not sidecars:
+    meta = _sidecar(arch, upscale)
+    if meta is None:
         return None
-    meta = max((json.loads(p.read_text()) for p in sidecars), key=lambda m: m["step"])
     npz = WEIGHTS_DIR / f"esrgan_{arch}_x{upscale}_{meta['step']}.npz"
     digest = hashlib.sha256(npz.read_bytes()).hexdigest()
     if digest != meta["sha256"]:
@@ -254,6 +306,19 @@ def load_weights(arch: str, upscale: int) -> Optional[tuple[dict, dict]]:
                 node = node.setdefault(p, {})
             node[leaf] = z[key]
     return tree, meta
+
+
+def load_act_scales(arch: str, upscale: int) -> Optional[dict]:
+    """The int8 activation scales of the committed weights of `arch` at
+    `upscale` (their sidecar's ``act_scales``), or None when the port carries
+    none or they were calibrated at another step than the weights'
+    (`nu_scaler_tpu/models/train.py` `load_act_scales`)."""
+    meta = _sidecar(arch, upscale)
+    blob = meta and meta.get("act_scales")
+    if not blob or blob.get("step") != meta["step"]:
+        return None
+    scales = blob.get("scales")
+    return dict(scales) if isinstance(scales, dict) and scales else None
 
 
 def load_model(arch: str, upscale: int) -> Optional[tuple[ESRGANLiteTPU, dict]]:
@@ -273,21 +338,45 @@ def load_model(arch: str, upscale: int) -> Optional[tuple[ESRGANLiteTPU, dict]]:
 # ---------------------------------------------------------------------------
 
 ConvFn = Callable[..., torch.Tensor]  # (x, k, b, relu, round_sum) → bf16
+ConvQFn = Callable[..., torch.Tensor]  # (xq, kq, scale, b, relu) → bf16
 TRUNK_IMPLS = ("layers", "fused")
 
 
+class QConv(NamedTuple):
+    """One conv on the int8 grid (`_conv_i8`'s operands): the int8 kernel as
+    integer-valued bf16 HWIO, the fp32 dequantisation f32(dq)·f32(ax/127)
+    per output channel, the fp32 bias (or None) and the activation scale."""
+
+    kq: torch.Tensor
+    scale: torch.Tensor
+    b: Optional[torch.Tensor]
+    ax: float
+
+
 class FusedServing:
-    """The raw-domain bf16 serving graph of `make_serving_fn_fused`:
-    u8 RGBA [N, H, W, 4] → u8 RGBA [N, uH, uW, 4] for the whole batch.
-    `trunk_impl` "layers" runs the learned layers as one conv launch each,
-    with `conv` (the kernel wrapper by default; `conv_cuda.conv3x3_plain` to
-    run the graph on its plain version); "fused" runs them as one launch of
-    the fused trunk kernel."""
+    """The raw-domain serving graph of `make_serving_fn_fused`: u8 RGBA
+    [N, H, W, 4] → u8 RGBA [N, uH, uW, 4] for the whole batch.
+
+    bf16 (``quant_scales`` None): `trunk_impl` "layers" runs the learned
+    layers as one conv launch each, with `conv` (the kernel wrapper by
+    default; `conv_cuda.conv3x3_plain` to run the graph on its plain
+    version); "fused" runs them as one launch of the fused trunk kernel.
+
+    int8 (``quant_scales``, a checkpoint's calibration): the blocks, trunk and
+    tail — and the head and the fixed base where the scales name them — run
+    on the int8 grid through `conv_q` (`conv_cuda.conv3x3_q` by default;
+    `conv_cuda.conv3x3_q_plain` for the plain version); a missing "head" /
+    "base" leaves the bf16 head and the fp32 base. The fused trunk is bf16
+    only, as JAX's is."""
 
     def __init__(self, model: ESRGANLiteTPU, in_h: int, in_w: int, device,
-                 conv: Optional[ConvFn] = None, trunk_impl: str = "layers") -> None:
+                 conv: Optional[ConvFn] = None, trunk_impl: str = "layers",
+                 quant_scales: Optional[dict] = None, conv_q: Optional[ConvQFn] = None) -> None:
         if trunk_impl not in TRUNK_IMPLS:
             raise ValueError(f"trunk_impl must be one of {TRUNK_IMPLS}, got {trunk_impl!r}")
+        if quant_scales is not None and trunk_impl != "layers":
+            raise ValueError("trunk_impl='fused' serves bf16 only: the int8 ladders run "
+                             "trunk_impl='layers'")
         st, up = model.stride, model.upscale
         if in_h % st or in_w % st:
             raise ValueError(f"{in_w}x{in_h} is not a multiple of the stride {st}")
@@ -295,6 +384,7 @@ class FusedServing:
         self.in_hw = (in_h, in_w)
         self.stride, self.r = st, st * up
         self.conv = conv or conv_cuda.conv3x3
+        self.conv_q = conv_q or conv_cuda.conv3x3_q
         self.trunk_impl = trunk_impl
 
         def np32(t: torch.Tensor) -> np.ndarray:
@@ -316,8 +406,9 @@ class FusedServing:
             for blk in model.res_blocks()
         ]
         self.trunk = (bf16(np32(model.trunk.kernel)), bf16(np32(model.trunk.bias)))
-        self.tail = tuple(map(bf16, _expand_out_rgba(
-            np32(model.tail.kernel), np32(model.tail.bias), self.r, 255.0)))
+        tail_k, tail_b = _expand_out_rgba(np32(model.tail.kernel), np32(model.tail.bias),
+                                          self.r, 255.0)
+        self.tail = (bf16(tail_k), bf16(tail_b))
         # taps are multiples of 1/16 (x2) or 1/64 (x4) on integers ≤ 255:
         # the fp32 base is exact in any order
         self.base_k = torch.from_numpy(_bilinear_base_kernel(4, up, st)).to(self.device)
@@ -325,18 +416,88 @@ class FusedServing:
         self.trunk_params = (*self.head, *(t for blk in self.blocks for kb in blk for t in kb),
                              *self.trunk, *self.tail)
 
+        self.quant_scales = quant_scales
+        if quant_scales is None:
+            return
+        q = quant_scales
+
+        def qconv(k: np.ndarray, b: Optional[np.ndarray], ax: float, dc: bool = False) -> QConv:
+            kq, dq = (_quant_kernel_i8_dc if dc else _quant_kernel_i8)(k)
+            return QConv(bf16(kq.astype(np.float32)), conv_cuda.qgrid_scale(dq, ax).to(self.device),
+                         None if b is None else torch.from_numpy(b).to(self.device), float(ax))
+
+        self.q_blocks = [
+            tuple(qconv(np32(c.kernel), np32(c.bias), q[f"block{i}/{name}"])
+                  for name, c in (("conv1", blk.conv1), ("conv2", blk.conv2)))
+            for i, blk in enumerate(model.res_blocks())
+        ]
+        self.q_trunk = qconv(np32(model.trunk.kernel), np32(model.trunk.bias), q["trunk"])
+        # the EXPANDED tail (×255, RGBA-interleaved) is quantised, as JAX does
+        self.q_tail = qconv(tail_k, tail_b, q["tail"])
+        # head and base: normalised-domain maxima, ×255 for the raw u8 input
+        self.q_head = (qconv(head_k, np32(model.head.bias), 255.0 * q["head"])
+                       if "head" in q else None)
+        self.q_base = None
+        if "base" in q:
+            # on the head's 128-lane input: the padded rows are zero, and the
+            # zero lanes edge-pad to zero
+            base_k = _bilinear_base_kernel(4, up, st)
+            if self.pad_c:
+                base_k = np.concatenate(
+                    [base_k, np.zeros((3, 3, self.pad_c, base_k.shape[-1]), np.float32)], axis=2)
+            self.q_base = qconv(base_k, None, 255.0 * q["base"], dc=True)
+
+    @property
+    def quantized(self) -> bool:
+        return self.quant_scales is not None
+
     @property
     def convs_per_frame(self) -> int:
-        return 3 + 2 * len(self.blocks)
+        """Launches of the conv kernel per call (either mode)."""
+        return 3 + 2 * len(self.blocks) + (self.quantized and self.q_base is not None)
 
     def run_trunk(self, s2d_head: torch.Tensor) -> torch.Tensor:
-        """The learned layers, head to tail: bf16 [N, h, w, 128] → bf16
+        """The bf16 learned layers, head to tail: bf16 [N, h, w, 128] → bf16
         [N, h, w, r²·4], by `trunk_impl`."""
         if self.trunk_impl == "fused":
             return trunk_cuda.trunk_fused(s2d_head, self.trunk_params, len(self.blocks),
                                           round_sum=True)
         return trunk_cuda.trunk_chain(self.conv, s2d_head, self.trunk_params, len(self.blocks),
                                       round_sum=True)
+
+    def _qconv(self, c: QConv, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+        """`_conv_i8(x, kq, dq, b, ax)`: quantise, then the int8-grid conv."""
+        return self.conv_q(conv_cuda.quantize_act(x, c.ax), c.kq, c.scale, c.b, relu)
+
+    def run_int8(self, s2d: torch.Tensor, s2d_head: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The int8 branch: (tail, base), bf16 [N, h, w, r²·4] each."""
+        xq_head = None
+        if self.q_head is not None:
+            xq_head = conv_cuda.quantize_act(s2d_head, self.q_head.ax)
+            feat = self.conv_q(xq_head, self.q_head.kq, self.q_head.scale, self.q_head.b, False)
+        else:
+            feat = self.conv(s2d_head, *self.head, False, True)
+        c02 = torch.tensor(0.2, dtype=torch.bfloat16, device=feat.device)  # bf16(0.2), as JAX's
+        h = feat
+        for c1, c2 in self.q_blocks:
+            h = h + c02 * self._qconv(c2, self._qconv(c1, h, relu=True))
+        h = self._qconv(self.q_trunk, h) + feat
+        tail = self._qconv(self.q_tail, h)
+        if self.q_base is None:
+            return tail, self.base_f32(s2d)
+        # VALID on the edge-padded input: SAME over the padded tensor, the
+        # interior kept (it reads no zero padding). Quantising commutes with
+        # the edge padding, so the head's quantised input serves when the
+        # scales agree.
+        if xq_head is None or self.q_base.ax != self.q_head.ax:
+            xq_head = conv_cuda.quantize_act(s2d_head, self.q_base.ax)
+        base = self.conv_q(_edge_pad(xq_head).contiguous(), self.q_base.kq, self.q_base.scale,
+                           None, False)
+        return tail, base[:, 1:-1, 1:-1, :]
+
+    def base_f32(self, s2d: torch.Tensor) -> torch.Tensor:
+        """The fixed bilinear base in fp32 (exact), as bf16."""
+        return conv_cuda.conv_valid_f32(_edge_pad(s2d.float()), self.base_k).to(torch.bfloat16)
 
     def trunk_input(self, img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """u8 [N, H, W, 4] → (the raw s2d, bf16 [N, h, w, st²·4]; the head's
@@ -351,22 +512,26 @@ class FusedServing:
 
     def __call__(self, img: torch.Tensor) -> torch.Tensor:
         s2d, s2d_head = self.trunk_input(img)
-        tail = self.run_trunk(s2d_head)
-        base = conv_cuda.conv_valid_f32(_edge_pad(s2d.float()), self.base_k).to(torch.bfloat16)
+        if self.quantized:
+            tail, base = self.run_int8(s2d, s2d_head)
+        else:
+            tail, base = self.run_trunk(s2d_head), self.base_f32(s2d)
         phases = tail + base  # [N, h, w, r²·4] raw-scale RGBA-interleaved
         ph_u8 = torch.clamp(torch.round(phases), 0, 255).to(torch.uint8)
         return _d2s(ph_u8, self.r)
 
 
 def make_serving_fn_fused(model: ESRGANLiteTPU, in_h: int, in_w: int, device=None,
-                          conv: Optional[ConvFn] = None,
-                          trunk_impl: str = "layers") -> FusedServing:
-    """The bf16 branch of the JAX package's `make_serving_fn_fused`."""
-    return FusedServing(model, in_h, in_w, device, conv, trunk_impl)
+                          conv: Optional[ConvFn] = None, trunk_impl: str = "layers",
+                          quant_scales: Optional[dict] = None,
+                          conv_q: Optional[ConvQFn] = None) -> FusedServing:
+    """`make_serving_fn_fused`: its bf16 branch, or with `quant_scales` its
+    int8 branch."""
+    return FusedServing(model, in_h, in_w, device, conv, trunk_impl, quant_scales, conv_q)
 
 
 def make_serving_fn(model: ESRGANLiteTPU, in_h: int, in_w: int, out_h: int, out_w: int,
-                    device=None) -> FusedServing:
+                    device=None, quant_scales: Optional[dict] = None) -> FusedServing:
     """Exact-ratio dispatch of `make_serving_fn` (esrgan_lite.py:1096): the
     fused graph. Its other branch (a ratio the net does not land on, or a
     frame the stride does not divide) is not ported."""
@@ -375,18 +540,71 @@ def make_serving_fn(model: ESRGANLiteTPU, in_h: int, in_w: int, out_h: int, out_
         raise NotImplementedError(
             f"learned serving of {in_w}x{in_h} → {out_w}x{out_h} at x{u}, stride "
             f"{model.stride} (the non-exact-ratio path of make_serving_fn) {NOT_PORTED_ARCH}")
-    return FusedServing(model, in_h, in_w, device)
+    return FusedServing(model, in_h, in_w, device, quant_scales=quant_scales)
+
+
+def make_quant_apply(model: ESRGANLiteTPU, scales: dict) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The fp32 int8-grid twin of the int8 serving graph (`make_quant_apply`,
+    `esrgan_lite.py:806`): the same integer weight grid and activation
+    scales, in the [0, 1] domain on RGB, every `_conv_i8` kept in fp32.
+    f32 [N, h, w, 3] → f32 [N, uh, uw, 3], on the input's device."""
+    st, up = model.stride, model.upscale
+    r = st * up
+
+    def np32(t: torch.Tensor) -> np.ndarray:
+        return t.detach().cpu().float().numpy()
+
+    def qconv(k: np.ndarray, b: Optional[torch.Tensor], ax: float, dc: bool = False):
+        kq, dq = (_quant_kernel_i8_dc if dc else _quant_kernel_i8)(k)
+        return (torch.from_numpy(kq.astype(np.float32)), conv_cuda.qgrid_scale(dq, ax),
+                None if b is None else b.detach().float(), float(ax))
+
+    blocks = [tuple(qconv(np32(c.kernel), c.bias, scales[f"block{i}/{name}"])
+                    for name, c in (("conv1", blk.conv1), ("conv2", blk.conv2)))
+              for i, blk in enumerate(model.res_blocks())]
+    trunk = qconv(np32(model.trunk.kernel), model.trunk.bias, scales["trunk"])
+    tail = qconv(np32(model.tail.kernel), model.tail.bias, scales["tail"])
+    head = qconv(np32(model.head.kernel), model.head.bias, scales["head"]) if "head" in scales else None
+    base = (qconv(_bilinear_base_kernel(3, up, st), None, scales["base"], dc=True)
+            if "base" in scales else None)
+
+    def conv_i8(x: torch.Tensor, c, valid: bool = False) -> torch.Tensor:
+        kq, scale, b, ax = (t.to(x.device) if isinstance(t, torch.Tensor) else t for t in c)
+        xq = conv_cuda.quantize_act(x, ax, torch.float32)
+        y = (conv_cuda.conv_valid_f32 if valid else conv_cuda.conv3x3_f32)(xq, kq) * scale
+        return y if b is None else y + b
+
+    def fn(x: torch.Tensor) -> torch.Tensor:
+        s2d = _s2d(x.float(), st)
+        if head is not None:
+            feat = conv_i8(s2d, head)
+        else:
+            feat = conv_cuda.conv3x3_f32(s2d, model.head.kernel.to(x.device)) + model.head.bias.to(x.device)
+        h = feat
+        for c1, c2 in blocks:
+            h = h + 0.2 * conv_i8(torch.relu(conv_i8(h, c1)), c2)
+        h = conv_i8(h, trunk) + feat
+        t = conv_i8(h, tail)
+        sp = _edge_pad(s2d)
+        if base is not None:
+            b = conv_i8(sp, base, valid=True)
+        else:
+            b = conv_cuda.conv_valid_f32(
+                sp, torch.from_numpy(_bilinear_base_kernel(x.shape[-1], up, st)).to(x.device))
+        return _d2s(t + b, r)
+
+    return fn
 
 
 class LearnedUpscaler:
     """``u8 [H, W, 4] → u8 [uH, uW, 4]``, or a batch ``[N, H, W, 4]`` through
     the same graph in one pass. Outputs stay on the device. `arch`, `step`
-    and `quantized` (always False: bf16) say what serves."""
+    and `quantized` (the int8 graph serves) say what serves."""
 
     def __init__(self, serving: FusedServing, arch: str, step: int) -> None:
         self.serving, self.arch, self.step = serving, arch, step
         self.device = serving.device
-        self.quantized = False
+        self.quantized = serving.quantized
 
     def __call__(self, img) -> torch.Tensor:
         x = to_device_u8(img, self.device)
@@ -404,23 +622,29 @@ def _cached_model(arch: str, upscale: int):
 
 @functools.lru_cache(maxsize=16)
 def _build_pretrained(in_h, in_w, out_h, out_w, prefer, device, trunk_impl) -> LearnedUpscaler:
-    if prefer != "ultra":
-        raise NotImplementedError(NOT_PORTED_INT8)
+    if prefer not in ARCH_LADDER:
+        raise ValueError(f"prefer must be one of {tuple(ARCH_LADDER)}, got {prefer!r}")
     stages = scale_to_stages(in_h, out_h)
     u = 2 ** stages
     if (out_h, out_w) != (in_h * u, in_w * u):
         raise NotImplementedError(
             f"learned upscale {in_w}x{in_h} → {out_w}x{out_h} is not an exact x{u}: the "
             f"non-exact-ratio serving path {NOT_PORTED_ARCH}")
-    for arch, kw in ARCH_LADDER[prefer]:
+    for arch, kw, mode in ARCH_LADDER[prefer]:
         st = kw.get("stride", 2)
         if in_h % st or in_w % st:
             continue  # the s2d front end needs stride-divisible frames
         loaded = _cached_model(arch, u)
         if loaded is None:
             continue  # the port carries no weights of this arch at this scale
+        scales = load_act_scales(arch, u)  # None unless calibrated at the weights' step
+        if mode == "quant" and scales is None:
+            continue  # an int8 entry without its calibration
         model, meta = loaded
-        serving = FusedServing(model, in_h, in_w, device, trunk_impl=trunk_impl)
+        # "ultra" serves bf16; the other ladders serve int8 whenever the
+        # served checkpoint's scales match
+        serving = FusedServing(model, in_h, in_w, device, trunk_impl=trunk_impl,
+                               quant_scales=None if prefer == "ultra" else scales)
         return LearnedUpscaler(serving, arch, meta["step"])
     raise NotImplementedError(
         f"no ported learned arch serves x{u} at {in_w}x{in_h}: the stride-2 arch and "
@@ -431,9 +655,12 @@ def make_pretrained_upscaler(in_h: int, in_w: int, out_h: int, out_w: int,
                              prefer: str = "ultra", device=None,
                              trunk_impl: str = "layers") -> LearnedUpscaler:
     """The learned tier for these sizes on `device` (the card unless "cpu"):
-    the first arch of the `prefer` ladder whose stride divides the frame and
-    whose weights the port carries. Only "ultra" (bf16) is served; cached per
-    (sizes, prefer, device, trunk_impl)."""
+    the first entry of the `prefer` ladder ("ultra", "quality" or
+    "performance") whose stride divides the frame, whose weights the port
+    carries and, for an int8 entry, whose scales match; bf16 for "ultra",
+    int8 for the others where the scales allow. Cached per (sizes, prefer,
+    device, trunk_impl); `trunk_impl="fused"` with an int8 ladder raises
+    ValueError."""
     return _build_pretrained(in_h, in_w, out_h, out_w, prefer, resolve_device(device),
                              trunk_impl)
 

@@ -268,8 +268,8 @@ def test_advanced_adaptive_upgrade_capped_at_requested(pattern, monkeypatch):
 
 
 @pytest.mark.parametrize("prefer, sizes, item", [
-    ("quality", (32, 32, 64, 64), 14),      # the default: the int8 ladder
-    ("performance", (32, 32, 64, 64), 14),
+    ("quality", (30, 30, 60, 60), 9),        # the default ladder, stride 4 does not divide 30
+    ("performance", (32, 32, 96, 96), 9),    # x3 lands on no exact ratio
     ("ultra", (32, 32, 96, 96), 9),          # x3 lands on no exact ratio
     ("ultra", (30, 30, 60, 60), 9),          # stride 4 does not divide 30
 ])
@@ -282,6 +282,30 @@ def test_advanced_unported_learned_requests_raise(prefer, sizes, item):
         up.initialize(*sizes)
     with pytest.raises(RuntimeError, match="Upscaler not initialized"):
         up.upscale(b"\x00" * (sizes[0] * sizes[1] * 4))
+
+
+@pytest.mark.parametrize("prefer, sizes, arch", [
+    (None, (64, 32, 128, 64), "tpu4b2"),         # the default learned_prefer, "quality": x2
+    (None, (32, 16, 128, 64), "tpu4"),           # x4: the int8 trunk, bf16 head, fp32 base
+    ("performance", (64, 32, 128, 64), "tpu4b1"),
+])
+def test_advanced_int8_ladders_serve(rng, prefer, sizes, arch):
+    """create_advanced_upscaler("ultra") with the default learned_prefer
+    ("quality") or "performance" serves the int8 ladder: the bytes of the
+    served function, quantized, and upscale_batch through the same graph."""
+    from nu_scaler_tpu_torch.models import esrgan_lite as pel
+
+    up = pc.create_advanced_upscaler("ultra", device="cpu")
+    assert up.learned_prefer == "quality"
+    if prefer is not None:
+        up.learned_prefer = prefer
+    w, h, ow, oh = sizes
+    up.initialize(*sizes)
+    assert up._serving_tier == "learned" and (up._fn.arch, up._fn.quantized) == (arch, True)
+    img = rng.integers(0, 256, (h, w, 4), np.uint8)
+    want = pel.make_pretrained_upscaler(h, w, oh, ow, prefer=up.learned_prefer, device="cpu")(img)
+    assert up.upscale(img.tobytes()) == want.numpy().tobytes()
+    assert up.upscale_batch([img.tobytes()] * 2) == [want.numpy().tobytes()] * 2
 
 
 def test_advanced_classical_tier_matches_core(rng):

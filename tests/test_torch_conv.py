@@ -122,7 +122,7 @@ def test_cpu_runs_plain_and_counts_no_launch(rng):
     x, k, b = _inputs(rng, 1, 6, 7, 128, 128)
     cc.reset_launches()
     assert torch.equal(cc.conv3x3(x, k, b, True), cc.conv3x3_plain(x, k, b, True))
-    assert cc.launches == {"conv3x3": 0}
+    assert cc.launches == {"conv3x3": 0, "conv3x3_q": 0}
     with pytest.raises(RuntimeError, match="needs a CUDA tensor"):
         cc._launch(x, k, b, True, False)
 

@@ -71,7 +71,7 @@ def test_helpers_equal_jax():
         assert np.array_equal(got, want)
     for h, oh in ((540, 2160), (1080, 2160), (100, 300), (64, 64)):
         assert pel.scale_to_stages(h, oh) == el.scale_to_stages(h, oh)
-    assert pel.ARCH_LADDER["ultra"] == tuple((a, kw) for a, kw, _ in el._ARCH_LADDER["ultra"])
+    assert pel.ARCH_LADDER == el._ARCH_LADDER
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "f32"])
@@ -219,15 +219,28 @@ def test_serving_counts_its_convs(served):
 
 
 @pytest.mark.parametrize("prefer, sizes, item", [
-    ("quality", (32, 64, 64, 128), "item 14"),
-    ("performance", (32, 64, 64, 128), "item 14"),
     ("ultra", (32, 64, 96, 192), "item 9"),   # x3 lands on no exact ratio
     ("ultra", (30, 62, 60, 124), "item 9"),   # stride 4 does not divide: the stride-2 arch
     ("ultra", (32, 64, 256, 512), "item 9"),  # x8: no weights carried
+    ("quality", (30, 62, 60, 124), "item 9"),
+    ("performance", (30, 62, 60, 124), "item 9"),
 ])
 def test_unported_requests_raise(prefer, sizes, item):
     with pytest.raises(NotImplementedError, match=item):
         pel.make_pretrained_upscaler(*sizes, prefer=prefer, device="cpu")
+
+
+@pytest.mark.parametrize("prefer, sizes, arch", [
+    ("quality", (32, 64, 64, 128), "tpu4b2"),
+    ("performance", (32, 64, 64, 128), "tpu4b1"),
+])
+def test_int8_ladder_requests_serve(prefer, sizes, arch):
+    """The int8 ladders serve (they raised before their port): int8 with
+    the head and base on the grid, u8 RGBA of the output size."""
+    up = pel.make_pretrained_upscaler(*sizes, prefer=prefer, device="cpu")
+    assert (up.arch, up.quantized) == (arch, True) and up.serving.q_head is not None
+    out = up(np.zeros((sizes[0], sizes[1], 4), np.uint8))
+    assert out.shape == (sizes[2], sizes[3], 4) and out.dtype == torch.uint8
 
 
 def test_make_serving_fn_exact_ratio_only():

@@ -11,7 +11,12 @@ restores the orbax checkpoints the JAX package serves as its "ultra" tier
 The npz holds every parameter as float32 under its flax path joined by "/"
 (``head/kernel``, ``block0/conv1/bias``, ...), exactly as restored. The JSON
 sidecar records the arch, the stage count, the upscale, the model's keyword
-arguments, the step and the npz's sha256, which the port checks on load.
+arguments, the step and the npz's sha256, which the port checks on load, and,
+under ``act_scales``, the checkpoint's int8 calibration (its
+``act_scales.json``: ``{"step", "scales"}``) when that file's step equals the
+exported step, as `nu_scaler_tpu.models.train.load_act_scales` requires. An
+npz already on disk whose arrays equal the restore is kept as it is (its
+bytes and sha256 do not move); only the sidecar is rewritten.
 
 Run it where JAX and orbax are installed, from the root of the checkout:
 
@@ -30,12 +35,14 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 OUT_DIR = ROOT / "nu_scaler_tpu_torch" / "weights"
 
-# (arch, stages, step the JAX package serves, model kwargs): the "ultra"
-# ladder's checkpoints (esrgan_lite.py _ARCH_LADDER["ultra"]): tpu4b2 at x2,
-# tpu4 at x4 (there is no tpu4b2 x4 checkpoint)
+# (arch, stages, step the JAX package serves, model kwargs): the checkpoints
+# of the "ultra", "quality" and "performance" ladders at stride 4
+# (esrgan_lite.py _ARCH_LADDER): tpu4b2 at x2, tpu4 at x4 (there is no
+# tpu4b2 x4 checkpoint), tpu4b1 at x2 (the head of "performance")
 EXPORTS = (
     ("tpu4b2", 1, 76000, dict(stride=4, features=128, blocks=2)),
     ("tpu4", 2, 52000, dict(stride=4, features=128, blocks=3)),
+    ("tpu4b1", 1, 40000, dict(stride=4, features=128, blocks=1)),
 )
 
 
@@ -54,9 +61,17 @@ def flatten(tree, prefix: str = "") -> dict:
     return flat
 
 
+def same_arrays(npz: Path, flat: dict) -> bool:
+    """True when `npz` holds exactly `flat`: the same keys, bit for bit."""
+    with np.load(npz) as z:
+        return sorted(z.files) == sorted(flat) and all(
+            z[k].dtype == flat[k].dtype and np.array_equal(z[k].view(np.uint32), flat[k].view(np.uint32))
+            for k in flat)
+
+
 def export(arch: str, stages: int, step: int, kwargs: dict, out_dir: Path = OUT_DIR) -> Path:
     sys.path.insert(0, str(ROOT))
-    from nu_scaler_tpu.models.train import load_checkpoint
+    from nu_scaler_tpu.models.train import load_act_scales, load_checkpoint
 
     restored = load_checkpoint(stages, arch)
     if restored is None:
@@ -68,7 +83,8 @@ def export(arch: str, stages: int, step: int, kwargs: dict, out_dir: Path = OUT_
     out_dir.mkdir(parents=True, exist_ok=True)
     stem = out_dir / f"esrgan_{arch}_x{2 ** stages}_{step}"
     npz = stem.with_suffix(".npz")
-    np.savez(npz, **flat)
+    if not (npz.exists() and same_arrays(npz, flat)):
+        np.savez(npz, **flat)
     meta = {
         "arch": arch,
         "stages": stages,
@@ -78,6 +94,9 @@ def export(arch: str, stages: int, step: int, kwargs: dict, out_dir: Path = OUT_
         "parameters": int(sum(a.size for a in flat.values())),
         "sha256": hashlib.sha256(npz.read_bytes()).hexdigest(),
     }
+    scales = load_act_scales(stages, arch, step)  # None unless its step is `step`
+    if scales is not None:
+        meta["act_scales"] = {"step": step, "scales": scales}
     stem.with_suffix(".json").write_text(json.dumps(meta, indent=1) + "\n")
     return npz
 
