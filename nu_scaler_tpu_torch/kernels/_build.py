@@ -48,9 +48,10 @@ SIGNATURES = {
     "resample_fused": {
         "nu_resample_fused": [
             _INT, _VP, _INT, _INT, _INT,  # device, src, n, h, w
-            _VP, _VP, _INT,  # first_v, w_v, kv
-            _VP, _VP, _INT,  # first_h, w_h, kh
-            _INT, _INT, _INT, _INT, _INT,  # oh, ow, tile_h, tile_w, smem_bytes
+            _VP, _INT, _VP, _INT,  # first_v, kv, first_h, kh
+            _INT, _INT, _INT, _INT,  # oh, ow, tile_h, tile_w
+            _INT, _INT, _INT, _INT, _INT, _INT,  # fr, fc, wv, wh, nbuf, smem_bytes
+            _VP, _VP, _VP, _VP,  # band tables: vertical weights, starts; horizontal weights, starts
             _VP, _INT, _F32, _F32,  # prev, n_ts, t0, t1
             _VP, _VP, _VP, _VP,  # dst, mid0, mid1, stream
         ],

@@ -26,7 +26,7 @@ very same weight values.
 from __future__ import annotations
 
 import functools
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -40,7 +40,11 @@ launches = {"resample_fused": 0, "resample_fused_batched": 0, "resample_fused_bl
 
 # Hopper: 227 KB of shared memory per block (opt-in above 48 KB).
 SMEM_LIMIT = 232448
-TILE_H, TILE_W = 32, 64
+RUN, GROUP = 8, 4  # the kernel's work items: 8 output rows (vertical), 4 output columns (horizontal)
+# output tiles (tile_h, tile_w) the planner tries, largest first
+TILES = ((64, 128), (32, 128), (64, 64), (32, 64), (16, 64), (16, 32), (8, 32), (8, 16), (8, 8),
+         (8, 4))
+TILE_H, TILE_W = TILES[0]
 MAX_TS = 2
 
 
@@ -92,26 +96,88 @@ def footprint(first: np.ndarray, k: int, tile: int) -> int:
     return int((first[last] + k - starts).max())
 
 
-def tile_plan(first_v, kv: int, first_h, kh: int) -> tuple[int, int, int]:
-    """(tile_h, tile_w, shared-memory bytes) for the kernel: the default
-    32×64 output tile, halved until the fp32 intermediate [tile_h, fc] and the
-    u8 footprint [fr, fc] fit in shared memory."""
-    th, tw = TILE_H, TILE_W
-    while True:
+class TilePlan(NamedTuple):
+    """The kernel's tiling: tile_h × tile_w outputs a tile, the largest input
+    footprint fr × fc of any tile, the widest input window wv of a run of
+    `RUN` output rows and wh of a group of `GROUP` output columns, the
+    footprint buffers (2: the next tile loads while this one computes) and
+    the shared memory they add up to."""
+
+    tile_h: int
+    tile_w: int
+    fr: int
+    fc: int
+    wv: int
+    wh: int
+    nbuf: int
+    smem: int
+
+
+def smem_bytes(tile_h: int, tile_w: int, fr: int, fc: int, wv: int, wh: int, nbuf: int) -> int:
+    """Shared memory of the kernel's layout (`make_plan` in
+    csrc/resample_fused.cu): nbuf u8 footprints of fr rows × fcw pixels
+    (from the 16-byte-aligned column at or below the first), two buffers of
+    the tile's band tables (`band_tables`: the vertical weights [tile_h / RUN,
+    wv, RUN] and window starts, the horizontal weights [wh, tile_w / GROUP]
+    float4 and window starts, the starts padded to 4), and the fp32
+    intermediate, column-major [fc, tile_h + 1] (float4 a pixel)."""
+    def pad4(n):
+        return (n + 3) // 4 * 4
+
+    fcw = (fc + 3 + 3) // 4 * 4
+    tables = (tile_h // RUN * wv * RUN * 4 + pad4(tile_h // RUN) * 4
+              + wh * (tile_w // GROUP) * 16 + pad4(tile_w // GROUP) * 4)
+    return nbuf * fr * fcw * 4 + 2 * tables + fc * (tile_h + 1) * 16
+
+
+def band_tables(first: np.ndarray, taps: np.ndarray, tile: int, run: int,
+                window: int) -> tuple[np.ndarray, np.ndarray]:
+    """One axis's taps as the kernel's dense bands, per tile of `tile`
+    outputs: (weights f32 [tiles, tile / run, window, run], starts int32
+    [tiles, tile / run padded to 4]). Run b of tile i covers outputs
+    i·tile + b·run + e (e < run); its window starts at input
+    first[i·tile + b·run], given relative to the tile's first input
+    first[i·tile]; weights[i, b, j, e] is the tap of output o on input
+    start + j (0 outside o's band, and for outputs past the axis)."""
+    n_out, k = taps.shape
+    n_tiles = -(-n_out // tile)
+    runs = tile // run
+    ti = np.arange(n_tiles)[:, None, None]
+    o = ti * tile + np.arange(runs)[None, :, None] * run + np.arange(run)[None, None, :]
+    valid = o < n_out
+    oc = np.minimum(o, n_out - 1)
+    run0 = first[np.minimum(o[:, :, :1], n_out - 1)]  # [tiles, runs, 1]
+    k_idx = np.arange(window)[None, None, :, None] + run0[..., None] - first[oc][:, :, None, :]
+    ok = valid[:, :, None, :] & (k_idx >= 0) & (k_idx < k)
+    w = np.where(ok, taps[oc[:, :, None, :], np.clip(k_idx, 0, k - 1)], 0.0).astype(np.float32)
+    starts = np.zeros((n_tiles, (runs + 3) // 4 * 4), np.int32)
+    starts[:, :runs] = run0[..., 0] - first[np.minimum(ti[:, :, 0] * tile, n_out - 1)]
+    return np.ascontiguousarray(w), starts
+
+
+def tile_plan(first_v, kv: int, first_h, kh: int, tile=None) -> TilePlan:
+    """The kernel's tiling for these tap tables: the first of `TILES` (or the
+    given `tile`) whose shared memory lets two blocks share an SM with two
+    footprint buffers, else with one, else one block with two, else with one."""
+    wv = footprint(first_v, kv, RUN)
+    wh = footprint(first_h, kh, GROUP)
+    fits = []
+    for th, tw in (TILES if tile is None else (tuple(tile),)):
+        if th % RUN or tw % GROUP:
+            raise ValueError(f"tile {th}x{tw}: tile_h must be a multiple of {RUN}, tile_w of {GROUP}")
         fr = footprint(first_v, kv, th)
         fc = footprint(first_h, kh, tw)
-        smem = th * fc * 16 + fr * fc * 4
-        if smem <= SMEM_LIMIT:
-            return th, tw, smem
-        if tw > 1 and tw >= th:
-            tw //= 2
-        elif th > 1:
-            th //= 2
-        else:
-            raise ValueError(
-                f"resample footprint {fr}x{fc} does not fit in shared memory "
-                f"({smem} > {SMEM_LIMIT} bytes)"
-            )
+        for nbuf in (2, 1):
+            fits.append(TilePlan(th, tw, fr, fc, wv, wh, nbuf, smem_bytes(th, tw, fr, fc, wv, wh, nbuf)))
+    for limit in (SMEM_LIMIT // 2, SMEM_LIMIT):
+        for plan in fits:
+            if plan.smem <= limit:
+                return plan
+    smallest = min(fits, key=lambda t: t.smem)
+    raise ValueError(
+        f"resample footprint {smallest.fr}x{smallest.fc} does not fit in shared memory "
+        f"({smallest.smem} > {SMEM_LIMIT} bytes)"
+    )
 
 
 class ResamplePlan:
@@ -129,17 +195,35 @@ class ResamplePlan:
         # nonzero taps: the multiply-adds this resample really needs
         self.nnz_v = int(np.count_nonzero(taps_v))
         self.nnz_h = int(np.count_nonzero(taps_h))
-        # the kernel's tiling; the plain version on the CPU needs none
-        self.tile_h = self.tile_w = self.smem_bytes = None
-        if self.device.type == "cuda":
-            self.tile_h, self.tile_w, self.smem_bytes = tile_plan(
-                first_v, self.kv, first_h, self.kh
-            )
         self._np = (first_v, taps_v, first_h, taps_h)
+        # the kernel's tiling and band tables; the plain version on the CPU
+        # needs neither
+        self.tiles = self.bands = None
+        if self.device.type == "cuda":
+            self.tiles = tile_plan(first_v, self.kv, first_h, self.kh)
+            self.bands = self.band_tables(self.tiles)
         self.first_v = torch.from_numpy(first_v).to(self.device)
         self.taps_v = torch.from_numpy(taps_v).to(self.device)
         self.first_h = torch.from_numpy(first_h).to(self.device)
         self.taps_h = torch.from_numpy(taps_h).to(self.device)
+
+    def band_tables(self, tp: TilePlan) -> tuple[torch.Tensor, ...]:
+        """The kernel's band tables for the tiling `tp`, on the plan's device:
+        (vertical weights, starts, horizontal weights [tiles_x, wh, tile_w /
+        GROUP, GROUP], starts)."""
+        first_v, taps_v, first_h, taps_h = self._np
+        dv, vs = band_tables(first_v, taps_v, tp.tile_h, RUN, tp.wv)
+        dh, hs = band_tables(first_h, taps_h, tp.tile_w, GROUP, tp.wh)
+        dh = dh.transpose(0, 2, 1, 3)  # [tiles_x, wh, groups, GROUP]: a float4 per group
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in (dv, vs, dh, hs))
+
+    @functools.lru_cache(maxsize=8)
+    def tiling(self, tile: tuple[int, int]) -> tuple[TilePlan, tuple[torch.Tensor, ...]]:
+        """Another tiling than the planned one, with its band tables (for
+        timing the kernel's tiles against each other)."""
+        first_v, _, first_h, _ = self._np
+        tp = tile_plan(first_v, self.kv, first_h, self.kh, tile)
+        return tp, self.band_tables(tp)
 
     @functools.cached_property
     def dense_v(self) -> torch.Tensor:
@@ -218,10 +302,12 @@ def _times(ts: Sequence[float]) -> tuple[float, ...]:
     return out
 
 
-def _launch(src: torch.Tensor, n: int, plan: ResamplePlan, prev=None, ts=()) -> list:
-    """One launch of the kernel over n frames; returns [dst, *mids]."""
+def _launch(src: torch.Tensor, n: int, plan: ResamplePlan, prev=None, ts=(), tile=None) -> list:
+    """One launch of the kernel over n frames, on the plan's tiling or on
+    `tile` (tile_h, tile_w); returns [dst, *mids]."""
     if src.device.type != "cuda":
         raise RuntimeError(f"the CUDA kernel needs a CUDA tensor, got {src.device}")
+    tp, bands = (plan.tiles, plan.bands) if tile is None else plan.tiling(tuple(tile))
     from nu_scaler_tpu_torch.kernels import _build
 
     lib = _build.load_library("resample_fused")
@@ -233,9 +319,9 @@ def _launch(src: torch.Tensor, n: int, plan: ResamplePlan, prev=None, ts=()) -> 
     stream = torch.cuda.current_stream(src.device).cuda_stream
     err = lib.nu_resample_fused(
         src.device.index or 0, src.data_ptr(), n, plan.in_h, plan.in_w,
-        plan.first_v.data_ptr(), plan.taps_v.data_ptr(), plan.kv,
-        plan.first_h.data_ptr(), plan.taps_h.data_ptr(), plan.kh,
-        plan.out_h, plan.out_w, plan.tile_h, plan.tile_w, plan.smem_bytes,
+        plan.first_v.data_ptr(), plan.kv, plan.first_h.data_ptr(), plan.kh,
+        plan.out_h, plan.out_w, tp.tile_h, tp.tile_w, tp.fr, tp.fc, tp.wv, tp.wh, tp.nbuf, tp.smem,
+        *(b.data_ptr() for b in bands),
         None if prev is None else prev.contiguous().data_ptr(), len(ts), t[0], t[1],
         outs[0].data_ptr(), mids[0], mids[1], stream,
     )

@@ -173,8 +173,9 @@ def test_import_compiles_nothing(tmp_path):
 def test_kernel_source_is_plain_c():
     """One CUDA source per library, no PyTorch headers, a C entry point per
     wrapper call; every fp32 rounding written out, and each packing as its
-    golden packs: the resample truncates and its blend rounds (the two-pass
-    resample sums with the fused kernel's fmaf and truncates), the soft warp
+    golden packs: the resample truncates and its blend rounds (by adding 2^23
+    toward zero and to nearest; the two-pass resample sums with the fused
+    kernel's fmaf and truncates), the soft warp
     rounds, FSR truncates, the conv and the fused trunk round to bf16 to
     nearest (their products and sums are the tensor cores' own, fp32
     accumulation; the trunk's skip additions are written out). The conv runs
@@ -184,7 +185,7 @@ def test_kernel_source_is_plain_c():
                        "soft_warp.cu", "trunk_fused.cu"]
     written_out = ("__fmul_rn", "__fadd_rn")
     packing = {
-        "resample_fused": (*written_out, "truncf", "rintf"),
+        "resample_fused": (*written_out, "__fadd_rz", "fmaf", "cp.async"),
         "soft_warp": (*written_out, "rintf"),
         "fsr": (*written_out, "truncf"),
         "conv3x3": ("__fadd_rn", "__float2bfloat16_rn", "wgmma.mma_async", "cp.async"),

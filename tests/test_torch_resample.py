@@ -84,24 +84,62 @@ def _check_taps(algo, in_size, out_size):
 
 
 def test_taps_at_main_shape():
-    """lanczos3 at 2× reads a band of 6 inputs per output, and the default
-    32×64 tile fits in 48 KB of shared memory."""
+    """lanczos3 at 2× reads a band of 6 inputs per output; the default
+    64×128 tile reads a 38×70 footprint, a run of 8 output rows a window of
+    10 input rows, a group of 4 output columns 8 intermediate columns, and
+    with two footprint buffers two blocks share an SM's shared memory."""
     fv, wv = rc.taps_from_matrix(presample.axis_weights(1080, 2160, "lanczos3"))
     fh, wh = rc.taps_from_matrix(presample.axis_weights(1920, 3840, "lanczos3"))
     assert wv.shape == (2160, 6) and wh.shape == (3840, 6)
-    assert rc.footprint(fv, 6, 32) == 22 and rc.footprint(fh, 6, 64) == 38
-    assert rc.tile_plan(fv, 6, fh, 6) == (32, 64, 32 * 38 * 16 + 22 * 38 * 4)
+    assert rc.footprint(fv, 6, 64) == 38 and rc.footprint(fh, 6, 128) == 70
+    plan = rc.tile_plan(fv, 6, fh, 6)
+    fcw = 76  # 70 + 3 pixels of alignment slack, rounded up to 4
+    tables = 8 * 10 * 8 * 4 + 8 * 4 + 8 * 32 * 16 + 32 * 4
+    smem = 2 * 38 * fcw * 4 + 2 * tables + 70 * 65 * 16
+    assert plan == rc.TilePlan(64, 128, 38, 70, 10, 8, 2, smem)
+    assert plan.smem == rc.smem_bytes(64, 128, 38, 70, 10, 8, 2) <= rc.SMEM_LIMIT // 2
 
 
 def test_tile_plan_shrinks_for_wide_footprints():
-    """A 16× downscale has a 97-tap band: the tile shrinks until the
-    footprint fits, and a footprint that cannot fit raises."""
+    """A 16× downscale has a 97-tap band: the tile shrinks (down to one
+    footprint buffer) until the footprint fits, and a footprint that cannot
+    fit raises."""
     fv, wv = rc.taps_from_matrix(presample.axis_weights(2048, 128, "lanczos3"))
-    th, tw, smem = rc.tile_plan(fv, wv.shape[1], fv, wv.shape[1])
-    assert (th, tw) < (rc.TILE_H, rc.TILE_W) and smem <= rc.SMEM_LIMIT
+    plan = rc.tile_plan(fv, wv.shape[1], fv, wv.shape[1])
+    assert (plan.tile_h, plan.tile_w) < (rc.TILE_H, rc.TILE_W) and plan.smem <= rc.SMEM_LIMIT
+    assert plan.nbuf == 1
+    with pytest.raises(ValueError, match="multiple of"):
+        rc.tile_plan(fv, wv.shape[1], fv, wv.shape[1], tile=(12, 8))
     fe, we = rc.taps_from_matrix(presample.axis_weights(4096, 4, "lanczos3"))
     with pytest.raises(ValueError, match="does not fit in shared memory"):
         rc.tile_plan(fe, we.shape[1], fe, we.shape[1])
+
+
+@pytest.mark.parametrize("algo", ["nearest", "bilinear", "lanczos3", "area"])
+@pytest.mark.parametrize("in_size, out_size", [(1080, 2160), (2160, 1080), (1366, 1920), (37, 200)])
+def test_band_tables_hold_every_tap(algo, in_size, out_size):
+    """The kernel's dense bands (`band_tables`) for the tiling it plans:
+    each output's weights sit at its own taps' inputs, relative to its tile's
+    first input, and nowhere else, so the dense chain is the chain of its
+    taps; outputs past the axis have no weights."""
+    first, taps = rc.taps_from_matrix(presample.axis_weights(in_size, out_size, algo))
+    n_out, k = taps.shape
+    for tile, run in ((rc.tile_plan(first, k, first, k).tile_h, rc.RUN),
+                      (rc.tile_plan(first, k, first, k).tile_w, rc.GROUP)):
+        window = rc.footprint(first, k, run)
+        w, starts = rc.band_tables(first, taps, tile, run, window)
+        assert w.shape == (-(-n_out // tile), tile // run, window, run) and w.dtype == np.float32
+        assert starts.shape[1] % 4 == 0 and starts.dtype == np.int32
+        dense = np.zeros((n_out, in_size), np.float32)
+        for i, b, j, e in zip(*np.nonzero(w)):
+            o = i * tile + b * run + e
+            assert o < n_out and dense[o, first[i * tile] + starts[i, b] + j] == 0
+            dense[o, first[i * tile] + starts[i, b] + j] = w[i, b, j, e]
+            # inside its tile's footprint: the kernel clamps window positions
+            # past it, where every weight is 0
+            last = min((i + 1) * tile, n_out) - 1
+            assert starts[i, b] + j < first[last] + k - first[i * tile]
+        np.testing.assert_array_equal(dense, rc.dense_from_taps(first, taps, in_size))
 
 
 @pytest.mark.parametrize("algo", ["nearest", "bilinear", "bicubic", "lanczos3", "area"])
