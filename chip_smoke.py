@@ -520,12 +520,7 @@ def main() -> int:
         # main path's 1080p→4K, a 4K→1080p downscale (12-tap bands), the
         # non-integer 1366×768→1080p, an output row that 16 bytes do not
         # divide (683×384→1366×768) and a 16× downscale (97-tap bands: 8×8
-        # tiles, one footprint buffer). The plain version sums in another
-        # order (dense fp32 matmuls), so where a sum lands within its
-        # rounding of an integer the trunc may differ: the 16× downscale's
-        # long sums may differ by 1 LSB, and must then equal the two-call
-        # resample, which sums in the kernel's order
-        near_exact = {"lanczos3 2048x2048->128x128"}
+        # tiles, one footprint buffer)
         other_plans = {
             f"{algo} {iw}x{ih}->{ow}x{oh}": (resample.make_resampler(ih, iw, oh, ow, algo, dev).plan, (ih, iw))
             for algo, (ih, iw), (oh, ow) in (
@@ -548,11 +543,7 @@ def main() -> int:
             n_diff = int((k != p).sum().item())
             say(f"resample_fused {name} [{'noise' if key == name else key}] tile {tuple(plan.tiles)}: "
                 f"{n_diff} bytes differ, max {max_d} LSB, exact {exact:.7f}")
-            if name in near_exact:
-                check(max_d <= 1 and torch.equal(k, rc.resample_twopass(on_dev[key], plan)),
-                      f"resample_fused {name}: {max_d} LSB, or not the two-call resample's bytes")
-            else:
-                check(n_diff == 0, f"resample_fused {name}: {n_diff} bytes differ")
+            check(n_diff == 0, f"resample_fused {name}: {n_diff} bytes differ")
             errs["resample_fused"] = max(errs["resample_fused"], max_d)
         batch = torch.stack([on_dev[k] for k in ("a", "b", "n1", "n2")])
         k = rc.resample_fused_batched(batch, lz)
@@ -1378,18 +1369,8 @@ def main() -> int:
                     "library_ms": None,
                 })
 
-        # the resample's tiles at the main shape (each gives the planned
-        # tile's bytes), and the downscale and non-integer shapes
-        planned = rc.resample_fused(single, lz)
-        by_tile = {}
-        for tile in ((64, 128), (32, 128), (64, 64), (32, 64)):
-            tp = rc.tile_plan(lz._np[0], lz.kv, lz._np[2], lz.kh, tile)
-            check(torch.equal(rc._launch(single, 1, lz, tile=tile)[0], planned),
-                  f"resample_fused: tile {tile} changes the bytes")
-            by_tile[f"{tile} nbuf={tp.nbuf} smem={tp.smem}"] = time_ms(
-                torch, lambda: rc._launch(single, 1, lz, tile=tile), flush)
-        say(f"time resample_fused by tile (planned {tuple(lz.tiles)}; every tile gives the planned bytes): "
-            + json.dumps(by_tile))
+        # the resample at its other phase-3 shapes (tools/resample_fused_probe.py
+        # times its tiles and its parts)
         other_ms = {}
         for name, (plan, (ih, iw)) in other_plans.items():
             x_ = on_dev[name]
@@ -1402,8 +1383,7 @@ def main() -> int:
             say(f"time resample_fused [{name}] tile {tuple(plan.tiles)}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
                 f"bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}% of bound)")
             other_ms[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
-        rows[0].update({"ms_by_tile": by_tile, "other_shapes": other_ms,
-                        "tile": list(lz.tiles)})
+        rows[0].update({"other_shapes": other_ms, "tile": list(lz.tiles)})
 
         # the soft warp at the main path's inputs (the bench pair's flow
         # tiles, K = 4, t = 0.5, tile (8, 128)), and at K = 8 and random motion

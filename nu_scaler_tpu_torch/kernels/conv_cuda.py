@@ -177,10 +177,20 @@ def ulp_tolerance(x: torch.Tensor, k: torch.Tensor, plain: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def check_inputs(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor) -> None:
-    for name, t in (("x", x), ("k", k), ("b", b)):
-        if not isinstance(t, torch.Tensor) or t.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: expected a bfloat16 torch.Tensor")
+def check_inputs(x: torch.Tensor, k: torch.Tensor, b: Optional[torch.Tensor],
+                 scale: Optional[torch.Tensor] = None) -> None:
+    """The operands of either mode: bf16 x and k; without `scale` a bf16
+    bias b, with it (the int8-grid mode) an fp32 scale and an fp32 bias or
+    None; all contiguous on x's device; Cin and Cout multiples of `LANES`."""
+    vector = torch.bfloat16 if scale is None else torch.float32
+    named = [("x", x, torch.bfloat16), ("k", k, torch.bfloat16), ("b", b, vector)]
+    if scale is not None:
+        named.append(("scale", scale, torch.float32))
+        if b is None:
+            named.pop(2)
+    for name, t, dtype in named:
+        if not isinstance(t, torch.Tensor) or t.dtype != dtype:
+            raise TypeError(f"{name}: expected a {str(dtype).removeprefix('torch.')} torch.Tensor")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor")
         if t.device != x.device:
@@ -191,28 +201,12 @@ def check_inputs(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor) -> None:
     if k.dim() != 4 or k.shape[:3] != (3, 3, cin):
         raise ValueError(f"k: expected HWIO [3, 3, {cin}, Cout], got {tuple(k.shape)}")
     cout = k.shape[-1]
-    if tuple(b.shape) != (cout,):
-        raise ValueError(f"b: expected [{cout}], got {tuple(b.shape)}")
+    for name, t, _ in named[2:]:
+        if tuple(t.shape) != (cout,):
+            raise ValueError(f"{name}: expected [{cout}], got {tuple(t.shape)}")
     if cin % LANES or cout % LANES:
         raise ValueError(f"the conv kernel takes Cin and Cout in multiples of {LANES}, "
                          f"got {cin} and {cout}")
-
-
-def check_inputs_q(xq: torch.Tensor, kq: torch.Tensor, scale: torch.Tensor,
-                   b: Optional[torch.Tensor]) -> None:
-    """`check_inputs` for the int8-grid mode: bf16 x and k, fp32 scale and
-    bias (the bias may be None)."""
-    check_inputs(xq, kq, torch.empty(kq.shape[-1] if kq.dim() == 4 else 0,
-                                     dtype=torch.bfloat16, device=xq.device))
-    for name, t in (("scale", scale), ("b", b)):
-        if t is None and name == "b":
-            continue
-        if not isinstance(t, torch.Tensor) or t.dtype != torch.float32:
-            raise TypeError(f"{name}: expected a float32 torch.Tensor")
-        if not t.is_contiguous() or t.device != xq.device:
-            raise ValueError(f"{name}: expected a contiguous tensor on {xq.device}")
-        if tuple(t.shape) != (kq.shape[-1],):
-            raise ValueError(f"{name}: expected [{kq.shape[-1]}], got {tuple(t.shape)}")
 
 
 def pack_weights(k: torch.Tensor) -> torch.Tensor:
@@ -276,7 +270,7 @@ def conv3x3_q(xq: torch.Tensor, kq: torch.Tensor, scale: torch.Tensor,
     """The int8-grid conv: integer-valued bf16 [N, H, W, Cin] (`quantize_act`)
     and integer-valued bf16 HWIO weights → bf16 [N, H, W, Cout] =
     bf16_rn(relu(sum · scale[o] + b[o])), 3×3 SAME, one launch."""
-    check_inputs_q(xq, kq, scale, b)
+    check_inputs(xq, kq, b, scale)
     if xq.device.type == "cpu":
         return conv3x3_q_plain(xq, kq, scale, b, relu)
     out = _launch_q(xq, kq, scale, b, relu)

@@ -217,10 +217,9 @@ class ResamplePlan:
         dh = dh.transpose(0, 2, 1, 3)  # [tiles_x, wh, groups, GROUP]: a float4 per group
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in (dv, vs, dh, hs))
 
-    @functools.lru_cache(maxsize=8)
     def tiling(self, tile: tuple[int, int]) -> tuple[TilePlan, tuple[torch.Tensor, ...]]:
-        """Another tiling than the planned one, with its band tables (for
-        timing the kernel's tiles against each other)."""
+        """Another tiling than the planned one, with its band tables, for
+        `_launch` (to time the kernel's tiles against each other)."""
         first_v, _, first_h, _ = self._np
         tp = tile_plan(first_v, self.kv, first_h, self.kh, tile)
         return tp, self.band_tables(tp)
@@ -302,12 +301,12 @@ def _times(ts: Sequence[float]) -> tuple[float, ...]:
     return out
 
 
-def _launch(src: torch.Tensor, n: int, plan: ResamplePlan, prev=None, ts=(), tile=None) -> list:
+def _launch(src: torch.Tensor, n: int, plan: ResamplePlan, prev=None, ts=(), tiling=None) -> list:
     """One launch of the kernel over n frames, on the plan's tiling or on
-    `tile` (tile_h, tile_w); returns [dst, *mids]."""
+    `tiling` (from `plan.tiling`); returns [dst, *mids]."""
     if src.device.type != "cuda":
         raise RuntimeError(f"the CUDA kernel needs a CUDA tensor, got {src.device}")
-    tp, bands = (plan.tiles, plan.bands) if tile is None else plan.tiling(tuple(tile))
+    tp, bands = (plan.tiles, plan.bands) if tiling is None else tiling
     from nu_scaler_tpu_torch.kernels import _build
 
     lib = _build.load_library("resample_fused")

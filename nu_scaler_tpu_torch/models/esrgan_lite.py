@@ -531,7 +531,7 @@ def make_serving_fn_fused(model: ESRGANLiteTPU, in_h: int, in_w: int, device=Non
 
 
 def make_serving_fn(model: ESRGANLiteTPU, in_h: int, in_w: int, out_h: int, out_w: int,
-                    device=None, quant_scales: Optional[dict] = None) -> FusedServing:
+                    device=None) -> FusedServing:
     """Exact-ratio dispatch of `make_serving_fn` (esrgan_lite.py:1096): the
     fused graph. Its other branch (a ratio the net does not land on, or a
     frame the stride does not divide) is not ported."""
@@ -540,7 +540,7 @@ def make_serving_fn(model: ESRGANLiteTPU, in_h: int, in_w: int, out_h: int, out_
         raise NotImplementedError(
             f"learned serving of {in_w}x{in_h} → {out_w}x{out_h} at x{u}, stride "
             f"{model.stride} (the non-exact-ratio path of make_serving_fn) {NOT_PORTED_ARCH}")
-    return FusedServing(model, in_h, in_w, device, quant_scales=quant_scales)
+    return FusedServing(model, in_h, in_w, device)
 
 
 def make_quant_apply(model: ESRGANLiteTPU, scales: dict) -> Callable[[torch.Tensor], torch.Tensor]:

@@ -299,9 +299,13 @@ def test_conv3x3_q_wrapper(rng):
     assert torch.equal(out, cc.conv3x3_q_plain(xq, kq, scale, None, False))
     with pytest.raises(RuntimeError, match="needs a CUDA tensor"):
         cc._launch_q(xq, kq, scale, None, False)
-    with pytest.raises(TypeError, match="scale"):
+    with pytest.raises(TypeError, match="scale: expected a float32"):
         cc.conv3x3_q(xq, kq, scale.double())
-    with pytest.raises(ValueError, match="b: expected"):
+    with pytest.raises(ValueError, match=r"b: expected \[128\]"):
         cc.conv3x3_q(xq, kq, scale, torch.zeros(64))
-    with pytest.raises(TypeError, match="x:"):
+    with pytest.raises(ValueError, match=r"scale: expected \[128\]"):
+        cc.conv3x3_q(xq, kq, scale[:64].contiguous())
+    with pytest.raises(TypeError, match="b: expected a float32"):
+        cc.conv3x3_q(xq, kq, scale, torch.zeros(128, dtype=torch.bfloat16))
+    with pytest.raises(TypeError, match="x: expected a bfloat16"):
         cc.conv3x3_q(xq.float(), kq, scale)

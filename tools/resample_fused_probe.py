@@ -112,9 +112,10 @@ def main() -> int:
             regs = use(f"bounds {bound}", text)
             times = {}
             for tile in TILES:
-                if not torch.equal(rc._launch(x, 1, plan, tile=tile)[0], want):
+                tiling = plan.tiling(tile)
+                if not torch.equal(rc._launch(x, 1, plan, tiling=tiling)[0], want):
                     raise RuntimeError(f"launch bounds {bound}, tile {tile}: other bytes")
-                times[str(tile)] = round(time_ms(lambda: rc._launch(x, 1, plan, tile=tile)), 4)
+                times[str(tile)] = round(time_ms(lambda: rc._launch(x, 1, plan, tiling=tiling)), 4)
             print(f"resample_fused __launch_bounds__(256, {bound}) ({regs}): ms by tile {times}", flush=True)
     finally:
         _build.CSRC = csrc
