@@ -382,7 +382,7 @@ def conv_registers(log: str) -> dict:
     import re
 
     found = {}
-    for m in re.finditer(r"conv3x3_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb0ELb1E\S*\n"
+    for m in re.finditer(r"conv3x3_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb0ELi1E\S*\n"
                          r"(?:.*\n)*?\s*\d+ bytes stack frame, (\d+) bytes spill stores.*\n"
                          r"ptxas info\s*: Used (\d+) registers", log):
         found[(int(m[2]), int(m[3]))] = f"{m[5]} registers, {m[4]} bytes of spill stores"
