@@ -15,12 +15,15 @@ Phases, each printed on its own line with its seconds:
    1080p→4K: lanczos3, bilinear and nearest single frames (nearest bit-exact,
    the others ≤1 LSB), a batch of 4, and the blend epilogue with t = 0.5 and
    t = (1/3, 2/3); the soft warp at 1080p (≤1 LSB) with K = 4 and 8,
-   t = 0.5 and (1/3, 2/3), tiles (8, 128) and (8, 32), on the bench pair
-   (its flow tiles) and on a noise pair with random tile motion; the fused
+   t = 0.5 and (1/3, 2/3), tiles (8, 128) and (8, 32), and K = 1 and 8
+   under a tile (8, 12) whose cell boundaries fall inside runs of pixels,
+   on the bench pair (its flow tiles) and on a noise pair with random tile
+   motion, with the count of differing bytes; the fused
    FSR kernel (≤1 LSB, bit-exact the target) at s = 2 (1080p, all four
    sharpness tiers and 0.0), 3 (720p), 4 (540p) and 1, batches of 4 at s = 2
-   and 3, and an odd 37×53 frame, on the bench frame and seeded noise, with
-   the count of differing bytes; the bf16 3×3 conv (≤ 1 bf16 ulp, as
+   and 3, an odd 37×53 frame and an 83×101 one (no tile divides either
+   side) at s = 1..4, the latter also in a batch of 2, on the bench frame
+   and seeded noise, with the count of differing bytes; the bf16 3×3 conv (≤ 1 bf16 ulp, as
    conv_cuda.ulp_tolerance states it) with ReLU on and off, with and without
    round_sum, Cout 128, 256 and 1024, Cin 128 and 256 (two halo chunks),
    N = 1 and 4, at the learned tier's trunk grids (270×480, 135×240), a
@@ -80,7 +83,10 @@ Phases, each printed on its own line with its seconds:
 5. times: per kernel the median of 20 CUDA-event timings after 3 warm-ups,
    the plain version's time, and the bound (the larger of bytes moved over
    the memory rate and operations over the rate of their type: fp32, or
-   bf16 on the tensor cores for the conv); for the conv, at each shape of
+   bf16 on the tensor cores for the conv; for the soft warp and FSR, which
+   form no FMA, the instruction floor: their operations over half the fp32
+   rate, one instruction each), with ptxas' registers and spill stores of
+   fsr_kernel<S> and soft_warp_kernel; for the conv, at each shape of
    the learned path, also F.conv2d's time (bf16, channels-last, bias) as the
    library's yardstick, which the port never calls, the weights' repack
    alone, and the kernel's four variants (16×16 or 8×32 tiles, 3 or 4
@@ -139,9 +145,11 @@ FSR_GATE_DB, FSR_GATE_LSB = 40.0, 12  # the JAX side's psnr_fsr_db contract
 # the FSR path's other sizes: 720p→4K (s = 3) and 540p (s = 4 in phase 3)
 SIZES = {"720p": (720, 1280), "540p": (540, 960)}
 GENERAL = ((768, 1366), (1080, 1920))  # a non-integer scale: the general path
+FSR_RAGGED = (83, 101)  # FSR frames whose sides no tile of the kernel divides
 # flow_soft frames that the warp tile does not divide: (h, w, preset)
 RAGGED = ((768, 1366, None), (900, 1600, None), (1080, 1920, "tall8x32"))
 SOFT_TILES = ((8, 128), (8, 32))  # the default preset's warp tile, and "tall"'s at 1080p
+SOFT_EDGE_TILE = (8, 12)  # its cells' boundaries fall at columns 6 + 12i: inside runs of 4 or 8
 FLOW_TILE_GATE_PX = 1e-2  # flow tiles, card vs CPU
 SPLIT_STEPS = 10
 # Published peaks (NVIDIA data sheets): device memory bytes/s, fp32 FLOP/s
@@ -375,18 +383,28 @@ def conv_work(n: int, h: int, w: int, cin: int, cout: int) -> tuple[int, int]:
     return 2 * (n * h * w * (cin + cout) + 9 * cin * cout + cout), 2 * 9 * cin * cout * n * h * w
 
 
-def conv_registers(log: str) -> dict:
-    """{(tile width, stages): "R registers, S bytes of spill stores"} of the
-    conv's variants with relu off and round_sum on (the timed form), from
-    nvcc's -Xptxas=-v messages."""
+def ptxas_registers(log: str, pattern: str) -> dict:
+    """{the match of `pattern` in a kernel's mangled name: "R registers, S
+    bytes of spill stores"} of each kernel in nvcc's -Xptxas=-v messages."""
     import re
 
     found = {}
-    for m in re.finditer(r"conv3x3_kernelILi(\d+)ELi(\d+)ELi(\d+)ELb0ELi1E\S*\n"
-                         r"(?:.*\n)*?\s*\d+ bytes stack frame, (\d+) bytes spill stores.*\n"
-                         r"ptxas info\s*: Used (\d+) registers", log):
-        found[(int(m[2]), int(m[3]))] = f"{m[5]} registers, {m[4]} bytes of spill stores"
+    for block in log.split("Compiling entry function '")[1:]:
+        m = re.search(pattern, block.split("'", 1)[0])
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores", block)
+        if m and regs and spill:
+            found[m[0]] = f"{regs[1]} registers, {spill[1]} bytes of spill stores"
     return found
+
+
+def conv_registers(log: str) -> dict:
+    """{(tile width, stages): "R registers, S bytes of spill stores"} of the
+    conv's variants with relu off and round_sum on (the timed form)."""
+    import re
+
+    return {tuple(int(v) for v in re.findall(r"Li(\d+)E", key)[1:3]): r for key, r in
+            ptxas_registers(log, r"conv3x3_kernelILi\d+ELi\d+ELi\d+ELb0ELi1E").items()}
 
 
 def trunk_work(x, params) -> tuple[int, int]:
@@ -573,8 +591,10 @@ def main() -> int:
         # the soft warp, fed the same tiles as its plain version: the bench
         # pair with its own flow tiles, and a noise pair with random motion
         # kept off integers (a tile mean on an integer may floor either way)
+        # (and, at the edge tile, whose half-width puts a cell boundary
+        # inside a run of pixels, K = 1 and 8)
         soft_cases = []
-        for tile in SOFT_TILES:
+        for tile in (*SOFT_TILES, SOFT_EDGE_TILE):
             ty, tx = IN_H // tile[0], IN_W // tile[1]
             motion = rng.uniform(-20.0, 20.0, (ty, tx, 2)).astype(np.float32)
             motion = np.floor(motion) + 0.37
@@ -584,15 +604,17 @@ def main() -> int:
                                torch.from_numpy(motion).to(dev)))
         errs["soft_warp_blend"] = 0
         for tile, key, fa, fb, tiles in soft_cases:
-            for k_soft in (interp.SOFT_WARP_K, interp.WARP_K):
-                for t in (0.5, 1.0 / 3.0, 2.0 / 3.0):
+            edge = tile == SOFT_EDGE_TILE
+            for k_soft in (1, interp.WARP_K) if edge else (interp.SOFT_WARP_K, interp.WARP_K):
+                for t in (0.5, 1.0 / 3.0) if edge else (0.5, 1.0 / 3.0, 2.0 / 3.0):
                     kout = swc.soft_warp_blend(fa, fb, tiles, t, tile, interp.WARP_RANGE, k_soft)
                     pout = swc.soft_warp_plain(
                         fa, fb, swc.frame_inputs(tiles, t, k_soft, interp.WARP_RANGE), tile)
                     torch.cuda.synchronize()
                     max_d, exact = diff_stats(kout, pout)
+                    n_diff = int((kout != pout).sum().item())
                     say(f"soft_warp_blend tile={tile} [{key}] k={k_soft} t={t:.4f}: "
-                        f"max {max_d} LSB, exact {exact:.7f}")
+                        f"{n_diff} of {kout.numel()} bytes differ, max {max_d} LSB, exact {exact:.7f}")
                     check(max_d <= 1, f"soft_warp_blend: {max_d} LSB")
                     errs["soft_warp_blend"] = max(errs["soft_warp_blend"], max_d)
 
@@ -603,14 +625,18 @@ def main() -> int:
         sized.update({f"{key}-noise": rng.integers(0, 256, (h, w, 4), np.uint8)
                       for key, (h, w) in SIZES.items()})
         sized["odd-noise"] = rng.integers(0, 256, (37, 53, 4), np.uint8)
+        # sides that no tile of the kernel divides (nor 8, 16 or 32)
+        for i in range(2):
+            sized[f"ragged{i}"] = rng.integers(0, 256, (*FSR_RAGGED, 4), np.uint8)
         on_dev.update({k: torch.from_numpy(v).to(dev) for k, v in sized.items()})
         tiers = dict(ref.FSR_SHARPNESS, zero=0.0)
         fsr_cases = [(key, 2, name) for key in ("a", "n1") for name in tiers]
         fsr_cases += [(key, 3, name) for key in ("720p", "720p-noise") for name in ("quality", "zero")]
         fsr_cases += [(key, 4, name) for key in ("540p", "540p-noise") for name in ("quality", "performance")]
         fsr_cases += [("n1", 1, "quality")]
-        fsr_cases += [("odd-noise", s_, "ultra") for s_ in (2, 3, 4)]
+        fsr_cases += [("odd-noise", s_, "ultra") for s_ in (1, 2, 3, 4)]
         fsr_cases += [(("a", "b", "n1", "n2"), 2, "quality"), (("720p", "720p-noise") * 2, 3, "ultra")]
+        fsr_cases += [(key, s_, "quality") for s_ in (1, 2, 3, 4) for key in ("ragged0", ("ragged0", "ragged1"))]
         errs["fsr"] = errs["fsr_batched"] = 0
         for key, s_, name in fsr_cases:
             batched = isinstance(key, tuple)
@@ -1332,6 +1358,13 @@ def main() -> int:
         tables = 4 * (OUT_H * (1 + lz.kv) + OUT_W * (1 + lz.kh))
         frame_in, frame_out = IN_H * IN_W * 4, OUT_H * OUT_W * 4
 
+        def no_fma_bound(moved: int, ops: int) -> tuple[float, str]:
+            """The larger of the bytes over the memory rate and the
+            instruction floor: a kernel that forms no FMA issues one fp32
+            instruction per operation, at half the FMA-counted rate."""
+            t_bytes, t_floor = moved / mem_bw * 1e3, ops / (f32_rate / 2) * 1e3
+            return (t_bytes, "bytes") if t_bytes >= t_floor else (t_floor, "operations")
+
         def bound(n: int, n_ts: int) -> tuple[float, str]:
             moved = n * frame_in + n * frame_out * (1 + n_ts) + (frame_out if n_ts else 0) + tables
             ops = 2 * n * 4 * (lz.nnz_v * IN_W + lz.nnz_h * OUT_H) + 3 * n_ts * frame_out
@@ -1393,6 +1426,8 @@ def main() -> int:
             "noise": (on_dev["n1"], on_dev["n2"], soft_cases[1][4], interp.SOFT_WARP_K),
         }
         soft_ms = {}
+        soft_regs = ptxas_registers(_build.BUILD_LOGS.get("soft_warp", ""), r"soft_warp_kernel\w*")
+        soft_regs = next(iter(soft_regs.values()), "not in this build log")
         for name, (fa, fb, tl, k_soft) in soft_timed.items():
             # the kernel alone on its packed inputs; the wrapper's front end
             # (candidates: a scatter-add, a sort, an argmin) is timed apart
@@ -1400,8 +1435,7 @@ def main() -> int:
             packed = swc.pack_inputs(fin)
             moved, ops = soft_warp_work(torch, swc, fa, tl, 0.5, interp.WARP_TILE, k_soft,
                                         interp.WARP_RANGE)
-            t_bytes, t_ops = moved / mem_bw * 1e3, ops / f32_rate * 1e3
-            b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+            b_ms, b_by = no_fma_bound(moved, ops)
             ms = time_ms(torch, lambda: swc._launch(fa, fb, fin, packed, interp.WARP_TILE, k_soft),
                          flush)
             wrapper_ms = time_ms(torch, lambda: swc.soft_warp_blend(
@@ -1409,8 +1443,10 @@ def main() -> int:
             plain_ms = time_ms(torch, lambda: swc.soft_warp_plain(fa, fb, fin, interp.WARP_TILE),
                                flush)
             say(f"time soft_warp_blend [{name}] k={k_soft}: {ms:.4f} ms (with its front end "
-                f"{wrapper_ms:.4f} ms; plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by}: "
-                f"{moved} bytes, {ops} fp32 operations; {100 * b_ms / ms:.1f}% of bound)")
+                f"{wrapper_ms:.4f} ms; plain {plain_ms:.4f} ms; {moved} bytes, {ops} fp32 "
+                f"operations: bytes {moved / mem_bw * 1e3:.4f} ms, at the FMA rate "
+                f"{ops / f32_rate * 1e3:.4f} ms, instruction floor {ops / (f32_rate / 2) * 1e3:.4f} ms; "
+                f"bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}% of it; ptxas {soft_regs})")
             soft_ms[name] = (ms, plain_ms, b_ms, b_by)
         (ms, plain_ms, b_ms, b_by), noise = soft_ms["main"], soft_ms["noise"]
         rows.append({
@@ -1418,7 +1454,7 @@ def main() -> int:
             "replaces": REPLACES["soft_warp_blend"],
             "launches": flow_counts["soft_warp_blend"],
             "max_abs_err": errs["soft_warp_blend"], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms": b_ms, "bound_by": b_by, "ptxas": soft_regs,
             # no single PyTorch call computes the 4-corner candidate blend
             "library_ms": None,
             # the main path's pair has small, uniform motion (few candidates
@@ -1439,15 +1475,19 @@ def main() -> int:
             "batch4": (fc.fsr_batched, fsr_batch_in, 2),
         }
         fsr_ms = {}
+        fsr_regs = {int(k[-2]): r for k, r in ptxas_registers(
+            _build.BUILD_LOGS.get("fsr", ""), r"fsr_kernelILi\dE").items()}
+        say(f"ptxas fsr_kernel<S>: {json.dumps(fsr_regs) if fsr_regs else 'not in this build log'}")
         for name, (fn, src, s_) in fsr_timed.items():
             moved, ops = fsr_work(torch, fc, src if src.dim() == 4 else src[None], s_, sharp)
-            t_bytes, t_ops = moved / mem_bw * 1e3, ops / f32_rate * 1e3
-            b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+            b_ms, b_by = no_fma_bound(moved, ops)
             ms = time_ms(torch, lambda: fn(src, s_, sharp), flush)
             plain_ms = time_ms(torch, lambda: fc.fsr_plain(src, s_, sharp), flush)
             say(f"time fsr [{name}] s={s_} {tuple(src.shape)}: {ms:.4f} ms (plain {plain_ms:.4f} ms; "
-                f"bound {b_ms:.4f} ms by {b_by}: {moved} bytes, {ops} fp32 operations; "
-                f"{100 * b_ms / ms:.1f}% of bound)")
+                f"{moved} bytes, {ops} fp32 operations: bytes {moved / mem_bw * 1e3:.4f} ms, at the "
+                f"FMA rate {ops / f32_rate * 1e3:.4f} ms, instruction floor "
+                f"{ops / (f32_rate / 2) * 1e3:.4f} ms; bound {b_ms:.4f} ms by {b_by}, "
+                f"{100 * b_ms / ms:.1f}% of it; ptxas fsr_kernel<{s_}> {fsr_regs.get(s_, 'not in this build log')})")
             fsr_ms[name] = (ms, plain_ms, b_ms, b_by)
         for row, key, inputs in (("fsr", "1080p", "bench frame 1080p→4K, quality"),
                                  ("fsr_batched", "batch4", "a, b, n1, n2 at 1080p→4K, quality")):
@@ -1457,7 +1497,7 @@ def main() -> int:
                 "launches": fsr_counts[row], "max_abs_err": errs[row], "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 # no single PyTorch call computes EASU + RCAS
-                "library_ms": None, "inputs": inputs,
+                "library_ms": None, "inputs": inputs, "ptxas_by_scale": fsr_regs,
             })
         ms, plain_ms, b_ms, b_by = fsr_ms["720p"]
         rows[-2].update({"ms_720p": ms, "plain_ms_720p": plain_ms, "bound_ms_720p": b_ms,

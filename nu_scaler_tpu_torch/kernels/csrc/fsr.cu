@@ -28,25 +28,45 @@
 // EASU value, so a single contracted multiply-add would move an output by
 // several LSB where a distance lies within an ulp of 2.
 //
-// What bounds it on an H100 (3.35 TB/s, 67 TFLOP/s fp32, published peaks).
+// What bounds it on an H100 (3.35 TB/s; 67 TFLOP/s fp32 counting an FMA as
+// two operations, so 33.5 T instructions/s: 128 lanes a clock on 132 SMs).
 // At 1080p -> 4K (S = 2) the bytes are 8.29 MB in and 33.18 MB out, 12.4 us.
 // The fp32 operations per input pixel are 79 + 373*S*S for EASU (direction
 // 31; per tap 3; per tap and phase 22: distance 2, cubic 13, accumulation 7;
 // per phase 3 for offs and 18 to normalise, mix and take luma; 9 fewer per
 // phase without the mix) and 51 per output pixel for RCAS: 3.68 GFLOP at
-// 1080p -> 4K, 55 us. So operations bound it, by 4x.
+// 1080p -> 4K. None of them may fuse, so each is one instruction: the floor
+// is 0.088 ms, 7x the bytes. Issued instructions bound the kernel: every
+// instruction that is not one of these operations (selects, loads, address
+// and conversion work, the division's and square root's fix-ups: 15
+// correctly rounded divisions per input pixel at S = 2) adds to the time.
 //
-// Design (a first one, kept simple). A block of 256 threads owns a 16 x 16
-// tile of input pixels. It loads the tile with a halo of 2 above and left and
-// 3 below and right (the EASU taps of the tile and its one-pixel ring) into
-// shared memory as planar fp32, computes EASU for the 18 x 18 ringed pixels
-// in all S*S phases into shared memory as (r, g, b, luma), and after a
-// barrier runs RCAS for its (16 S)^2 output pixels, each written as one
-// 4-byte store, neighbouring threads on neighbouring pixels. The ring costs
-// 27% more EASU work than the tile needs. Shared memory is S*S*18*18*16 +
-// 3*21*21*4 bytes: 26 KB at S = 2, 52 KB at S = 3, 88 KB at S = 4 (above
-// 48 KB only with the dynamic shared-memory attribute, set per launch). Not
-// done yet: more pixels per thread, wider stores, a smaller ring.
+// Design. A block of 256 threads owns a tile of 32 input columns by R rows
+// (R = 16 for S <= 2, two pixels a thread, rows ty and ty + 8; R = 8 for
+// S >= 3, one): a warp is one tile row.
+//  1. The input region (rows -2 .. R + 2, columns -2 .. 34) goes to shared
+//     memory as planar fp32, each byte converted without I2F: its bits under
+//     2^23's exponent, minus 2^23.
+//  2. Each thread runs EASU for all S*S phases of its pixels, each phase's
+//     16 taps in the plain version's order, and keeps the results in
+//     registers; it also writes them to shared memory for its neighbours.
+//  3. The tile's one-pixel ring needs only the phases that face the tile:
+//     the bottom phase row of the row above, the top phase row of the row
+//     below, the right phase column of the column to the left and the left
+//     column of the column to the right (no corners). Its 2*(32 + R) pixels
+//     run S phases each on the first 2*(32 + R) threads, whole warps at R =
+//     16 (a warp issues the same instructions for 10 active lanes as for
+//     32, so spreading them over all warps would cost more issue slots).
+//     The ring is 2*(32 + R)/(32*R*S) of the tile's EASU work: 9.4% at S = 2.
+//  4. After one barrier each thread runs RCAS for the S x S outputs of its
+//     pixels: neighbours inside the pixel come from its registers, the
+//     facing phases of its four neighbours from shared memory (4*S float4
+//     loads a pixel). The pack is the trunc without F2I: __fadd_rz(v, 2^23)
+//     of v = clip(out, 0, 1)*255 holds trunc(v) in its low byte. Each output
+//     row of a pixel is one store of S*4 bytes (8 at S = 2, 16 at S = 4).
+// Shared memory: S*S*(R + 2)*34*16 + 3*(R + 5)*37*4 bytes: 19 KB at S = 1,
+// 47 KB at S = 2, 53 KB at S = 3, 91 KB at S = 4 (above 48 KB only with the
+// dynamic shared-memory attribute, set per launch).
 //
 // C interface: nu_fsr launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() of the launch.
@@ -55,17 +75,44 @@
 
 namespace {
 
-constexpr int kTile = 16;         // input pixels per block side
-constexpr int kRing = kTile + 2;  // EASU region: the tile and a 1-pixel ring
-constexpr int kIn = kTile + 5;    // input region: rows / columns -2 .. kTile + 2
+constexpr int kTileW = 32;  // input columns per block: a warp per tile row
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 constexpr int kMaxScale = 4;
 
 constexpr float kInv255 = 1.0f / 255.0f;
 constexpr float kThird = 1.0f / 3.0f;
 constexpr float kEps = 1e-4f;
+constexpr float kTwo23 = 8388608.0f;
+
+// The tile of scale S: its rows, pixels a thread, and shared-memory shapes.
+template <int S>
+struct Tile {
+  static constexpr int kRows = S <= 2 ? 16 : 8;
+  static constexpr int kPix = kRows / kWarps;          // pixels a thread, kWarps rows apart
+  static constexpr int kRingW = kTileW + 2;            // the tile and its one-pixel ring
+  static constexpr int kRingH = kRows + 2;
+  static constexpr int kRingPx = kRingW * kRingH;
+  static constexpr int kInW = kTileW + 5;              // input columns -2 .. kTileW + 2
+  static constexpr int kInH = kRows + 5;
+  static constexpr int kPlane = kInW * kInH;
+  static constexpr int kRingItems = 2 * (kTileW + kRows);
+  static constexpr int kMinBlocks = S == 1 ? 4 : (S == 4 ? 2 : 3);
+  static constexpr int kSmem = S * S * kRingPx * 16 + 3 * kPlane * 4;
+};
 
 __device__ __forceinline__ float clamp01(float v) { return fminf(fmaxf(v, 0.f), 1.f); }
+
+// Byte k of p as a float in [0, 255], exactly: the byte under 2^23's
+// exponent is 2^23 + byte.
+__device__ __forceinline__ float byte_to_float(unsigned p, int k) {
+  return __fsub_rn(__uint_as_float(__byte_perm(p, 0x4B000000u, 0x7540 + k)), kTwo23);
+}
+
+// trunc(clip(v, 0, 1) * 255) in the low byte: 2^23 + x rounded toward zero.
+__device__ __forceinline__ unsigned pack_trunc(float v) {
+  return __float_as_uint(__fadd_rz(__fmul_rn(clamp01(v), 255.f), kTwo23));
+}
 
 // FsrCubic on d >= 0: 2 - 1.5d - 0.5d^3 + d^2 to 1, -0.5d + 2.5d^2 - d^3 to 2.
 __device__ __forceinline__ float fsr_cubic(float d) {
@@ -78,146 +125,92 @@ __device__ __forceinline__ float fsr_cubic(float d) {
   return 0.f;
 }
 
+template <int kPlane>
 __device__ __forceinline__ float abs_diff_sum3(const float* p, int a, int b) {
-  constexpr int kPlane = kIn * kIn;
   const float s0 = fabsf(__fsub_rn(p[a], p[b]));
   const float s1 = fabsf(__fsub_rn(p[kPlane + a], p[kPlane + b]));
   const float s2 = fabsf(__fsub_rn(p[2 * kPlane + a], p[2 * kPlane + b]));
   return __fmul_rn(__fadd_rn(__fadd_rn(s0, s1), s2), kThird);
 }
 
-__device__ __forceinline__ unsigned char pack_trunc(float v) {
-  return static_cast<unsigned char>(truncf(__fmul_rn(clamp01(v), 255.f)));
+// (k + 0.5) / S, the phase offset of row or column k.
+template <int S>
+__device__ __forceinline__ float phase_frac(int k) {
+  return __fdiv_rn(__fadd_rn(static_cast<float>(k), 0.5f), static_cast<float>(S));
 }
 
-template <int S>
-__global__ void __launch_bounds__(kThreads)
-    fsr_kernel(const uchar4* __restrict__ src, int h, int w, float sharp, int mix,
-               uchar4* __restrict__ dst) {
-  constexpr int kPh = S * S;
-  constexpr int kRingPx = kRing * kRing;
-  constexpr int kPlane = kIn * kIn;
-  constexpr int kOut = S * kTile;  // output pixels per block side
-  extern __shared__ float4 smem[];
-  float4* s_e = smem;                                         // [kPh][kRing][kRing]
-  float* s_in = reinterpret_cast<float*>(smem + kPh * kRingPx);  // [3][kIn][kIn]
+// EASU of the input pixel centred at s_in[c] in NP phases with offsets
+// (fx[p], fy[p]): (r, g, b, luma) of each phase in e[p].
+template <class T, int NP>
+__device__ __forceinline__ void easu(const float* s_in, int c, const float (&fx)[NP],
+                                     const float (&fy)[NP], float sharp, int mix,
+                                     float4 (&e)[NP]) {
+  constexpr int kInW = T::kInW;
+  constexpr int kPlane = T::kPlane;
+  const float vgx = abs_diff_sum3<kPlane>(s_in, c - kInW, c + kInW);
+  const float vgy = abs_diff_sum3<kPlane>(s_in, c - 1, c + 1);
+  const float ax = __fadd_rn(vgx, kEps);
+  const float ay = __fadd_rn(vgy, kEps);
+  const float norm = __fsqrt_rn(__fadd_rn(__fmul_rn(ax, ax), __fmul_rn(ay, ay)));
+  const float dirx = fabsf(__fdiv_rn(ax, norm));
+  const float diry = fabsf(__fdiv_rn(ay, norm));
+  const float wx = __fdiv_rn(dirx, __fadd_rn(dirx, diry));
+  const float wy = __fsub_rn(1.f, wx);
 
-  const int n = blockIdx.z;
-  const int y0 = blockIdx.y * kTile;
-  const int x0 = blockIdx.x * kTile;
-  const uchar4* img = src + static_cast<size_t>(n) * h * w;
-  const int tid = threadIdx.x;
-
-  // 1. the input region, edge-clamped, planar fp32 in [0, 1]
-  for (int i = tid; i < kPlane; i += kThreads) {
-    const int iy = i / kIn;
-    const int ix = i - iy * kIn;
-    const int gy = min(max(y0 - 2 + iy, 0), h - 1);
-    const int gx = min(max(x0 - 2 + ix, 0), w - 1);
-    const uchar4 p = __ldg(img + static_cast<size_t>(gy) * w + gx);
-    s_in[i] = __fmul_rn(static_cast<float>(p.x), kInv255);
-    s_in[kPlane + i] = __fmul_rn(static_cast<float>(p.y), kInv255);
-    s_in[2 * kPlane + i] = __fmul_rn(static_cast<float>(p.z), kInv255);
+  float offs[NP], sw[NP], sr[NP], sg[NP], sb[NP];
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    offs[p] = __fadd_rn(__fmul_rn(fx[p], wx), __fmul_rn(fy[p], wy));
+    sw[p] = sr[p] = sg[p] = sb[p] = 0.f;
   }
-  __syncthreads();
-
-  // 2. EASU of the tile and its ring, all phases; ringed pixel (ry, rx) is
-  //    input (y0 - 1 + ry, x0 - 1 + rx), at (ry + 1, rx + 1) in s_in
-  for (int i = tid; i < kRingPx; i += kThreads) {
-    const int ry = i / kRing;
-    const int rx = i - ry * kRing;
-    const int c = (ry + 1) * kIn + (rx + 1);
-    const float vgx = abs_diff_sum3(s_in, c - kIn, c + kIn);
-    const float vgy = abs_diff_sum3(s_in, c - 1, c + 1);
-    const float ax = __fadd_rn(vgx, kEps);
-    const float ay = __fadd_rn(vgy, kEps);
-    const float norm = __fsqrt_rn(__fadd_rn(__fmul_rn(ax, ax), __fmul_rn(ay, ay)));
-    const float dirx = fabsf(__fdiv_rn(ax, norm));
-    const float diry = fabsf(__fdiv_rn(ay, norm));
-    const float wx = __fdiv_rn(dirx, __fadd_rn(dirx, diry));
-    const float wy = __fsub_rn(1.f, wx);
-
-    float offs[kPh], sw[kPh], sr[kPh], sg[kPh], sb[kPh];
 #pragma unroll
-    for (int p = 0; p < kPh; ++p) {
-      const float fx = (static_cast<float>(p % S) + 0.5f) / static_cast<float>(S);
-      const float fy = (static_cast<float>(p / S) + 0.5f) / static_cast<float>(S);
-      offs[p] = __fadd_rn(__fmul_rn(fx, wx), __fmul_rn(fy, wy));
-      sw[p] = sr[p] = sg[p] = sb[p] = 0.f;
-    }
+  for (int ty = 0; ty < 4; ++ty) {
 #pragma unroll
-    for (int ty = 0; ty < 4; ++ty) {
+    for (int tx = 0; tx < 4; ++tx) {
+      const int t = c + (ty - 1) * kInW + (tx - 1);
+      const float tr = s_in[t];
+      const float tg = s_in[kPlane + t];
+      const float tb = s_in[2 * kPlane + t];
+      const float base = __fadd_rn(__fmul_rn(static_cast<float>(tx), wx),
+                                   __fmul_rn(static_cast<float>(ty), wy));
 #pragma unroll
-      for (int tx = 0; tx < 4; ++tx) {
-        const int t = c + (ty - 1) * kIn + (tx - 1);
-        const float tr = s_in[t];
-        const float tg = s_in[kPlane + t];
-        const float tb = s_in[2 * kPlane + t];
-        const float base = __fadd_rn(__fmul_rn(static_cast<float>(tx), wx),
-                                     __fmul_rn(static_cast<float>(ty), wy));
-#pragma unroll
-        for (int p = 0; p < kPh; ++p) {
-          const float wt = fsr_cubic(fabsf(__fsub_rn(base, offs[p])));
-          sw[p] = __fadd_rn(sw[p], wt);
-          sr[p] = __fadd_rn(sr[p], __fmul_rn(tr, wt));
-          sg[p] = __fadd_rn(sg[p], __fmul_rn(tg, wt));
-          sb[p] = __fadd_rn(sb[p], __fmul_rn(tb, wt));
-        }
+      for (int p = 0; p < NP; ++p) {
+        const float wt = fsr_cubic(fabsf(__fsub_rn(base, offs[p])));
+        sw[p] = __fadd_rn(sw[p], wt);
+        sr[p] = __fadd_rn(sr[p], __fmul_rn(tr, wt));
+        sg[p] = __fadd_rn(sg[p], __fmul_rn(tg, wt));
+        sb[p] = __fadd_rn(sb[p], __fmul_rn(tb, wt));
       }
     }
-    const float cr = s_in[c];
-    const float cg = s_in[kPlane + c];
-    const float cb = s_in[2 * kPlane + c];
-#pragma unroll
-    for (int p = 0; p < kPh; ++p) {
-      const float den = fmaxf(sw[p], kEps);
-      float r = __fdiv_rn(sr[p], den);
-      float g = __fdiv_rn(sg[p], den);
-      float b = __fdiv_rn(sb[p], den);
-      if (mix) {
-        r = __fadd_rn(r, __fmul_rn(__fsub_rn(cr, r), sharp));
-        g = __fadd_rn(g, __fmul_rn(__fsub_rn(cg, g), sharp));
-        b = __fadd_rn(b, __fmul_rn(__fsub_rn(cb, b), sharp));
-      }
-      const float lum =
-          __fadd_rn(__fadd_rn(__fmul_rn(0.299f, r), __fmul_rn(0.587f, g)), __fmul_rn(0.114f, b));
-      s_e[p * kRingPx + i] = make_float4(r, g, b, lum);
-    }
   }
-  __syncthreads();
+  const float cr = s_in[c];
+  const float cg = s_in[kPlane + c];
+  const float cb = s_in[2 * kPlane + c];
+#pragma unroll
+  for (int p = 0; p < NP; ++p) {
+    const float den = fmaxf(sw[p], kEps);
+    float r = __fdiv_rn(sr[p], den);
+    float g = __fdiv_rn(sg[p], den);
+    float b = __fdiv_rn(sb[p], den);
+    if (mix) {
+      r = __fadd_rn(r, __fmul_rn(__fsub_rn(cr, r), sharp));
+      g = __fadd_rn(g, __fmul_rn(__fsub_rn(cg, g), sharp));
+      b = __fadd_rn(b, __fmul_rn(__fsub_rn(cb, b), sharp));
+    }
+    const float lum =
+        __fadd_rn(__fadd_rn(__fmul_rn(0.299f, r), __fmul_rn(0.587f, g)), __fmul_rn(0.114f, b));
+    e[p] = make_float4(r, g, b, lum);
+  }
+}
 
-  // 3. RCAS per output pixel of the tile
-  const int oh = S * h;
-  const int ow = S * w;
-  uchar4* out = dst + static_cast<size_t>(n) * oh * ow;
-  for (int i = tid; i < kOut * kOut; i += kThreads) {
-    const int ly = i / kOut;
-    const int lx = i - ly * kOut;
-    const int gy = S * y0 + ly;
-    const int gx = S * x0 + lx;
-    if (gy >= oh || gx >= ow) continue;
-    const int r = ly / S + 1;  // ring coordinates of the input pixel
-    const int c = lx / S + 1;
-    const int py = ly % S;
-    const int px = lx % S;
-    const float4 cen = s_e[(py * S + px) * kRingPx + r * kRing + c];
-    float4 top = py > 0 ? s_e[((py - 1) * S + px) * kRingPx + r * kRing + c]
-                        : s_e[((S - 1) * S + px) * kRingPx + (r - 1) * kRing + c];
-    float4 bot = py < S - 1 ? s_e[((py + 1) * S + px) * kRingPx + r * kRing + c]
-                            : s_e[px * kRingPx + (r + 1) * kRing + c];
-    float4 lef = px > 0 ? s_e[(py * S + px - 1) * kRingPx + r * kRing + c]
-                        : s_e[(py * S + S - 1) * kRingPx + r * kRing + c - 1];
-    float4 rig = px < S - 1 ? s_e[(py * S + px + 1) * kRingPx + r * kRing + c]
-                            : s_e[(py * S) * kRingPx + r * kRing + c + 1];
-    if (gy == 0) top = cen;
-    if (gy == oh - 1) bot = cen;
-    if (gx == 0) lef = cen;
-    if (gx == ow - 1) rig = cen;
-    const float min_l = fminf(fminf(fminf(top.w, bot.w), fminf(lef.w, rig.w)), cen.w);
-    const float max_l = fmaxf(fmaxf(fmaxf(top.w, bot.w), fmaxf(lef.w, rig.w)), cen.w);
-    const float t = clamp01(__fmul_rn(__fsub_rn(max_l, min_l), 5.f));
-    const float smooth = __fmul_rn(__fmul_rn(t, t), __fsub_rn(3.f, __fmul_rn(2.f, t)));
-    const float strength = __fmul_rn(sharp, __fsub_rn(1.f, smooth));
+// RCAS of one output pixel, packed RGBA with alpha 255.
+__device__ __forceinline__ unsigned rcas(float4 cen, float4 top, float4 bot, float4 lef,
+                                         float4 rig, float sharp) {
+  const float min_l = fminf(fminf(fminf(top.w, bot.w), fminf(lef.w, rig.w)), cen.w);
+  const float max_l = fmaxf(fmaxf(fmaxf(top.w, bot.w), fmaxf(lef.w, rig.w)), cen.w);
+  const float t = clamp01(__fmul_rn(__fsub_rn(max_l, min_l), 5.f));
+  const float smooth = __fmul_rn(__fmul_rn(t, t), __fsub_rn(3.f, __fmul_rn(2.f, t)));
+  const float strength = __fmul_rn(sharp, __fsub_rn(1.f, smooth));
 #define NU_RCAS(ch)                                                                        \
   pack_trunc(__fadd_rn(                                                                    \
       cen.ch,                                                                              \
@@ -226,22 +219,148 @@ __global__ void __launch_bounds__(kThreads)
                                     lef.ch),                                               \
                           rig.ch),                                                         \
                 strength)))
-    out[static_cast<size_t>(gy) * ow + gx] = make_uchar4(NU_RCAS(x), NU_RCAS(y), NU_RCAS(z), 255);
+  const unsigned rg = __byte_perm(NU_RCAS(x), NU_RCAS(y), 0x0040);
+  const unsigned ba = __byte_perm(NU_RCAS(z), 0xFFu, 0x0040);
 #undef NU_RCAS
+  return __byte_perm(rg, ba, 0x5410);
+}
+
+// One output row of a pixel: S packed pixels, one store.
+template <int S>
+__device__ __forceinline__ void store_row(unsigned* o, const unsigned (&v)[S]) {
+  if constexpr (S == 2) {
+    *reinterpret_cast<uint2*>(o) = make_uint2(v[0], v[1]);
+  } else if constexpr (S == 4) {
+    *reinterpret_cast<uint4*>(o) = make_uint4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < S; ++i) o[i] = v[i];
+  }
+}
+
+template <int S>
+__global__ void __launch_bounds__(kThreads, Tile<S>::kMinBlocks)
+    fsr_kernel(const uchar4* __restrict__ src, int h, int w, float sharp, int mix,
+               uchar4* __restrict__ dst) {
+  using T = Tile<S>;
+  constexpr int kPh = S * S;
+  extern __shared__ float4 smem[];
+  float4* s_e = smem;                                                // [kPh][kRingH][kRingW]
+  float* s_in = reinterpret_cast<float*>(smem + kPh * T::kRingPx);  // [3][kInH][kInW]
+
+  const int n = blockIdx.z;
+  const int y0 = blockIdx.y * T::kRows;
+  const int x0 = blockIdx.x * kTileW;
+  const unsigned* img = reinterpret_cast<const unsigned*>(src) + static_cast<size_t>(n) * h * w;
+  const int tid = threadIdx.x;
+  const int tx = tid % 32;
+  const int ty = tid / 32;
+
+  // 1. the input region, edge-clamped, planar fp32 in [0, 1]
+  for (int i = tid; i < T::kPlane; i += kThreads) {
+    const int iy = i / T::kInW;
+    const int ix = i - iy * T::kInW;
+    const int gy = min(max(y0 - 2 + iy, 0), h - 1);
+    const int gx = min(max(x0 - 2 + ix, 0), w - 1);
+    const unsigned p = __ldg(img + static_cast<size_t>(gy) * w + gx);
+    s_in[i] = __fmul_rn(byte_to_float(p, 0), kInv255);
+    s_in[T::kPlane + i] = __fmul_rn(byte_to_float(p, 1), kInv255);
+    s_in[2 * T::kPlane + i] = __fmul_rn(byte_to_float(p, 2), kInv255);
+  }
+  __syncthreads();
+
+  // 2. EASU of the thread's pixels in all phases, kept in registers; ringed
+  //    pixel (ry, rx) is input (y0 - 1 + ry, x0 - 1 + rx), at (ry + 1, rx + 1)
+  //    in s_in and ry * kRingW + rx in each phase plane of s_e
+  float fx[kPh], fy[kPh];
+#pragma unroll
+  for (int p = 0; p < kPh; ++p) {
+    fx[p] = phase_frac<S>(p % S);
+    fy[p] = phase_frac<S>(p / S);
+  }
+  float4 own[T::kPix][kPh];
+#pragma unroll
+  for (int i = 0; i < T::kPix; ++i) {
+    const int ry = ty + kWarps * i + 1;
+    const int rx = tx + 1;
+    easu<T>(s_in, (ry + 1) * T::kInW + rx + 1, fx, fy, sharp, mix, own[i]);
+#pragma unroll
+    for (int p = 0; p < kPh; ++p) s_e[p * T::kRingPx + ry * T::kRingW + rx] = own[i][p];
+  }
+
+  // 3. the ring: the S phases of each ring pixel that face the tile
+  if (tid < T::kRingItems) {
+    int ry, rx, fixed;
+    bool row;  // a phase row (above and below the tile) or a phase column
+    if (tid < kTileW) {
+      row = true, ry = 0, rx = tid + 1, fixed = S - 1;
+    } else if (tid < 2 * kTileW) {
+      row = true, ry = T::kRows + 1, rx = tid - kTileW + 1, fixed = 0;
+    } else if (tid < 2 * kTileW + T::kRows) {
+      row = false, ry = tid - 2 * kTileW + 1, rx = 0, fixed = S - 1;
+    } else {
+      row = false, ry = tid - 2 * kTileW - T::kRows + 1, rx = kTileW + 1, fixed = 0;
+    }
+    const float f_fixed = phase_frac<S>(fixed);
+    float rfx[S], rfy[S];
+#pragma unroll
+    for (int q = 0; q < S; ++q) {
+      rfx[q] = row ? phase_frac<S>(q) : f_fixed;
+      rfy[q] = row ? f_fixed : phase_frac<S>(q);
+    }
+    float4 e[S];
+    easu<T>(s_in, (ry + 1) * T::kInW + rx + 1, rfx, rfy, sharp, mix, e);
+#pragma unroll
+    for (int q = 0; q < S; ++q) {
+      const int p = row ? fixed * S + q : q * S + fixed;
+      s_e[p * T::kRingPx + ry * T::kRingW + rx] = e[q];
+    }
+  }
+  __syncthreads();
+
+  // 4. RCAS of the thread's S x S outputs per pixel
+  const int oh = S * h;
+  const int ow = S * w;
+  unsigned* out = reinterpret_cast<unsigned*>(dst) + static_cast<size_t>(n) * oh * ow;
+#pragma unroll
+  for (int i = 0; i < T::kPix; ++i) {
+    const int y = y0 + ty + kWarps * i;
+    const int x = x0 + tx;
+    if (y >= h || x >= w) continue;
+    const float4* e = s_e + (ty + kWarps * i + 1) * T::kRingW + tx + 1;
+#pragma unroll
+    for (int py = 0; py < S; ++py) {
+      unsigned v[S];
+#pragma unroll
+      for (int px = 0; px < S; ++px) {
+        const int p = py * S + px;
+        const float4 cen = own[i][p];
+        float4 top = py > 0 ? own[i][py > 0 ? p - S : p]
+                            : e[((S - 1) * S + px) * T::kRingPx - T::kRingW];
+        float4 bot = py < S - 1 ? own[i][py < S - 1 ? p + S : p] : e[px * T::kRingPx + T::kRingW];
+        float4 lef = px > 0 ? own[i][px > 0 ? p - 1 : p] : e[(py * S + S - 1) * T::kRingPx - 1];
+        float4 rig = px < S - 1 ? own[i][px < S - 1 ? p + 1 : p] : e[py * S * T::kRingPx + 1];
+        if (py == 0 && y == 0) top = cen;
+        if (py == S - 1 && y == h - 1) bot = cen;
+        if (px == 0 && x == 0) lef = cen;
+        if (px == S - 1 && x == w - 1) rig = cen;
+        v[px] = rcas(cen, top, bot, lef, rig, sharp);
+      }
+      store_row<S>(out + static_cast<size_t>(S * y + py) * ow + S * x, v);
+    }
   }
 }
 
 template <int S>
 int launch(const void* src, int n, int h, int w, float sharp, int mix, void* dst,
            cudaStream_t stream) {
-  const int smem = S * S * kRing * kRing * static_cast<int>(sizeof(float4)) +
-                   3 * kIn * kIn * static_cast<int>(sizeof(float));
+  using T = Tile<S>;
   cudaError_t e = cudaFuncSetAttribute(fsr_kernel<S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                       smem);
+                                       T::kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((w + kTile - 1) / kTile, (h + kTile - 1) / kTile, n);
-  fsr_kernel<S><<<grid, kThreads, smem, stream>>>(static_cast<const uchar4*>(src), h, w, sharp,
-                                                  mix, static_cast<uchar4*>(dst));
+  const dim3 grid((w + kTileW - 1) / kTileW, (h + T::kRows - 1) / T::kRows, n);
+  fsr_kernel<S><<<grid, kThreads, T::kSmem, stream>>>(static_cast<const uchar4*>(src), h, w,
+                                                      sharp, mix, static_cast<uchar4*>(dst));
   return static_cast<int>(cudaGetLastError());
 }
 
