@@ -37,19 +37,23 @@
 // phase without the mix) and 51 per output pixel for RCAS: 3.68 GFLOP at
 // 1080p -> 4K. None of them may fuse, so each is one instruction: the floor
 // is 0.088 ms, 7x the bytes. Issued instructions bound the kernel: every
-// instruction that is not one of these operations (selects, loads, address
-// and conversion work, the division's and square root's fix-ups: 15
+// instruction that is not one of these operations (the cubic's compares and
+// selects, loads, addresses, the division's and square root's fix-ups: 15
 // correctly rounded divisions per input pixel at S = 2) adds to the time.
 //
 // Design. A block of 256 threads owns a tile of 32 input columns by R rows
 // (R = 16 for S <= 2, two pixels a thread, rows ty and ty + 8; R = 8 for
 // S >= 3, one): a warp is one tile row.
 //  1. The input region (rows -2 .. R + 2, columns -2 .. 34) goes to shared
-//     memory as planar fp32, each byte converted without I2F: its bits under
-//     2^23's exponent, minus 2^23.
+//     memory as planar fp32, all of a thread's loads issued before the first
+//     wait, each byte converted without I2F: its bits under 2^23's exponent,
+//     minus 2^23.
 //  2. Each thread runs EASU for all S*S phases of its pixels, each phase's
-//     16 taps in the plain version's order, and keeps the results in
-//     registers; it also writes them to shared memory for its neighbours.
+//     16 taps in the plain version's order, into shared memory. Per tap and
+//     phase only the FsrCubic branches that the tap can reach at that phase
+//     are evaluated (cubic_branches: the distance lies between |tx - fx| and
+//     |ty - fy| whatever the direction), and a tap whose weight is always 0
+//     there is skipped: at S = 2, 23% fewer instructions in the tap loop.
 //  3. The tile's one-pixel ring needs only the phases that face the tile:
 //     the bottom phase row of the row above, the top phase row of the row
 //     below, the right phase column of the column to the left and the left
@@ -59,19 +63,24 @@
 //     32, so spreading them over all warps would cost more issue slots).
 //     The ring is 2*(32 + R)/(32*R*S) of the tile's EASU work: 9.4% at S = 2.
 //  4. After one barrier each thread runs RCAS for the S x S outputs of its
-//     pixels: neighbours inside the pixel come from its registers, the
-//     facing phases of its four neighbours from shared memory (4*S float4
-//     loads a pixel). The pack is the trunc without F2I: __fadd_rz(v, 2^23)
-//     of v = clip(out, 0, 1)*255 holds trunc(v) in its low byte. Each output
-//     row of a pixel is one store of S*4 bytes (8 at S = 2, 16 at S = 4).
+//     pixels from shared memory: its own S*S phases and the 4*S facing
+//     phases of its neighbours, one float4 load each, with no division or
+//     modulo. (Keeping the own phases in registers across the barrier cost
+//     4 blocks an SM at S = 2: 3% slower.) The pack is the trunc without
+//     F2I: __fadd_rz(v, 2^23) of v = clip(out, 0, 1)*255 holds trunc(v) in
+//     its low byte. Each output row of a pixel is one store of S*4 bytes (8
+//     at S = 2, 16 at S = 4).
 // Shared memory: S*S*(R + 2)*34*16 + 3*(R + 5)*37*4 bytes: 19 KB at S = 1,
 // 47 KB at S = 2, 53 KB at S = 3, 91 KB at S = 4 (above 48 KB only with the
-// dynamic shared-memory attribute, set per launch).
+// dynamic shared-memory attribute, set per launch); blocks an SM holds: 4 at
+// S <= 2, 3 at S = 3, 2 at S = 4 (the registers' launch bounds).
 //
 // C interface: nu_fsr launches on the caller's stream, allocates nothing and
 // returns cudaGetLastError() of the launch.
 
 #include <cuda_runtime.h>
+
+#include <utility>
 
 namespace {
 
@@ -97,7 +106,7 @@ struct Tile {
   static constexpr int kInH = kRows + 5;
   static constexpr int kPlane = kInW * kInH;
   static constexpr int kRingItems = 2 * (kTileW + kRows);
-  static constexpr int kMinBlocks = S == 1 ? 4 : (S == 4 ? 2 : 3);
+  static constexpr int kMinBlocks = S <= 2 ? 4 : (S == 3 ? 3 : 2);
   static constexpr int kSmem = S * S * kRingPx * 16 + 3 * kPlane * 4;
 };
 
@@ -114,15 +123,39 @@ __device__ __forceinline__ unsigned pack_trunc(float v) {
   return __float_as_uint(__fadd_rz(__fmul_rn(clamp01(v), 255.f), kTwo23));
 }
 
-// FsrCubic on d >= 0: 2 - 1.5d - 0.5d^3 + d^2 to 1, -0.5d + 2.5d^2 - d^3 to 2.
+// The FsrCubic branches that tap (tx, ty) can take at phase (px, py) of
+// scale S, whatever the direction: d = |(tx - fx)*wx + (ty - fy)*wy| with
+// fx = (px + 0.5)/S, fy = (py + 0.5)/S, wx, wy >= 0 and wx + wy = 1 lies
+// between |tx - fx| and |ty - fy| when they share a sign, else between 0 and
+// the larger. The ends are at least 1/8 from 1 and 2; 1e-3 covers rounding.
+constexpr int kNear = 1, kFar = 2, kZero = 4, kAny = kNear | kFar | kZero;
+
+__host__ __device__ constexpr int cubic_branches(int tx, int ty, int px, int py, int s) {
+  const double a = tx - (px + 0.5) / s;
+  const double b = ty - (py + 0.5) / s;
+  const double aa = a < 0 ? -a : a;
+  const double bb = b < 0 ? -b : b;
+  const double hi = (aa > bb ? aa : bb) + 1e-3;
+  const double lo = (a * b >= 0 ? (aa < bb ? aa : bb) : 0.0) - 1e-3;
+  return (lo <= 1 ? kNear : 0) | (hi > 1 && lo <= 2 ? kFar : 0) | (hi > 2 ? kZero : 0);
+}
+
+// FsrCubic on d >= 0: 2 - 1.5d - 0.5d^3 + d^2 to 1, -0.5d + 2.5d^2 - d^3 to
+// 2, else 0; only the branches in B are evaluated.
+template <int B>
 __device__ __forceinline__ float fsr_cubic(float d) {
   const float d2 = __fmul_rn(d, d);
   const float d3 = __fmul_rn(d2, d);
-  if (d <= 1.f) {
-    return __fadd_rn(__fsub_rn(__fsub_rn(2.f, __fmul_rn(1.5f, d)), __fmul_rn(0.5f, d3)), d2);
-  }
-  if (d <= 2.f) return __fsub_rn(__fadd_rn(__fmul_rn(-0.5f, d), __fmul_rn(2.5f, d2)), d3);
-  return 0.f;
+  const float near = (B & kNear) ? __fadd_rn(__fsub_rn(__fsub_rn(2.f, __fmul_rn(1.5f, d)),
+                                                       __fmul_rn(0.5f, d3)), d2)
+                                 : 0.f;
+  const float far = (B & kFar) ? __fsub_rn(__fadd_rn(__fmul_rn(-0.5f, d), __fmul_rn(2.5f, d2)), d3)
+                               : 0.f;
+  if constexpr (B == kNear) return near;
+  if constexpr (B == kFar) return far;
+  if constexpr (B == (kNear | kFar)) return d <= 1.f ? near : far;
+  if constexpr (B == (kFar | kZero)) return d <= 2.f ? far : 0.f;
+  return d <= 1.f ? near : (d <= 2.f ? far : 0.f);
 }
 
 template <int kPlane>
@@ -139,9 +172,61 @@ __device__ __forceinline__ float phase_frac(int k) {
   return __fdiv_rn(__fadd_rn(static_cast<float>(k), 0.5f), static_cast<float>(S));
 }
 
+// One tap's share of every phase's sums. A phase where the tap's weight
+// is always 0 is skipped: adding +0 leaves a sum unchanged (no sum is -0).
+template <int B>
+__device__ __forceinline__ void accumulate(float base, float offs, float tr, float tg, float tb,
+                                           float& sw, float& sr, float& sg, float& sb) {
+  if constexpr (B != kZero) {
+    const float wt = fsr_cubic<B>(fabsf(__fsub_rn(base, offs)));
+    sw = __fadd_rn(sw, wt);
+    sr = __fadd_rn(sr, __fmul_rn(tr, wt));
+    sg = __fadd_rn(sg, __fmul_rn(tg, wt));
+    sb = __fadd_rn(sb, __fmul_rn(tb, wt));
+  }
+}
+
+// The branches of tap (tx, ty) at phase p: known when the phases are all
+// S*S in order (p = py*S + px), else any.
+template <int S, bool kAllPhases>
+__host__ __device__ constexpr int branches(int tx, int ty, int p) {
+  return kAllPhases ? cubic_branches(tx, ty, p % S, p / S, S) : kAny;
+}
+
+template <class T, int S, bool kAllPhases, int NP, int TX, int TY, int... P>
+__device__ __forceinline__ void easu_tap(const float* s_in, int c, float wx, float wy,
+                                         const float (&offs)[NP], float (&sw)[NP],
+                                         float (&sr)[NP], float (&sg)[NP], float (&sb)[NP],
+                                         std::integer_sequence<int, P...>) {
+  if constexpr (((branches<S, kAllPhases>(TX, TY, P) != kZero) || ...)) {
+    const int t = c + (TY - 1) * T::kInW + (TX - 1);
+    const float tr = s_in[t];
+    const float tg = s_in[T::kPlane + t];
+    const float tb = s_in[2 * T::kPlane + t];
+    const float base = __fadd_rn(__fmul_rn(static_cast<float>(TX), wx),
+                                 __fmul_rn(static_cast<float>(TY), wy));
+    (accumulate<branches<S, kAllPhases>(TX, TY, P)>(base, offs[P], tr, tg, tb, sw[P], sr[P],
+                                                    sg[P], sb[P]),
+     ...);
+  }
+}
+
+// The 16 taps in order, rows outer (tap i = ty*4 + tx).
+template <class T, int S, bool kAllPhases, int NP, int... I>
+__device__ __forceinline__ void easu_taps(const float* s_in, int c, float wx, float wy,
+                                          const float (&offs)[NP], float (&sw)[NP],
+                                          float (&sr)[NP], float (&sg)[NP], float (&sb)[NP],
+                                          std::integer_sequence<int, I...>) {
+  (easu_tap<T, S, kAllPhases, NP, I % 4, I / 4>(s_in, c, wx, wy, offs, sw, sr, sg, sb,
+                                                 std::make_integer_sequence<int, NP>{}),
+   ...);
+}
+
 // EASU of the input pixel centred at s_in[c] in NP phases with offsets
-// (fx[p], fy[p]): (r, g, b, luma) of each phase in e[p].
-template <class T, int NP>
+// (fx[p], fy[p]): (r, g, b, luma) of each phase in e[p]. kAllPhases: the
+// phases are all S*S of the pixel in order, so each tap evaluates only the
+// cubic branches it can take there.
+template <class T, int S, bool kAllPhases, int NP>
 __device__ __forceinline__ void easu(const float* s_in, int c, const float (&fx)[NP],
                                      const float (&fy)[NP], float sharp, int mix,
                                      float4 (&e)[NP]) {
@@ -163,26 +248,8 @@ __device__ __forceinline__ void easu(const float* s_in, int c, const float (&fx)
     offs[p] = __fadd_rn(__fmul_rn(fx[p], wx), __fmul_rn(fy[p], wy));
     sw[p] = sr[p] = sg[p] = sb[p] = 0.f;
   }
-#pragma unroll
-  for (int ty = 0; ty < 4; ++ty) {
-#pragma unroll
-    for (int tx = 0; tx < 4; ++tx) {
-      const int t = c + (ty - 1) * kInW + (tx - 1);
-      const float tr = s_in[t];
-      const float tg = s_in[kPlane + t];
-      const float tb = s_in[2 * kPlane + t];
-      const float base = __fadd_rn(__fmul_rn(static_cast<float>(tx), wx),
-                                   __fmul_rn(static_cast<float>(ty), wy));
-#pragma unroll
-      for (int p = 0; p < NP; ++p) {
-        const float wt = fsr_cubic(fabsf(__fsub_rn(base, offs[p])));
-        sw[p] = __fadd_rn(sw[p], wt);
-        sr[p] = __fadd_rn(sr[p], __fmul_rn(tr, wt));
-        sg[p] = __fadd_rn(sg[p], __fmul_rn(tg, wt));
-        sb[p] = __fadd_rn(sb[p], __fmul_rn(tb, wt));
-      }
-    }
-  }
+  easu_taps<T, S, kAllPhases, NP>(s_in, c, wx, wy, offs, sw, sr, sg, sb,
+                                  std::make_integer_sequence<int, 16>{});
   const float cr = s_in[c];
   const float cg = s_in[kPlane + c];
   const float cb = s_in[2 * kPlane + c];
@@ -257,19 +324,30 @@ __global__ void __launch_bounds__(kThreads, Tile<S>::kMinBlocks)
   const int ty = tid / 32;
 
   // 1. the input region, edge-clamped, planar fp32 in [0, 1]
-  for (int i = tid; i < T::kPlane; i += kThreads) {
+  //    (every load issued before the first conversion waits on one)
+  constexpr int kRounds = (T::kPlane + kThreads - 1) / kThreads;
+  unsigned words[kRounds];
+#pragma unroll
+  for (int j = 0; j < kRounds; ++j) {
+    const int i = min(tid + j * kThreads, T::kPlane - 1);
     const int iy = i / T::kInW;
     const int ix = i - iy * T::kInW;
     const int gy = min(max(y0 - 2 + iy, 0), h - 1);
     const int gx = min(max(x0 - 2 + ix, 0), w - 1);
-    const unsigned p = __ldg(img + static_cast<size_t>(gy) * w + gx);
-    s_in[i] = __fmul_rn(byte_to_float(p, 0), kInv255);
-    s_in[T::kPlane + i] = __fmul_rn(byte_to_float(p, 1), kInv255);
-    s_in[2 * T::kPlane + i] = __fmul_rn(byte_to_float(p, 2), kInv255);
+    words[j] = __ldg(img + static_cast<size_t>(gy) * w + gx);
+  }
+#pragma unroll
+  for (int j = 0; j < kRounds; ++j) {
+    const int i = tid + j * kThreads;
+    if (i < T::kPlane) {
+      s_in[i] = __fmul_rn(byte_to_float(words[j], 0), kInv255);
+      s_in[T::kPlane + i] = __fmul_rn(byte_to_float(words[j], 1), kInv255);
+      s_in[2 * T::kPlane + i] = __fmul_rn(byte_to_float(words[j], 2), kInv255);
+    }
   }
   __syncthreads();
 
-  // 2. EASU of the thread's pixels in all phases, kept in registers; ringed
+  // 2. EASU of the thread's pixels in all phases, into shared memory; ringed
   //    pixel (ry, rx) is input (y0 - 1 + ry, x0 - 1 + rx), at (ry + 1, rx + 1)
   //    in s_in and ry * kRingW + rx in each phase plane of s_e
   float fx[kPh], fy[kPh];
@@ -278,14 +356,14 @@ __global__ void __launch_bounds__(kThreads, Tile<S>::kMinBlocks)
     fx[p] = phase_frac<S>(p % S);
     fy[p] = phase_frac<S>(p / S);
   }
-  float4 own[T::kPix][kPh];
 #pragma unroll
   for (int i = 0; i < T::kPix; ++i) {
     const int ry = ty + kWarps * i + 1;
     const int rx = tx + 1;
-    easu<T>(s_in, (ry + 1) * T::kInW + rx + 1, fx, fy, sharp, mix, own[i]);
+    float4 e[kPh];
+    easu<T, S, true>(s_in, (ry + 1) * T::kInW + rx + 1, fx, fy, sharp, mix, e);
 #pragma unroll
-    for (int p = 0; p < kPh; ++p) s_e[p * T::kRingPx + ry * T::kRingW + rx] = own[i][p];
+    for (int p = 0; p < kPh; ++p) s_e[p * T::kRingPx + ry * T::kRingW + rx] = e[p];
   }
 
   // 3. the ring: the S phases of each ring pixel that face the tile
@@ -309,7 +387,7 @@ __global__ void __launch_bounds__(kThreads, Tile<S>::kMinBlocks)
       rfy[q] = row ? f_fixed : phase_frac<S>(q);
     }
     float4 e[S];
-    easu<T>(s_in, (ry + 1) * T::kInW + rx + 1, rfx, rfy, sharp, mix, e);
+    easu<T, S, false>(s_in, (ry + 1) * T::kInW + rx + 1, rfx, rfy, sharp, mix, e);
 #pragma unroll
     for (int q = 0; q < S; ++q) {
       const int p = row ? fixed * S + q : q * S + fixed;
@@ -328,22 +406,24 @@ __global__ void __launch_bounds__(kThreads, Tile<S>::kMinBlocks)
     const int x = x0 + tx;
     if (y >= h || x >= w) continue;
     const float4* e = s_e + (ty + kWarps * i + 1) * T::kRingW + tx + 1;
+    // the EASU value at output (S*y + qy, S*x + qx), qy and qx in -1 .. S:
+    // a phase of this pixel or of a neighbour's
+    const auto at = [e](int qy, int qx) {
+      const int oy = qy < 0 ? -1 : (qy < S ? 0 : 1);
+      const int ox = qx < 0 ? -1 : (qx < S ? 0 : 1);
+      return e[((qy - oy * S) * S + qx - ox * S) * T::kRingPx + oy * T::kRingW + ox];
+    };
 #pragma unroll
     for (int py = 0; py < S; ++py) {
       unsigned v[S];
 #pragma unroll
       for (int px = 0; px < S; ++px) {
-        const int p = py * S + px;
-        const float4 cen = own[i][p];
-        float4 top = py > 0 ? own[i][py > 0 ? p - S : p]
-                            : e[((S - 1) * S + px) * T::kRingPx - T::kRingW];
-        float4 bot = py < S - 1 ? own[i][py < S - 1 ? p + S : p] : e[px * T::kRingPx + T::kRingW];
-        float4 lef = px > 0 ? own[i][px > 0 ? p - 1 : p] : e[(py * S + S - 1) * T::kRingPx - 1];
-        float4 rig = px < S - 1 ? own[i][px < S - 1 ? p + 1 : p] : e[py * S * T::kRingPx + 1];
-        if (py == 0 && y == 0) top = cen;
-        if (py == S - 1 && y == h - 1) bot = cen;
-        if (px == 0 && x == 0) lef = cen;
-        if (px == S - 1 && x == w - 1) rig = cen;
+        const float4 cen = at(py, px);
+        // at the output image's edge, the centre itself
+        const float4 top = py == 0 && y == 0 ? cen : at(py - 1, px);
+        const float4 bot = py == S - 1 && y == h - 1 ? cen : at(py + 1, px);
+        const float4 lef = px == 0 && x == 0 ? cen : at(py, px - 1);
+        const float4 rig = px == S - 1 && x == w - 1 ? cen : at(py, px + 1);
         v[px] = rcas(cen, top, bot, lef, rig, sharp);
       }
       store_row<S>(out + static_cast<size_t>(S * y + py) * ow + S * x, v);

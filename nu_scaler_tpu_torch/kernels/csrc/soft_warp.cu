@@ -23,29 +23,42 @@
 // Every fp32 operation is rounded on its own (__fadd_rn, __fmul_rn,
 // __fsub_rn: nvcc forms no FMA) and in the order of the plain PyTorch version
 // in soft_warp_cuda.py, so the two agree bit for bit up to the library's own
-// float behaviour. rintf rounds half to even, like jnp.round and torch.round.
+// float behaviour. The pack rounds half to even, like jnp.round and
+// torch.round.
 //
-// What bounds it on an H100 (3.35 TB/s, 67 TFLOP/s fp32, published peaks): at
-// 1080p the bytes that must move are a, b and out, 3 x 8.29 MB = 24.9 MB,
-// about 7.4 us. The operations depend on the data: per pixel 126 fp32
-// operations of cell and motion mixing, accumulation and packing, plus 42
-// per distinct corner candidate of each frame (two fractions, three lerps on
-// four channels): 210 (one candidate in every cell) to 462 (four) per pixel,
-// 0.44 to 0.96 GFLOP at 1080p, 6.5 to 14.3 us. Where motion varies little,
-// bytes bound the kernel; where neighbouring tiles differ, operations do.
-// chip_smoke.py phase 5 measures it at 0.056 ms on the bench pair (13% of
-// the bytes bound) and 0.080 ms on random motion (NVIDIA H100 80GB HBM3,
-// 700.00 W).
+// What bounds it on an H100 (3.35 TB/s; 67 TFLOP/s fp32 counting an FMA as
+// two operations, so 33.5 T instructions/s). At 1080p the bytes that must
+// move are a, b and out, 3 x 8.29 MB = 24.9 MB, about 7.4 us. The operations
+// depend on the data: per pixel 126 fp32 operations of cell and motion
+// mixing, accumulation and packing, plus 42 per distinct corner candidate of
+// each frame (two fractions, three lerps on four channels): 210 (one
+// candidate in every cell) to 462 (four) per pixel, 0.44 to 0.96 G at 1080p.
+// None of them may fuse, so each is one instruction: the floor is 13 to 29
+// us, above the bytes; issued instructions bound the kernel.
 //
-// Design (a first one, kept simple). One thread per output pixel; a block of
-// 64 x 4 pixels. A block copies the 2 x 2 x K candidates into shared memory
-// (the TPU kernel's scalar prefetch); each thread reads its four corners'
-// motion and assignment through the read-only cache (the tile arrays are a
-// few kB). Each tap is one 4-byte uchar4 load: a tile's offset is constant
-// across its pixels, so the 32 threads of a warp read neighbouring addresses
-// and the gathers coalesce through L1/L2. A corner whose candidate equals an
-// earlier corner's reuses that sample (the same value, so the sum is
-// unchanged). Not done yet: shared-memory slabs, cp.async, wider stores.
+// Design. A block of 32 x 8 threads owns one row of cells (blockIdx.y = cy:
+// Ty + 1 of them, the first and last half-height, so no division finds a
+// pixel's cell row) and 128 columns; a thread owns G = 4 adjacent pixels of
+// a row (th > 8: rows ty, ty + 8, ...).
+//  * Once per thread, before the block's one barrier: its group's cell
+//    column (the float reciprocal 1/tw and one exact correction step: no
+//    integer division), and for both frames the four corners' motion and
+//    candidate, loaded while the block loads the candidates.
+//  * Per candidate of a corner (a corner whose candidate is the previous
+//    corner's reuses its samples): the group's G + 1 columns of the two tap
+//    rows are loaded once as words and each byte converted once without I2F
+//    (its bits under 2^23's exponent, minus 2^23); each pixel's own lerp
+//    chain reads them. Every pixel keeps its own fp32 chain in the plain
+//    version's order; its sums start at +0, which leaves a first term >= +0
+//    exact.
+//  * The pack rounds without F2I: __fadd_rn(clip(v, 0, 255), 2^23) holds
+//    rint(v) in its low byte. Each row of a group is one 16-byte store.
+//  * A group whose pixels lie in two cells (a tile whose half-width G does
+//    not divide: (8, 12) puts a cell boundary at column 6) or that crosses
+//    the frame's right edge runs the same code one pixel at a time.
+// 128 registers a thread (2 blocks an SM): fewer spill and run slower.
+// Latency, not issue, holds it: the work per pixel that issues no load
+// takes about half the time (tools/fsr_soft_warp_probe.py).
 //
 // C interface: nu_soft_warp_blend launches on the caller's stream, allocates
 // nothing and returns cudaGetLastError() of the launch.
@@ -54,9 +67,12 @@
 
 namespace {
 
-constexpr int kBlockX = 64;
-constexpr int kBlockY = 4;
+constexpr int kGroup = 4;          // adjacent pixels a thread
+constexpr int kBlockX = 32;        // groups across: 128 columns
+constexpr int kBlockY = 8;         // rows of a cell, ty + 8i
+constexpr int kMinBlocks = 2;     // blocks an SM holds: 128 registers a thread
 constexpr int kMaxK = 8;
+constexpr float kTwo23 = 8388608.0f;
 
 __device__ __forceinline__ float clamp01(float v) { return fminf(fmaxf(v, 0.f), 1.f); }
 
@@ -64,119 +80,222 @@ __device__ __forceinline__ float lerp_rn(float a, float b, float f) {
   return __fadd_rn(a, __fmul_rn(f, __fsub_rn(b, a)));
 }
 
-__device__ __forceinline__ float4 lerp4(float4 a, float4 b, float f) {
-  return make_float4(lerp_rn(a.x, b.x, f), lerp_rn(a.y, b.y, f),
-                     lerp_rn(a.z, b.z, f), lerp_rn(a.w, b.w, f));
+// Byte k of p as a float, exactly: the byte under 2^23's exponent, minus 2^23.
+__device__ __forceinline__ float byte_to_float(unsigned p, int k) {
+  return __fsub_rn(__uint_as_float(__byte_perm(p, 0x4B000000u, 0x7540 + k)), kTwo23);
 }
 
-__device__ __forceinline__ float4 scale4(float s, float4 v) {
-  return make_float4(__fmul_rn(s, v.x), __fmul_rn(s, v.y), __fmul_rn(s, v.z), __fmul_rn(s, v.w));
+// A small non-negative integer as a float, exactly, without I2F.
+__device__ __forceinline__ float small_to_float(int v) {
+  return __fsub_rn(__uint_as_float(0x4B000000u | static_cast<unsigned>(v)), kTwo23);
 }
 
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {
-  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
-                     __fadd_rn(a.w, b.w));
+// rint(clip(v, 0, 255)) in the low byte: 2^23 + x rounded to nearest even.
+__device__ __forceinline__ unsigned pack_round(float v) {
+  return __float_as_uint(__fadd_rn(fminf(fmaxf(v, 0.f), 255.f), kTwo23));
 }
 
-__device__ __forceinline__ float4 load4(const uchar4* __restrict__ img, int idx) {
-  const uchar4 p = __ldg(img + idx);
-  return make_float4(static_cast<float>(p.x), static_cast<float>(p.y),
-                     static_cast<float>(p.z), static_cast<float>(p.w));
+// n / d for 0 <= n < 2^23: the reciprocal's quotient is off by at most one.
+__device__ __forceinline__ int div_small(int n, int d, float inv_d) {
+  int q = __float2int_rz(__fmul_rn(small_to_float(n), inv_d));
+  q += (q + 1) * d <= n;
+  q -= q * d > n;
+  return q;
 }
 
-__device__ __forceinline__ unsigned char pack_round(float v) {
-  return static_cast<unsigned char>(rintf(fminf(fmaxf(v, 0.f), 255.f)));
+// The samples of G pixels at row r, columns c0 .. c0 + G - 1, at candidate
+// offset (dy, dx) with fractions clip(sm - cand, 0, 1).
+template <int G>
+__device__ __forceinline__ void sample(const unsigned* __restrict__ img, int h, int w, int r,
+                                       int c0, int idy, int idx, float dy, float dx,
+                                       const float (&sm_y)[G], const float (&sm_x)[G],
+                                       float4 (&s)[G]) {
+  const unsigned* row0 = img + min(max(r + idy, 0), h - 1) * w;
+  const unsigned* row1 = img + min(max(r + idy + 1, 0), h - 1) * w;
+  unsigned t[G + 1], u[G + 1];
+#pragma unroll
+  for (int q = 0; q <= G; ++q) {
+    const int col = min(max(c0 + idx + q, 0), w - 1);
+    t[q] = __ldg(row0 + col);
+    u[q] = __ldg(row1 + col);
+  }
+  float fyk[G], fxk[G];
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    fyk[j] = clamp01(__fsub_rn(sm_y[j], dy));
+    fxk[j] = clamp01(__fsub_rn(sm_x[j], dx));
+  }
+#define NU_CHANNEL(ch, k)                                                              \
+  {                                                                                    \
+    float tf[G + 1], uf[G + 1];                                                        \
+    _Pragma("unroll") for (int q = 0; q <= G; ++q) {                                   \
+      tf[q] = byte_to_float(t[q], k);                                                  \
+      uf[q] = byte_to_float(u[q], k);                                                  \
+    }                                                                                  \
+    _Pragma("unroll") for (int j = 0; j < G; ++j) {                                    \
+      const float top = lerp_rn(tf[j], tf[j + 1], fxk[j]);                             \
+      const float bot = lerp_rn(uf[j], uf[j + 1], fxk[j]);                             \
+      s[j].ch = lerp_rn(top, bot, fyk[j]);                                             \
+    }                                                                                  \
+  }
+  NU_CHANNEL(x, 0)
+  NU_CHANNEL(y, 1)
+  NU_CHANNEL(z, 2)
+  NU_CHANNEL(w, 3)
+#undef NU_CHANNEL
 }
 
-// Bilinear sample of img at (r + dy, c + dx) with the +1 neighbours clamped
-// to the frame, fractions clip(sm - d, 0, 1).
-__device__ __forceinline__ float4 sample(const uchar4* __restrict__ img, int h, int w,
-                                         int r, int c, int dy, int dx, float sm_y, float sm_x) {
-  const float fyk = clamp01(__fsub_rn(sm_y, static_cast<float>(dy)));
-  const float fxk = clamp01(__fsub_rn(sm_x, static_cast<float>(dx)));
-  const int r0 = min(max(r + dy, 0), h - 1) * w;
-  const int r1 = min(max(r + dy + 1, 0), h - 1) * w;
-  const int c0 = min(max(c + dx, 0), w - 1);
-  const int c1 = min(max(c + dx + 1, 0), w - 1);
-  const float4 top = lerp4(load4(img, r0 + c0), load4(img, r0 + c1), fxk);
-  const float4 bot = lerp4(load4(img, r1 + c0), load4(img, r1 + c1), fxk);
-  return lerp4(top, bot, fyk);
-}
+// The four corner tiles of cell (cy, cx), rows cy-1 | cy and columns
+// cx-1 | cx clamped to the tile grid, in both frames: motion (x, y) and
+// candidate.
+struct Corners {
+  float2 m[2][4];
+  int kk[2][4];
+};
 
-__global__ void __launch_bounds__(kBlockX * kBlockY) soft_warp_kernel(
-    const uchar4* __restrict__ a, const uchar4* __restrict__ b, int h, int w,
-    const float2* __restrict__ tiles, const int* __restrict__ assign,
-    const int* __restrict__ cand, int k, int th, int tw, float inv_th, float inv_tw,
-    float w_a, float w_b, uchar4* __restrict__ out) {
-  // cand layout [frame][y | x][k]
-  __shared__ int s_cand[2 * 2 * kMaxK];
-  const int tid = threadIdx.y * kBlockX + threadIdx.x;
-  if (tid < 4 * k) s_cand[tid] = cand[tid];
-  __syncthreads();
-
-  const int c = blockIdx.x * kBlockX + threadIdx.x;
-  const int r = blockIdx.y * kBlockY + threadIdx.y;
-  if (r >= h || c >= w) return;
-
-  const int ty = h / th;
-  const int tx = w / tw;
-  const int cy = (r + th / 2) / th;
-  const int lr = r + th / 2 - cy * th;
-  const int cx = (c + tw / 2) / tw;
-  const int lc = c + tw / 2 - cx * tw;
+__device__ __forceinline__ Corners load_corners(const float2* __restrict__ tiles,
+                                                const int* __restrict__ assign, int ty, int tx,
+                                                int cy, int cx) {
   const int y0 = min(max(cy - 1, 0), ty - 1) * tx;
   const int y1 = min(max(cy, 0), ty - 1) * tx;
   const int x0 = min(max(cx - 1, 0), tx - 1);
   const int x1 = min(max(cx, 0), tx - 1);
   const int corner[4] = {y0 + x0, y0 + x1, y1 + x0, y1 + x1};
-
-  const float fy = __fmul_rn(__fadd_rn(static_cast<float>(lr), 0.5f), inv_th);
-  const float fx = __fmul_rn(__fadd_rn(static_cast<float>(lc), 0.5f), inv_tw);
-  const float gy = __fsub_rn(1.f, fy);
-  const float gx = __fsub_rn(1.f, fx);
-  const float bw[4] = {__fmul_rn(gy, gx), __fmul_rn(gy, fx), __fmul_rn(fy, gx), __fmul_rn(fy, fx)};
-
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  Corners c;
 #pragma unroll
   for (int f = 0; f < 2; ++f) {
-    const uchar4* img = f ? b : a;
-    const float2* tl = tiles + f * ty * tx;
-    const int* asg = assign + f * ty * tx;
-    const int* cand_y = s_cand + f * 2 * k;
-    const int* cand_x = cand_y + k;
-
-    float2 m[4];
-    int kk[4];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      m[i] = __ldg(tl + corner[i]);
-      kk[i] = __ldg(asg + corner[i]);
+      c.m[f][i] = __ldg(tiles + f * ty * tx + corner[i]);
+      c.kk[f][i] = __ldg(assign + f * ty * tx + corner[i]);
     }
-    const float sm_y = __fadd_rn(
-        __fmul_rn(gy, __fadd_rn(__fmul_rn(gx, m[0].y), __fmul_rn(fx, m[1].y))),
-        __fmul_rn(fy, __fadd_rn(__fmul_rn(gx, m[2].y), __fmul_rn(fx, m[3].y))));
-    const float sm_x = __fadd_rn(
-        __fmul_rn(gy, __fadd_rn(__fmul_rn(gx, m[0].x), __fmul_rn(fx, m[1].x))),
-        __fmul_rn(fy, __fadd_rn(__fmul_rn(gx, m[2].x), __fmul_rn(fx, m[3].x))));
-
-    // one sample per distinct candidate among the four corners
-#define NU_SAMPLE(i) sample(img, h, w, r, c, cand_y[kk[i]], cand_x[kk[i]], sm_y, sm_x)
-    const float4 s0 = NU_SAMPLE(0);
-    const float4 s1 = kk[1] == kk[0] ? s0 : NU_SAMPLE(1);
-    const float4 s2 = kk[2] == kk[0] ? s0 : kk[2] == kk[1] ? s1 : NU_SAMPLE(2);
-    const float4 s3 = kk[3] == kk[0]   ? s0
-                      : kk[3] == kk[1] ? s1
-                      : kk[3] == kk[2] ? s2
-                                       : NU_SAMPLE(3);
-#undef NU_SAMPLE
-    float4 v = scale4(bw[0], s0);
-    v = add4(v, scale4(bw[1], s1));
-    v = add4(v, scale4(bw[2], s2));
-    v = add4(v, scale4(bw[3], s3));
-    acc = f == 0 ? scale4(w_a, v) : add4(acc, scale4(w_b, v));
   }
-  out[static_cast<size_t>(r) * w + c] =
-      make_uchar4(pack_round(acc.x), pack_round(acc.y), pack_round(acc.z), pack_round(acc.w));
+  return c;
+}
+
+// The G pixels at columns c0 .. c0 + G - 1 of cell (cy, cx), local column
+// lc0 of the first, in the rows of the cell that this thread owns.
+template <int G>
+__device__ __forceinline__ void run_group(const uchar4* __restrict__ a,
+                                          const uchar4* __restrict__ b, int h, int w,
+                                          const Corners& cn, const int* s_cand,
+                                          const float* s_candf, int k, int th, int cy, int lc0,
+                                          int c0, float inv_th, float inv_tw, float w_a,
+                                          float w_b, uchar4* out) {
+  float fx[G], gx[G];
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    fx[j] = __fmul_rn(__fadd_rn(small_to_float(lc0 + j), 0.5f), inv_tw);
+    gx[j] = __fsub_rn(1.f, fx[j]);
+  }
+  for (int lr = threadIdx.y; lr < th; lr += kBlockY) {
+    const int r = cy * th - th / 2 + lr;
+    if (r < 0 || r >= h) continue;
+    const float fy = __fmul_rn(__fadd_rn(small_to_float(lr), 0.5f), inv_th);
+    const float gy = __fsub_rn(1.f, fy);
+    // sums start at +0: adding a first term x >= +0 to +0 gives x exactly
+    float4 acc[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) acc[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int f = 0; f < 2; ++f) {
+      const unsigned* img = reinterpret_cast<const unsigned*>(f ? b : a);
+      const float weight = f ? w_b : w_a;
+      const int* cand = s_cand + f * 2 * k;  // y, then x
+      const float* candf = s_candf + f * 2 * k;
+      const float2* m = cn.m[f];
+      const int* kk = cn.kk[f];
+      float sm_y[G], sm_x[G];
+      float4 v[G], s[G];
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        sm_y[j] = __fadd_rn(
+            __fmul_rn(gy, __fadd_rn(__fmul_rn(gx[j], m[0].y), __fmul_rn(fx[j], m[1].y))),
+            __fmul_rn(fy, __fadd_rn(__fmul_rn(gx[j], m[2].y), __fmul_rn(fx[j], m[3].y))));
+        sm_x[j] = __fadd_rn(
+            __fmul_rn(gy, __fadd_rn(__fmul_rn(gx[j], m[0].x), __fmul_rn(fx[j], m[1].x))),
+            __fmul_rn(fy, __fadd_rn(__fmul_rn(gx[j], m[2].x), __fmul_rn(fx[j], m[3].x))));
+        v[j] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        // a corner whose candidate is the previous corner's has its samples
+        if (i == 0 || kk[i] != kk[i - 1]) {
+          sample<G>(img, h, w, r, c0, cand[kk[i]], cand[k + kk[i]], candf[kk[i]],
+                    candf[k + kk[i]], sm_y, sm_x, s);
+        }
+        const float wy_i = i < 2 ? gy : fy;
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          const float bw = __fmul_rn(wy_i, (i & 1) ? fx[j] : gx[j]);
+          v[j] = make_float4(__fadd_rn(v[j].x, __fmul_rn(bw, s[j].x)),
+                             __fadd_rn(v[j].y, __fmul_rn(bw, s[j].y)),
+                             __fadd_rn(v[j].z, __fmul_rn(bw, s[j].z)),
+                             __fadd_rn(v[j].w, __fmul_rn(bw, s[j].w)));
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        acc[j] = make_float4(__fadd_rn(acc[j].x, __fmul_rn(weight, v[j].x)),
+                             __fadd_rn(acc[j].y, __fmul_rn(weight, v[j].y)),
+                             __fadd_rn(acc[j].z, __fmul_rn(weight, v[j].z)),
+                             __fadd_rn(acc[j].w, __fmul_rn(weight, v[j].w)));
+      }
+    }
+    unsigned px[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) {
+      const unsigned rg = __byte_perm(pack_round(acc[j].x), pack_round(acc[j].y), 0x0040);
+      const unsigned ba = __byte_perm(pack_round(acc[j].z), pack_round(acc[j].w), 0x0040);
+      px[j] = __byte_perm(rg, ba, 0x5410);
+    }
+    unsigned* o = reinterpret_cast<unsigned*>(out) + static_cast<size_t>(r) * w + c0;
+    if constexpr (G == 4) {
+      if ((w & 3) == 0) {
+        *reinterpret_cast<uint4*>(o) = make_uint4(px[0], px[1], px[2], px[3]);
+        continue;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < G; ++j) o[j] = px[j];
+  }
+}
+
+__global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocks) soft_warp_kernel(
+    const uchar4* __restrict__ a, const uchar4* __restrict__ b, int h, int w,
+    const float2* __restrict__ tiles, const int* __restrict__ assign,
+    const int* __restrict__ cand, int k, int th, int tw, int ty, int tx, float inv_th,
+    float inv_tw, float w_a, float w_b, uchar4* __restrict__ out) {
+  const int c0 = (blockIdx.x * kBlockX + threadIdx.x) * kGroup;
+  const int cy = blockIdx.y;
+  const int cx = div_small(c0 + tw / 2, tw, inv_tw);
+  const int lc0 = c0 + tw / 2 - cx * tw;
+  const bool whole = lc0 + kGroup <= tw && c0 + kGroup <= w;
+  // the corners' loads are in flight with the candidates'
+  Corners cn;
+  if (whole) cn = load_corners(tiles, assign, ty, tx, cy, cx);
+
+  // cand layout [frame][y | x][k], as ints and as floats
+  __shared__ int s_cand[2 * 2 * kMaxK];
+  __shared__ float s_candf[2 * 2 * kMaxK];
+  const int tid = threadIdx.y * kBlockX + threadIdx.x;
+  if (tid < 4 * k) {
+    s_cand[tid] = cand[tid];
+    s_candf[tid] = static_cast<float>(cand[tid]);
+  }
+  __syncthreads();
+
+  if (whole) {
+    run_group<kGroup>(a, b, h, w, cn, s_cand, s_candf, k, th, cy, lc0, c0, inv_th, inv_tw, w_a,
+                      w_b, out);
+    return;
+  }
+  // the group lies in two cells or crosses the frame's edge: pixel by pixel
+  for (int j = 0; j < kGroup && c0 + j < w; ++j) {
+    const int cxj = div_small(c0 + j + tw / 2, tw, inv_tw);
+    run_group<1>(a, b, h, w, load_corners(tiles, assign, ty, tx, cy, cxj), s_cand, s_candf, k,
+                 th, cy, c0 + j + tw / 2 - cxj * tw, c0 + j, inv_th, inv_tw, w_a, w_b, out);
+  }
 }
 
 }  // namespace
@@ -188,17 +307,23 @@ int nu_soft_warp_blend(int device, const void* a, const void* b, int h, int w,
                        const void* tiles, const void* assign, const void* cand, int k,
                        int th, int tw, float inv_th, float inv_tw, float w_a, float w_b,
                        void* out, void* stream) {
-  if (k < 1 || k > kMaxK || th < 1 || tw < 1 || h % th != 0 || w % tw != 0) {
+  // soft_warp_cuda.MAX_WIDTH and MAX_CELL_ROWS: div_small needs c + tw/2 <
+  // 2^23, and the grid has at most one block row per cell row
+  if (k < 1 || k > kMaxK || th < 1 || tw < 1 || h % th != 0 || w % tw != 0 ||
+      w >= (1 << 22) || h / th + 1 > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
+  // one block row per cell row (Ty + 1 of them, the first and last
+  // half-height) and 128 columns
+  const int ty = h / th;
   const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((w + kBlockX - 1) / kBlockX, (h + kBlockY - 1) / kBlockY);
+  const dim3 grid((w + kBlockX * kGroup - 1) / (kBlockX * kGroup), ty + 1);
   soft_warp_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uchar4*>(a), static_cast<const uchar4*>(b), h, w,
       static_cast<const float2*>(tiles), static_cast<const int*>(assign),
-      static_cast<const int*>(cand), k, th, tw, inv_th, inv_tw, w_a, w_b,
+      static_cast<const int*>(cand), k, th, tw, ty, w / tw, inv_th, inv_tw, w_a, w_b,
       static_cast<uchar4*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,6 +35,11 @@ import torch
 launches = {"soft_warp_blend": 0}
 
 MAX_K = 8
+# The kernel finds a group's cell column as (c + tw/2) / tw from the f32
+# reciprocal of tw with one correction step each way, exact below 2^23; and
+# it runs one block row per cell row, at most 65535 of them.
+MAX_WIDTH = 1 << 22
+MAX_CELL_ROWS = 65535
 
 
 def reset_launches() -> None:
@@ -186,11 +191,20 @@ def check_inputs(a, b, tiles, tile: tuple, k: int) -> None:
         raise ValueError(f"shape ({h}, {w}) must tile by {tuple(tile)}")
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k must be in 1..{MAX_K}, got {k}")
+    if w >= MAX_WIDTH or h // th + 1 > MAX_CELL_ROWS:
+        raise ValueError(f"shape ({h}, {w}) with tile {tuple(tile)}: the kernel takes widths below "
+                         f"{MAX_WIDTH} and at most {MAX_CELL_ROWS - 1} tile rows")
     want = (h // th, w // tw, 2)
     if not isinstance(tiles, torch.Tensor) or tiles.dtype != torch.float32:
         raise TypeError("tiles: expected a float32 torch.Tensor")
     if tuple(tiles.shape) != want or tiles.device != a.device:
         raise ValueError(f"tiles: expected {want} on {a.device}, got {tuple(tiles.shape)} on {tiles.device}")
+
+
+def reciprocal(n: int) -> float:
+    """f32(1/n): the fractions' scale, and the kernel's divisor for cell
+    columns."""
+    return float(np.float32(1.0 / n))
 
 
 def pack_inputs(frames) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -220,7 +234,7 @@ def _launch(a: torch.Tensor, b: torch.Tensor, frames, packed, tile: tuple, k: in
     err = lib.nu_soft_warp_blend(
         a.device.index or 0, a.data_ptr(), b.data_ptr(), h, w,
         tiles.data_ptr(), assign.data_ptr(), cand.data_ptr(), k,
-        th, tw, float(np.float32(1.0 / th)), float(np.float32(1.0 / tw)),
+        th, tw, reciprocal(th), reciprocal(tw),
         frames[0].weight, frames[1].weight, out.data_ptr(), stream,
     )
     if err != 0:

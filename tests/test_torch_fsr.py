@@ -78,6 +78,36 @@ def test_constants_and_goldens_equal_jax(rng):
         np.testing.assert_array_equal(pref.rcas_ref(e, sharp), jref.rcas_ref(e, sharp))
 
 
+def _cubic_branches(tx, ty, px, py, s):
+    """The rule of csrc/fsr.cu cubic_branches: the FsrCubic branches (1 near,
+    2 far, 4 zero) that tap (tx, ty) can take at phase (px, py) of scale s."""
+    a, b = tx - (px + 0.5) / s, ty - (py + 0.5) / s
+    hi = max(abs(a), abs(b)) + 1e-3
+    lo = (min(abs(a), abs(b)) if a * b >= 0 else 0.0) - 1e-3
+    return (lo <= 1) * 1 | (hi > 1 and lo <= 2) * 2 | (hi > 2) * 4
+
+
+@pytest.mark.parametrize("s", [1, 2, 3, 4])
+def test_cubic_branches_hold_for_every_direction(s):
+    """The kernel evaluates, per tap and phase, only the FsrCubic branches its
+    rule allows, and skips a tap whose weight is always 0. Every direction
+    the plain version can form (wx in [0, 1], wy = 1 − wx, in f32) lands in
+    an allowed branch: a dense sweep, both ends and their neighbours."""
+    sweep = np.linspace(0.0, 1.0, 400_001, dtype=np.float32)
+    ends = np.array([0.0, 1e-30, 1e-7, 1.0 - 6e-8, 1.0], np.float32)
+    wx = torch.from_numpy(np.concatenate([sweep, ends]))
+    wy = 1.0 - wx
+    for py in range(s):
+        for px in range(s):
+            offs = float(np.float32((px + 0.5) / s)) * wx + float(np.float32((py + 0.5) / s)) * wy
+            for ty in range(4):
+                for tx in range(4):
+                    d = (float(tx) * wx + float(ty) * wy - offs).abs()
+                    taken = torch.where(d <= 1.0, 1, torch.where(d <= 2.0, 2, 4))
+                    allowed = _cubic_branches(tx, ty, px, py, s)
+                    assert not bool(((taken & allowed) == 0).any()), (s, tx, ty, px, py)
+
+
 def test_xla_cpu_contracts_multiply_adds(rng):
     """Why the port is not bit-exact with the jitted JAX side: XLA's CPU
     compile of a·b + c rounds once (an FMA); the port rounds twice."""
@@ -93,8 +123,9 @@ def test_xla_cpu_contracts_multiply_adds(rng):
 @pytest.mark.parametrize(
     "s, h, w, sharp",
     [(2, 40, 48, "quality"), (3, 24, 32, "ultra"), (4, 16, 24, "performance"),
-     (2, 37, 53, "balanced"), (3, 24, 32, 0.0)],
-    ids=["2x-quality", "3x-ultra", "4x-performance", "2x-odd-balanced", "3x-sharp0"],
+     (2, 37, 53, "balanced"), (3, 24, 32, 0.0), (1, 24, 40, "ultra"), (3, 19, 37, "quality")],
+    ids=["2x-quality", "3x-ultra", "4x-performance", "2x-odd-balanced", "3x-sharp0", "1x-ultra",
+         "3x-odd-quality"],
 )
 def test_plain_matches_pallas(rng, s, h, w, sharp):
     img = _frame(rng, h, w)

@@ -217,6 +217,40 @@ def test_wrapper_validates_inputs(kwargs, match):
         swc.soft_warp_blend(a, b, tiles, 0.5, (8, 32), rng=RNG, k=kwargs.get("k", 4))
 
 
+@pytest.mark.parametrize("tw", [12, 32, 64, 128], ids=["edge12", "tw32", "tw64", "tw128"])
+def test_cell_column_from_the_reciprocal(tw):
+    """The kernel's cell column (c + tw/2) / tw: trunc(f32(n) · reciprocal(tw))
+    in f32 is off by at most one below 2^23, so one correction step each way
+    (csrc/soft_warp.cu div_small) gives n // tw; checked for every n the
+    kernel can meet (every column of every width it takes, and the width)."""
+    inv = swc.reciprocal(tw)
+    assert inv == float(np.float32(1.0 / tw))
+    n = np.arange(swc.MAX_WIDTH + tw, dtype=np.int64)
+    q = np.trunc(n.astype(np.float32) * np.float32(inv)).astype(np.int64)
+    assert np.abs(q - n // tw).max() <= 1
+    q = q + ((q + 1) * tw <= n)
+    q = q - (q * tw > n)
+    np.testing.assert_array_equal(q, n // tw)
+
+
+@pytest.mark.parametrize(
+    "shape, tile",
+    [((8, swc.MAX_WIDTH), (8, 128)), ((swc.MAX_CELL_ROWS * 8, 256), (8, 128))],
+    ids=["width", "tile-rows"],
+)
+def test_wrapper_refuses_what_the_kernel_cannot_index(shape, tile):
+    """Widths from 2^22 and grids of 65535 tile rows: the kernel's limits."""
+    h, w = shape
+    a = torch.empty((h, w, 4), dtype=torch.uint8, device="meta")
+    tiles = torch.empty((h // tile[0], w // tile[1], 2), dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="the kernel takes widths below"):
+        swc.check_inputs(a, a, tiles, tile, 4)
+    smaller = (h, w - tile[1]) if w >= swc.MAX_WIDTH else (h - tile[0], w)
+    a = torch.empty((*smaller, 4), dtype=torch.uint8, device="meta")
+    tiles = torch.empty((smaller[0] // tile[0], smaller[1] // tile[1], 2), dtype=torch.float32, device="meta")
+    swc.check_inputs(a, a, tiles, tile, 4)
+
+
 def test_cpu_path_never_builds_or_counts(monkeypatch):
     """CPU tensors run the plain version: no build, no launch counted; the
     launcher refuses CPU tensors before it builds anything."""

@@ -57,11 +57,11 @@ _RARE = "0xff030201u"
 # replaced by a copy of the centre pixel into every phase
 _FSR_NO_RCAS = [("    if (y >= h || x >= w) continue;", "    if (y >= h || x >= w || h > 0) continue;")]
 _FSR_NO_EASU = [
-    ("    easu<T>(s_in, (ry + 1) * T::kInW + rx + 1, fx, fy, sharp, mix, own[i]);",
+    ("    easu<T, S, true>(s_in, (ry + 1) * T::kInW + rx + 1, fx, fy, sharp, mix, e);",
      "    { const int c_ = (ry + 1) * T::kInW + rx + 1;\n"
-     "      for (int p = 0; p < kPh; ++p) own[i][p] = make_float4(s_in[c_], s_in[T::kPlane + c_], "
+     "      for (int p = 0; p < kPh; ++p) e[p] = make_float4(s_in[c_], s_in[T::kPlane + c_], "
      "s_in[2 * T::kPlane + c_], fx[p]); }"),
-    ("    easu<T>(s_in, (ry + 1) * T::kInW + rx + 1, rfx, rfy, sharp, mix, e);",
+    ("    easu<T, S, false>(s_in, (ry + 1) * T::kInW + rx + 1, rfx, rfy, sharp, mix, e);",
      "    { const int c_ = (ry + 1) * T::kInW + rx + 1;\n"
      "      for (int q = 0; q < S; ++q) e[q] = make_float4(s_in[c_], s_in[T::kPlane + c_], "
      "s_in[2 * T::kPlane + c_], rfx[q]); }"),
@@ -98,6 +98,10 @@ VARIANTS = {
               "  return __fadd_rn(a, b);")],
         )),
         ("no stores", (
+            [("    unsigned* o = reinterpret_cast<unsigned*>(out) + static_cast<size_t>(r) * w + c0;\n",
+              "    unsigned* o = reinterpret_cast<unsigned*>(out) + static_cast<size_t>(r) * w + c0;\n"
+              "    unsigned x_ = 0;\n    for (int j = 0; j < G; ++j) x_ = x_ * 33u + px[j];\n"
+              f"    if (x_ != {_RARE}) continue;\n")],
             [("  out[static_cast<size_t>(r) * w + c] =\n"
               "      make_uchar4(pack_round(acc.x), pack_round(acc.y), pack_round(acc.z), pack_round(acc.w));",
               "  const uchar4 v_ =\n"
