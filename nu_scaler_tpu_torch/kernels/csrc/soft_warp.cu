@@ -57,8 +57,8 @@
 //    not divide: (8, 12) puts a cell boundary at column 6) or that crosses
 //    the frame's right edge runs the same code one pixel at a time.
 // 128 registers a thread (2 blocks an SM): fewer spill and run slower.
-// Latency, not issue, holds it: the work per pixel that issues no load
-// takes about half the time (tools/fsr_soft_warp_probe.py).
+// Latency, not issue, holds it near 28% of its instruction floor: each
+// block waits on its corners, candidates and taps in turn (PERF.md §6).
 //
 // C interface: nu_soft_warp_blend launches on the caller's stream, allocates
 // nothing and returns cudaGetLastError() of the launch.
@@ -70,7 +70,7 @@ namespace {
 constexpr int kGroup = 4;          // adjacent pixels a thread
 constexpr int kBlockX = 32;        // groups across: 128 columns
 constexpr int kBlockY = 8;         // rows of a cell, ty + 8i
-constexpr int kMinBlocks = 2;     // blocks an SM holds: 128 registers a thread
+constexpr int kMinBlocks = 2;      // blocks an SM holds: 128 registers a thread
 constexpr int kMaxK = 8;
 constexpr float kTwo23 = 8388608.0f;
 
@@ -308,7 +308,7 @@ int nu_soft_warp_blend(int device, const void* a, const void* b, int h, int w,
                        int th, int tw, float inv_th, float inv_tw, float w_a, float w_b,
                        void* out, void* stream) {
   // soft_warp_cuda.MAX_WIDTH and MAX_CELL_ROWS: div_small needs c + tw/2 <
-  // 2^23, and the grid has at most one block row per cell row
+  // 2^23, and the grid has one block row per cell row
   if (k < 1 || k > kMaxK || th < 1 || tw < 1 || h % th != 0 || w % tw != 0 ||
       w >= (1 << 22) || h / th + 1 > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -66,7 +66,8 @@ _FSR_NO_EASU = [
      "      for (int q = 0; q < S; ++q) e[q] = make_float4(s_in[c_], s_in[T::kPlane + c_], "
      "s_in[2 * T::kPlane + c_], rfx[q]); }"),
 ]
-# fsr.cu of PRs 6-11: its RCAS loop and its EASU loop run no iteration
+# fsr.cu as first ported (a thread per output pixel in RCAS, a loop over the
+# ringed pixels in EASU): its RCAS loop and its EASU loop run no iteration
 _FSR1_NO_RCAS = [("for (int i = tid; i < kOut * kOut; i += kThreads) {",
                   "for (int i = tid; i < 0; i += kThreads) {")]
 _FSR1_NO_EASU = [("for (int i = tid; i < kRingPx; i += kThreads) {",
