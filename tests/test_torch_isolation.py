@@ -175,8 +175,9 @@ def test_kernel_source_is_plain_c():
     wrapper call; every fp32 rounding written out, and each packing as its
     golden packs: the resample truncates and its blend rounds (by adding 2^23
     toward zero and to nearest; the two-pass resample sums with the fused
-    kernel's fmaf and truncates), the soft warp
-    rounds, FSR truncates, the conv and the fused trunk round to bf16 to
+    kernel's fmaf and truncates), the soft warp rounds (adding 2^23 to
+    nearest), FSR truncates (adding 2^23 toward zero), the conv and the
+    fused trunk round to bf16 to
     nearest (their products and sums are the tensor cores' own, fp32
     accumulation; the trunk's skip additions are written out). The conv runs
     on warpgroup MMAs fed by cp.async, with no WMMA left in it."""
@@ -186,8 +187,8 @@ def test_kernel_source_is_plain_c():
     written_out = ("__fmul_rn", "__fadd_rn")
     packing = {
         "resample_fused": (*written_out, "__fadd_rz", "fmaf", "cp.async"),
-        "soft_warp": (*written_out, "rintf"),
-        "fsr": (*written_out, "truncf"),
+        "soft_warp": (*written_out, "8388608.0f"),
+        "fsr": (*written_out, "__fadd_rz", "8388608.0f"),
         "conv3x3": ("__fadd_rn", "__float2bfloat16_rn", "wgmma.mma_async", "cp.async"),
         "resample_twopass": ("fmaf", "truncf"),
         "trunk_fused": (*written_out, "__float2bfloat16_rn", "wmma::mma_sync"),
