@@ -1425,7 +1425,7 @@ def main() -> int:
             "k8": (on_dev["a"], on_dev["b"], tiles, interp.WARP_K),
             "noise": (on_dev["n1"], on_dev["n2"], soft_cases[1][4], interp.SOFT_WARP_K),
         }
-        soft_ms = {}
+        soft_ms, soft_floor = {}, {}
         soft_regs = ptxas_registers(_build.BUILD_LOGS.get("soft_warp", ""), r"soft_warp_kernel\w*")
         soft_regs = next(iter(soft_regs.values()), "not in this build log")
         for name, (fa, fb, tl, k_soft) in soft_timed.items():
@@ -1448,6 +1448,7 @@ def main() -> int:
                 f"{ops / f32_rate * 1e3:.4f} ms, instruction floor {ops / (f32_rate / 2) * 1e3:.4f} ms; "
                 f"bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}% of it; ptxas {soft_regs})")
             soft_ms[name] = (ms, plain_ms, b_ms, b_by)
+            soft_floor[name] = ops / (f32_rate / 2) * 1e3
         (ms, plain_ms, b_ms, b_by), noise = soft_ms["main"], soft_ms["noise"]
         rows.append({
             "name": "soft_warp_blend", "route": "cuda", "source": SOFT_SOURCE,
@@ -1463,6 +1464,9 @@ def main() -> int:
             "inputs": "bench pair and its flow tiles, K=4, t=0.5, tile (8,128)",
             "ms_random_motion": noise[0], "plain_ms_random_motion": noise[1],
             "bound_ms_random_motion": noise[2], "bound_by_random_motion": noise[3],
+            # the operations at one instruction each (no FMA forms)
+            "instruction_floor_ms": soft_floor["main"],
+            "instruction_floor_ms_random_motion": soft_floor["noise"],
         })
 
         # the FSR kernel at the main path's inputs: the bench frame, quality
@@ -1474,7 +1478,7 @@ def main() -> int:
             "720p": (fc.fsr, on_dev["720p"], 3),
             "batch4": (fc.fsr_batched, fsr_batch_in, 2),
         }
-        fsr_ms = {}
+        fsr_ms, fsr_floor = {}, {}
         fsr_regs = {int(k[-2]): r for k, r in ptxas_registers(
             _build.BUILD_LOGS.get("fsr", ""), r"fsr_kernelILi\dE").items()}
         say(f"ptxas fsr_kernel<S>: {json.dumps(fsr_regs) if fsr_regs else 'not in this build log'}")
@@ -1489,6 +1493,7 @@ def main() -> int:
                 f"{ops / (f32_rate / 2) * 1e3:.4f} ms; bound {b_ms:.4f} ms by {b_by}, "
                 f"{100 * b_ms / ms:.1f}% of it; ptxas fsr_kernel<{s_}> {fsr_regs.get(s_, 'not in this build log')})")
             fsr_ms[name] = (ms, plain_ms, b_ms, b_by)
+            fsr_floor[name] = ops / (f32_rate / 2) * 1e3
         for row, key, inputs in (("fsr", "1080p", "bench frame 1080p→4K, quality"),
                                  ("fsr_batched", "batch4", "a, b, n1, n2 at 1080p→4K, quality")):
             ms, plain_ms, b_ms, b_by = fsr_ms[key]
@@ -1498,9 +1503,11 @@ def main() -> int:
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 # no single PyTorch call computes EASU + RCAS
                 "library_ms": None, "inputs": inputs, "ptxas_by_scale": fsr_regs,
+                "instruction_floor_ms": fsr_floor[key],
             })
         ms, plain_ms, b_ms, b_by = fsr_ms["720p"]
         rows[-2].update({"ms_720p": ms, "plain_ms_720p": plain_ms, "bound_ms_720p": b_ms,
+                         "instruction_floor_ms_720p": fsr_floor["720p"],
                          "bound_by_720p": b_by})
 
         # the conv at each shape of the learned path, with the committed
