@@ -28,12 +28,12 @@ Phases, each printed on its own line with its seconds:
    round_sum, Cout 128, 256 and 1024, Cin 128 and 256 (two halo chunks),
    N = 1 and 4, at the learned tier's trunk grids (270×480, 135×240), a
    ragged 27×40 and a 17×33 that no tile divides, on seeded weights and on
-   the committed tpu4b2 / tpu4 weights; the fused trunk (within
-   trunk_cuda.ulp_tolerance, bf16 ulps of the output, with the share of
-   values bit-equal to the plain version and to the chain of conv3x3
-   launches) at ×2 (1×270×480, 2 blocks, Cout 256), ×4 (1×135×240, 3 blocks,
-   Cout 1024), N = 4 at ×2 and a ragged 27×40, both roundings, on seeded
-   weights and on the committed weights fed the s2d of frames; the two-call
+   the committed tpu4b2 / tpu4 weights; the fused trunk (0 values differing
+   from the chain of conv3x3 launches, and within trunk_cuda.ulp_tolerance,
+   bf16 ulps of the output, of the plain version, with the share of values
+   bit-equal to it) at ×2 (1×270×480, 2 blocks, Cout 256), ×4 (1×135×240, 3
+   blocks, Cout 1024), N = 4 at ×2 and a ragged 27×40, both roundings, on
+   seeded weights and on the committed weights fed the s2d of frames; the two-call
    resample at 1080p→4K (lanczos3, bilinear, nearest, a batch of 4): bit-equal
    to resample_fused or ≤ 1 LSB of the plain version (nearest bit-exact);
 4. the main path through the entry points a user calls: PyWgpuUpscaler
@@ -72,8 +72,8 @@ Phases, each printed on its own line with its seconds:
    calls. Then the same tier with trunk_impl="fused" (make_pretrained_upscaler
    and make_pretrained_batch_upscaler at x2 and x4), its counts read on their
    own: one trunk_fused launch and no conv3x3 launch per call; its bytes
-   against the layered path's (≥ 50 dB RGB, alpha equal) and the twin (≥ 42 /
-   40 dB). On the host clock the upscale(bytes) latency and the upscale_arr
+   equal to the layered path's (and ≥ 50 dB RGB, alpha equal) and against
+   the twin (≥ 42 / 40 dB). On the host clock the upscale(bytes) latency and the upscale_arr
    device frames per second of both trunk_impls;
 4e. the two-call resample (make_twopass_resampler, the counterpart of the
    JAX package's make_pallas_resampler) at 1080p→4K lanczos3, a frame and a
@@ -93,8 +93,10 @@ Phases, each printed on its own line with its seconds:
    weight stages; each the default's bytes) with % of bound, TFLOP/s and
    ptxas' registers and spill stores from the build log; the fused trunk at ×2,
    ×4 and N = 4 against the same chain as conv3x3 launches and as F.conv2d
-   calls (no single PyTorch call computes it), and at ×2 and ×4 with other
-   tiles than its planner's (the same bytes); the two-call resample, both
+   calls (no single PyTorch call computes it), its weights' repack alone and
+   its barrier count, and at ×2 and ×4 in its four variants (16×16 or 8×32
+   tiles, 3 or 4 weight stages; each the default's bytes) with ptxas'
+   registers and spill stores; the two-call resample, both
    launches and each alone, against resample_fused;
 6. torch.profiler traces of 7 fused live steps, of 7 flow_soft live steps,
    of 7 FSR + flow_soft live steps and of 7 learned x2 upscale_arr calls,
@@ -398,13 +400,19 @@ def ptxas_registers(log: str, pattern: str) -> dict:
     return found
 
 
-def conv_registers(log: str) -> dict:
+def variant_registers(log: str, pattern: str) -> dict:
     """{(tile width, stages): "R registers, S bytes of spill stores"} of the
-    conv's variants with relu off and round_sum on (the timed form)."""
+    kernels whose mangled names match `pattern`, whose template arguments
+    begin <tile height, tile width, stages, ...>."""
     import re
 
     return {tuple(int(v) for v in re.findall(r"Li(\d+)E", key)[1:3]): r for key, r in
-            ptxas_registers(log, r"conv3x3_kernelILi\d+ELi\d+ELi\d+ELb0ELi1E").items()}
+            ptxas_registers(log, pattern).items()}
+
+
+def conv_registers(log: str) -> dict:
+    """The conv's variants with relu off and round_sum on (the timed form)."""
+    return variant_registers(log, r"conv3x3_kernelILi\d+ELi\d+ELi\d+ELb0ELi1E")
 
 
 def trunk_work(x, params) -> tuple[int, int]:
@@ -809,12 +817,13 @@ def main() -> int:
                 d = (kout.float() - pout.float()).abs()
                 tol = tc.ulp_tolerance(pout)
                 over, max_d = int((d > tol).sum().item()), float(d.max().item())
-                say(f"trunk_fused [{name}] round_sum={rs}: max |d| {max_d:.6g}, max |d|/tol "
-                    f"{float((d / tol).max().item()):.3f} (tol {float(tol):.6g} = {tc.TOL_ULPS} ulps of "
-                    f"max |plain| {float(pout.float().abs().max().item()):.6g}), bit-equal "
-                    f"{float((d == 0).double().mean().item()):.7f}; bit-equal to the chain of "
-                    f"{tc.depth(blocks)} conv3x3 launches {float((kout == chain).double().mean().item()):.7f}; "
-                    f"over the bound {over}")
+                n_chain = int((kout != chain).sum().item())
+                say(f"trunk_fused [{name}] round_sum={rs}: {n_chain} of {kout.numel()} values differ from "
+                    f"the chain of {tc.depth(blocks)} conv3x3 launches; vs plain max |d| {max_d:.6g}, max "
+                    f"|d|/tol {float((d / tol).max().item()):.3f} (tol {float(tol):.6g} = {tc.TOL_ULPS} ulps "
+                    f"of max |plain| {float(pout.float().abs().max().item()):.6g}), bit-equal "
+                    f"{float((d == 0).double().mean().item()):.7f}, over the bound {over}")
+                check(n_chain == 0, f"trunk_fused {name}: {n_chain} values differ from the conv3x3 chain")
                 check(over == 0 and bool(torch.isfinite(kout.float()).all()), f"trunk_fused {name}: {over} over")
                 errs["trunk_fused"] = max(errs["trunk_fused"], max_d)
 
@@ -1209,16 +1218,20 @@ def main() -> int:
             check(got.shape == (OUT_H, OUT_W, 4) and np.all(got[..., 3] == 255), f"fused x{u} shape/alpha")
             check(fgates[f"x{u}_fused_vs_layers_db"] >= FUSED_TRUNK_GATE_DB and fgates[f"x{u}_fused_alpha_equal"],
                   f"fused x{u} vs layers: {fgates[f'x{u}_fused_vs_layers_db']:.2f} dB")
+            check(np.array_equal(got, layered),
+                  f"fused x{u} vs layers: {fgates[f'x{u}_fused_vs_layers_equal']:.7f} of the bytes equal")
             check(fgates[f"x{u}_fused_vs_twin_db"] >= twin_gate,
                   f"fused x{u} vs twin: {fgates[f'x{u}_fused_vs_twin_db']:.2f} dB < {twin_gate}")
         l_batch_arr = [np.frombuffer(f, np.uint8).reshape(OUT_H, OUT_W, 4) for f in l_batch]
         fgates["x2_batch_fused_vs_layers_db"] = min(psnr(x, y) for x, y in zip(f_batch, l_batch_arr))
         fgates["x2_batch_fused_alpha_equal"] = all(
             np.array_equal(x[..., 3], y[..., 3]) for x, y in zip(f_batch, l_batch_arr))
+        fgates["x2_batch_fused_equals_layers"] = all(np.array_equal(x, y) for x, y in zip(f_batch, l_batch_arr))
         fgates["x2_batch_first_equals_single"] = bool(np.array_equal(f_batch[0], f_out[2]))
         say("learned fused-trunk gates: " + json.dumps(fgates))
         check(fgates["x2_batch_fused_vs_layers_db"] >= FUSED_TRUNK_GATE_DB
               and fgates["x2_batch_fused_alpha_equal"], "fused batch vs layered batch")
+        check(fgates["x2_batch_fused_equals_layers"], "fused batch != the layered batch, byte for byte")
         check(fgates["x2_batch_first_equals_single"], "fused batch[0] != the fused single frame")
 
         # end to end: upscale(bytes) latency and upscale_arr device frames/s,
@@ -1620,6 +1633,7 @@ def main() -> int:
             f"x2 N={BATCH}": (s2d_in(2, ("a", "b", "n1", "n2")), served[2].trunk_params, 2),
         }
         trunk_ms = {}
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
         for name, (x, params, blocks) in trunk_timed.items():
             moved, ops = trunk_work(x, params)
             t_bytes, t_ops = moved / mem_bw * 1e3, ops / bf16_rate * 1e3
@@ -1632,30 +1646,35 @@ def main() -> int:
             chain_ms = time_ms(torch, lambda: tc.trunk_chain(cc.conv3x3, x, params, blocks, True), flush)
             lib_ms = time_ms(torch, lambda: tc.trunk_chain(conv2d, xc, convs, blocks), flush)
             plain_ms = time_ms(torch, lambda: tc.trunk_fused_plain(x, params, blocks, True), flush)
-            tile = tc.tile_plan(*x.shape[:3], blocks, x.shape[3], params[0].shape[-1], params[-1].shape[0],
-                                tc.BLOCKS_PER_SM * torch.cuda.get_device_properties(dev).multi_processor_count)
-            say(f"time trunk_fused [{name}] {tuple(x.shape)}, {tc.depth(blocks)} layers, tile (h, w, grid) "
-                f"{tile}: {ms:.4f} ms (the chain of {tc.depth(blocks)} conv3x3 launches {chain_ms:.4f} ms; "
-                f"of {tc.depth(blocks)} F.conv2d calls {lib_ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
+            pack_ms = time_ms(torch, lambda: tc.pack_params(params), flush)
+            p = tc.plan(*x.shape[:3], blocks, params[0].shape[-1], params[-1].shape[0], sms)
+            say(f"time trunk_fused [{name}] {tuple(x.shape)}, {tc.depth(blocks)} layers, grid {p.grid}, "
+                f"items per layer {p.items}, {p.barriers} barriers: {ms:.4f} ms with the weights' repack "
+                f"({pack_ms:.4f} ms alone) (the chain of {tc.depth(blocks)} conv3x3 launches {chain_ms:.4f} "
+                f"ms; of {tc.depth(blocks)} F.conv2d calls {lib_ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
                 f"{b_ms:.4f} ms by {b_by}: {moved} bytes, {ops} bf16 operations; {100 * b_ms / ms:.1f}% of "
                 f"bound, {ops / ms / 1e9:.1f} TFLOP/s)")
             trunk_ms[name] = {"ms": ms, "plain_ms": plain_ms, "conv3x3_chain_ms": chain_ms,
-                              "library_chain_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by, "tile": tile}
-        # the planner's tile against others it weighed: every tile must give
-        # the planned tile's bytes
-        by_tile = {}
-        for name, tiles in (("x2", ((16, 32), (8, 32), (16, 48), (24, 32), (32, 32))),
-                            ("x4", ((8, 16), (16, 16), (8, 32), (16, 32)))):
+                              "library_chain_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
+                              "pack_ms": pack_ms, "grid": p.grid, "barriers": p.barriers}
+        # the kernel's tiles and ring depths: every variant must give the
+        # default's bytes (each output is summed in the same order)
+        by_variant = {}
+        trunk_regs = variant_registers(_build.BUILD_LOGS.get("trunk_fused", ""),
+                                       r"trunk_kernelILi\d+ELi\d+ELi\d+ELb1E")
+        for name in ("x2", "x4"):
             x, params, blocks = trunk_timed[name]
             planned = tc.trunk_fused(x, params, blocks, True)
-            for tile in tiles:
-                check(torch.equal(tc._launch(x, params, blocks, True, tile), planned),
-                      f"trunk_fused {name}: tile {tile} changes the bytes")
-                by_tile[f"{name} {tile}"] = time_ms(
-                    torch, lambda: tc._launch(x, params, blocks, True, tile), flush)
-        say("time trunk_fused by tile (ms; every tile gives the planned tile's bytes): "
-            + json.dumps(by_tile))
-        main = {k: v for k, v in trunk_ms["x2"].items() if k != "tile"}
+            for v in cc.VARIANTS:
+                check(torch.equal(tc._launch(x, params, blocks, True, v), planned),
+                      f"trunk_fused {name}: variant {v} changes the bytes")
+                v_ms = time_ms(torch, lambda: tc._launch(x, params, blocks, True, v), flush)
+                tag = f"tile {256 // v[0]}x{v[0]}, {v[1]} stages"
+                by_variant[f"{name}, {tag}"] = v_ms
+                say(f"  trunk_fused [{name}] {tag}{' (default)' if v == cc.DEFAULT_VARIANT else ''}: "
+                    f"{v_ms:.4f} ms, {100 * trunk_ms[name]['bound_ms'] / v_ms:.1f}% of bound; "
+                    f"ptxas {trunk_regs.get(v, 'not in this build log')}")
+        main = trunk_ms["x2"]
         rows.append({
             "name": "trunk_fused", "route": "cuda", "source": TRUNK_SOURCE, "replaces": REPLACES["trunk_fused"],
             "launches": fused_counts["trunk_fused"], "max_abs_err": errs["trunk_fused"], **main,
@@ -1664,8 +1683,10 @@ def main() -> int:
             "library_ms": None,
             "inputs": f"the committed tpu4b2 weights on the s2d of the bench frame, 1x{th2}x{tw2}x128 -> "
                       f"256, 2 blocks, round_sum (the x2 serving graph's trunk)",
-            "max_abs_err_units": "bf16 value, every value within trunk_cuda.ulp_tolerance",
-            "shapes": trunk_ms, "ms_by_tile": by_tile,
+            "max_abs_err_units": "bf16 value against trunk_fused_plain, every value within "
+                                 "trunk_cuda.ulp_tolerance; 0 values differ from the chain of conv3x3 launches",
+            "shapes": trunk_ms, "ms_by_variant": by_variant,
+            "ptxas_by_variant": {f"tile {256 // v[0]}x{v[0]}, {v[1]} stages": r for v, r in trunk_regs.items()},
         })
 
         # the two-call resample at the main path's input (the bench frame,

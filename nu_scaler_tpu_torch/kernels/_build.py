@@ -4,8 +4,9 @@ Each kernel source under `csrc/` has a plain C interface. It is compiled by
 one `nvcc` call into its own shared library under
 ``build/nu_scaler_tpu_torch/`` at the root of the checkout and loaded with
 `ctypes`; no PyTorch headers are involved, so a build takes seconds. A
-library's name carries a hash of its source and the flags, so a changed
-source is rebuilt and an unchanged one is reused.
+library's name carries a hash of its source, of every header the source
+includes with quotes (`conv3x3_core.cuh`), and of the flags, so a changed
+source or header is rebuilt and an unchanged one is reused.
 
 Nothing here runs at import time: the first CUDA launch of a kernel calls
 `load_library(name)`. `build()` starts one `nvcc` per source at once, for a
@@ -19,6 +20,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -90,10 +92,10 @@ SIGNATURES = {
     },
     "trunk_fused": {
         "nu_trunk_fused": [
-            _INT, _VP, _VP, _VP, _INT,  # device, x, kernels[depth], biases[depth], depth
-            _VP, _VP, _INT, _INT, _INT,  # scratch, out, n, h, w
-            _INT, _INT, _INT, _INT,  # cin, cmid, cout, blocks
-            _INT, _INT, _INT, _INT,  # tile_h, tile_w, grid, round_sum
+            _INT, _VP, _VP, _VP, _INT,  # device, x, packed kernels[depth], biases[depth], depth
+            _VP, _VP, _VP, _VP, _VP,  # feat, h, t, barrier counter, out
+            _INT, _INT, _INT, _INT, _INT, _INT, _INT,  # n, h, w, cin, cmid, cout, blocks
+            _INT, _INT, _INT, _INT,  # tile_w, stages, grid, round_sum
             _VP,  # stream
         ],
     },
@@ -129,10 +131,29 @@ def find_nvcc() -> Optional[str]:
     return None
 
 
+_INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> list:
+    """The library's source and every file it includes with quotes, each
+    once, in the order they are first met (an include is read relative to
+    the file that names it, as nvcc reads it)."""
+    files, todo = [], [source_path(name)]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        todo += [path.parent / inc for inc in _INCLUDE.findall(path.read_text())]
+    return files
+
+
 def library_path(name: str) -> Path:
-    src = source_path(name)
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    digest = hashlib.sha256()
+    for path in source_files(name):
+        digest.update(path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def _compile(nvcc: str, name: str) -> float:

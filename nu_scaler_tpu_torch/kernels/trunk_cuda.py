@@ -18,47 +18,55 @@ conv sees exactly that, so the plain version is the chain of
 `conv_cuda.conv3x3_plain` calls. ``params`` is the Pallas function's flat
 tuple ``(head_k, head_b, [k1, b1, k2, b2]·blocks, trunk_k, trunk_b, tail_k,
 tail_b)`` of HWIO bf16 kernels and bf16 biases. The TPU tiling arguments
-(``th``, ``vmem_limit_mb``) have no counterpart: the kernel picks its own
-tiles (`tile_plan`).
+(``th``, ``vmem_limit_mb``) have no counterpart: the kernel deals its own
+work items (`plan`).
 
-The kernel sums each conv in another order than the plain version (as
-`conv3x3` does), and a flipped rounding of one layer travels through the
-layers after it, so the two agree to `TOL_ULPS` bf16 ulps of the output's
-largest magnitude (`ulp_tolerance`). The chain of `conv3x3` launches sums
-in a third order (`conv3x3.cu`'s warpgroup MMAs), so the kernel agrees with
-that chain within the same bound, not bit for bit. A wrapper given CPU
-tensors runs the plain version; given CUDA tensors it launches the kernel or
-raises.
+The kernel runs the layers one after another over the whole frame, with a
+grid-wide barrier between them, and each conv on `conv3x3.cu`'s main loop
+(the shared `csrc/conv3x3_core.cuh`). It sums every output in that loop's
+order, so it gives exactly the bytes of the chain of `conv3x3` launches,
+`trunk_chain(conv_cuda.conv3x3, ...)`. The plain version sums in another
+order (9 fp32 matmuls per conv), and a flipped rounding of one layer
+travels through the layers after it, so kernel and plain version agree to
+`TOL_ULPS` bf16 ulps of the output's largest magnitude (`ulp_tolerance`). A
+wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches the kernel or raises, a cooperative launch that the card refuses
+included.
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from nu_scaler_tpu_torch.kernels.conv_cuda import LANES, conv3x3_plain, ulp_bf16
+from nu_scaler_tpu_torch.kernels.conv_cuda import (
+    DEFAULT_VARIANT,
+    LANES,
+    VARIANTS,
+    conv3x3_plain,
+    pack_weights,
+    ulp_bf16,
+)
 
 # Launches since the last `reset_launches()`; the wrapper adds one where it
 # launches its kernel and nowhere else.
 launches = {"trunk_fused": 0}
 
 # The bound of kernel against plain, in bf16 ulps of the output's largest
-# magnitude (see `ulp_tolerance`). In the serving graph's raw domain a flipped
-# rounding in an early layer reaches the tail (its weights carry the ×255) as
-# several raw units: on the CPU, the plain chain with its sums taken in
-# float64 (a stand-in for the kernel's order) moves the tpu4b2 / tpu4 trunks'
-# output by up to 8 such ulps (a 16×32 grid), and on an NVIDIA H100 the kernel
-# differs from the plain version by up to 14 (`chip_smoke.py` phase 3: the
-# 270×480 and 135×240 grids, the committed weights on a noise frame's s2d);
-# on seeded weights by up to 1.
+# magnitude (see `ulp_tolerance`). The kernel gives the chain of `conv3x3`
+# launches' bytes, and that chain sums each conv in another order than the
+# plain version. In the serving graph's raw domain a flipped rounding in an
+# early layer reaches the tail (its weights carry the ×255) as several raw
+# units: on the CPU, the plain chain with its sums taken in float64 (a
+# stand-in for the kernel's order) moves the tpu4b2 / tpu4 trunks' output by
+# up to 8 such ulps (a 16×32 grid), and on an NVIDIA H100 the kernel differs
+# from the plain version by up to 14 (`chip_smoke.py` phase 3: the 270×480
+# and 135×240 grids, the committed weights on a noise frame's s2d); on
+# seeded weights by up to 1.
 TOL_ULPS = 24
 MAX_BLOCKS = 14  # the kernel's table holds 3 + 2·14 layers
-SUB_H, SUB_W = 8, 16  # the kernel's sub-tile of positions
-TILE_CHOICES = (8, 16, 24, 32), (16, 32, 48, 64)  # tile_h, tile_w candidates
-BLOCKS_PER_SM = 2  # 95,616 bytes of shared memory and 256 threads a block
 
 
 def reset_launches() -> None:
@@ -146,41 +154,73 @@ def check_params(x: torch.Tensor, params: Sequence[torch.Tensor], blocks: int) -
         raise ValueError(f"the trunk kernel takes channels in multiples of {LANES}, got {c}")
 
 
-def tile_plan(n: int, h: int, w: int, blocks: int, cin: int, cmid: int, cout: int,
-              slots: int) -> tuple[int, int, int]:
-    """(tile_h, tile_w, grid) for the kernel: the tile among `TILE_CHOICES`
-    that minimises the sub-tiles one block computes in all (its tiles'
-    rounds times each tile's sub-tiles, halo included) when the batch's
-    tiles are dealt to `slots` resident blocks; grid = min(tiles, slots)."""
+class TrunkPlan(NamedTuple):
+    """The kernel's launch: tile_h × tile_w output positions a tile (the
+    conv's tile), `stages` weight stages, tiles_h × tiles_w tiles an image;
+    per layer its output channels (`couts`) and its work items (`items`: n ·
+    tiles · couts[l] / 128); `grid` persistent blocks, `barriers` grid-wide
+    barriers, and the bf16 elements of each of the three activation buffers
+    (feat, h, t: n · h · w · cmid)."""
+
+    n: int
+    tile_h: int
+    tile_w: int
+    stages: int
+    tiles_h: int
+    tiles_w: int
+    couts: tuple
+    items: tuple
+    grid: int
+    barriers: int
+    act_elems: int
+
+
+def plan(n: int, h: int, w: int, blocks: int, cmid: int, cout: int, sms: int,
+         variant: tuple[int, int] = DEFAULT_VARIANT) -> TrunkPlan:
+    """The launch of the trunk kernel on `sms` streaming multiprocessors (one
+    block each): `variant` is one of `conv_cuda.VARIANTS`, (tile width,
+    weight stages), 16 → 16×16 positions, 32 → 8×32 (every variant sums each
+    output in the same order, so all give the same bytes). The grid is the
+    SM count, or fewer where no layer has that many items."""
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant}: the kernel has {VARIANTS}")
+    tile_w, stages = variant
+    tile_h = 256 // tile_w
+    tiles_h, tiles_w = -(-h // tile_h), -(-w // tile_w)
     d = depth(blocks)
-    best = None
-    for th in TILE_CHOICES[0]:
-        for tw in TILE_CHOICES[1]:
-            per_tile = 0
-            for layer in range(d):
-                grow = 2 * (d - 1 - layer)
-                c_in = cin if layer == 0 else cmid
-                c_out = cout if layer == d - 1 else cmid
-                per_tile += (math.ceil((th + grow) / SUB_H) * math.ceil((tw + grow) / SUB_W)
-                             * (c_in // LANES) * (c_out // LANES))
-            tiles = n * math.ceil(h / th) * math.ceil(w / tw)
-            cost = math.ceil(tiles / slots) * per_tile
-            key = (cost, th * tw)
-            if best is None or key < best[0]:
-                best = (key, th, tw, min(tiles, slots))
-    return best[1], best[2], best[3]
+    couts = tuple(cout if layer == d - 1 else cmid for layer in range(d))
+    items = tuple(n * tiles_h * tiles_w * (c // LANES) for c in couts)
+    return TrunkPlan(n, tile_h, tile_w, stages, tiles_h, tiles_w, couts, items,
+                     min(sms, max(items)), d - 1, n * h * w * cmid)
 
 
-def scratch_elems(tile_h: int, tile_w: int, grid: int, blocks: int, cmid: int) -> int:
-    """bf16 elements of the kernel's scratch: three windows per block."""
-    grow = 2 * (depth(blocks) - 1)
-    return grid * 3 * (tile_h + grow) * (tile_w + grow) * cmid
+def item_origin(p: TrunkPlan, layer: int, item: int) -> tuple[int, int, int, int]:
+    """(image, y0, x0, n0) of work item `item` of `layer`, as the kernel
+    decodes it: item = (image · tiles + tile) · (couts[layer] / 128) +
+    channel tile, tiles row-major."""
+    nct = p.couts[layer] // LANES
+    t, ct = divmod(item, nct)
+    img, tile = divmod(t, p.tiles_h * p.tiles_w)
+    ty, tx = divmod(tile, p.tiles_w)
+    return img, ty * p.tile_h, tx * p.tile_w, ct * LANES
+
+
+def dealt(p: TrunkPlan, layer: int, block: int) -> range:
+    """The items of `layer` that persistent block `block` computes."""
+    return range(block, p.items[layer], p.grid)
+
+
+def pack_params(params: Sequence[torch.Tensor]) -> list[torch.Tensor]:
+    """Every layer's HWIO kernel repacked to ``[Cout, 3, 3, Cin]``
+    (`conv_cuda.pack_weights`, the conv kernel's B operand), one copy each."""
+    return [pack_weights(k) for k in params[0::2]]
 
 
 def _launch(x: torch.Tensor, params: Sequence[torch.Tensor], blocks: int, round_sum: bool,
-            tile: Optional[tuple[int, int]] = None) -> torch.Tensor:
-    """One launch; `tile` = (tile_h, tile_w) overrides `tile_plan`'s (the
-    bytes do not depend on it)."""
+            variant: Optional[tuple[int, int]] = None) -> torch.Tensor:
+    """One cooperative launch on the weights repacked by `pack_params`: the
+    default variant, or `variant` from `conv_cuda.VARIANTS` (the bytes do
+    not depend on it)."""
     if x.device.type != "cuda":
         raise RuntimeError(f"the CUDA kernel needs a CUDA tensor, got {x.device}")
     from nu_scaler_tpu_torch.kernels import _build
@@ -188,21 +228,21 @@ def _launch(x: torch.Tensor, params: Sequence[torch.Tensor], blocks: int, round_
     lib = _build.load_library("trunk_fused")
     n, h, w, cin = x.shape
     cmid, cout = params[0].shape[-1], params[-1].shape[0]
-    slots = BLOCKS_PER_SM * torch.cuda.get_device_properties(x.device).multi_processor_count
-    tile_h, tile_w, grid = tile_plan(n, h, w, blocks, cin, cmid, cout, slots)
-    if tile is not None:
-        tile_h, tile_w = tile
-        grid = min(slots, n * math.ceil(h / tile_h) * math.ceil(w / tile_w))
-    scratch = torch.empty(scratch_elems(tile_h, tile_w, grid, blocks, cmid),
-                          dtype=torch.bfloat16, device=x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    p = plan(n, h, w, blocks, cmid, cout, sms, variant or DEFAULT_VARIANT)
+    packed = pack_params(params)
+    acts = torch.empty((3, p.act_elems), dtype=torch.bfloat16, device=x.device)
+    counter = torch.zeros(1, dtype=torch.int32, device=x.device)
     out = torch.empty((n, h, w, cout), dtype=torch.bfloat16, device=x.device)
     n_layers = depth(blocks)
-    ks = (ctypes.c_void_p * n_layers)(*(params[2 * i].data_ptr() for i in range(n_layers)))
+    ks = (ctypes.c_void_p * n_layers)(*(k.data_ptr() for k in packed))
     bs = (ctypes.c_void_p * n_layers)(*(params[2 * i + 1].data_ptr() for i in range(n_layers)))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.nu_trunk_fused(
-        x.device.index or 0, x.data_ptr(), ks, bs, n_layers, scratch.data_ptr(), out.data_ptr(),
-        n, h, w, cin, cmid, cout, blocks, tile_h, tile_w, grid, int(round_sum), stream,
+        x.device.index or 0, x.data_ptr(), ks, bs, n_layers,
+        acts[0].data_ptr(), acts[1].data_ptr(), acts[2].data_ptr(), counter.data_ptr(),
+        out.data_ptr(), n, h, w, cin, cmid, cout, blocks, p.tile_w, p.stages, p.grid,
+        int(round_sum), stream,
     )
     if err != 0:
         raise RuntimeError(f"trunk_fused launch failed: {lib.nu_cuda_error_string(err).decode()} ({err})")

@@ -130,11 +130,12 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
 
 
 def test_library_key_follows_its_own_source(monkeypatch, tmp_path):
-    """Changing one source changes its library's name and no other's."""
+    """Changing one source changes its library's name and no other's; a
+    shared header changes the names of the libraries that include it."""
     csrc = tmp_path / "csrc"
     csrc.mkdir()
-    for name in _build.SIGNATURES:
-        (csrc / f"{name}.cu").write_bytes(_build.source_path(name).read_bytes())
+    for path in _build.CSRC.iterdir():
+        (csrc / path.name).write_bytes(path.read_bytes())
     before = {name: _build.library_path(name).name for name in _build.SIGNATURES}
     monkeypatch.setattr(_build, "CSRC", csrc)
     assert {name: _build.library_path(name).name for name in _build.SIGNATURES} == before
@@ -142,6 +143,9 @@ def test_library_key_follows_its_own_source(monkeypatch, tmp_path):
     after = {name: _build.library_path(name).name for name in _build.SIGNATURES}
     assert after["resample_fused"] == before["resample_fused"]
     assert after["soft_warp"] != before["soft_warp"]
+    (csrc / "conv3x3_core.cuh").write_text((csrc / "conv3x3_core.cuh").read_text() + "\n// changed\n")
+    shared = {name: _build.library_path(name).name for name in _build.SIGNATURES}
+    assert {name for name in shared if shared[name] != after[name]} == {"conv3x3", "trunk_fused"}
 
 
 def test_import_compiles_nothing(tmp_path):
@@ -171,7 +175,8 @@ def test_import_compiles_nothing(tmp_path):
 
 
 def test_kernel_source_is_plain_c():
-    """One CUDA source per library, no PyTorch headers, a C entry point per
+    """One CUDA source per library (the conv and the fused trunk share the
+    conv's main loop in one header), no PyTorch headers, a C entry point per
     wrapper call; every fp32 rounding written out, and each packing as its
     golden packs: the resample truncates and its blend rounds (by adding 2^23
     toward zero and to nearest; the two-pass resample sums with the fused
@@ -179,11 +184,12 @@ def test_kernel_source_is_plain_c():
     nearest), FSR truncates (adding 2^23 toward zero), the conv and the
     fused trunk round to bf16 to
     nearest (their products and sums are the tensor cores' own, fp32
-    accumulation; the trunk's skip additions are written out). The conv runs
-    on warpgroup MMAs fed by cp.async, with no WMMA left in it."""
+    accumulation; the trunk's skip additions are written out). The conv and
+    the trunk run on warpgroup MMAs fed by cp.async, with no WMMA left in
+    them; the trunk is one cooperative launch."""
     sources = sorted(p.name for p in PKG.rglob("*.cu*"))
-    assert sources == ["conv3x3.cu", "fsr.cu", "resample_fused.cu", "resample_twopass.cu",
-                       "soft_warp.cu", "trunk_fused.cu"]
+    assert sources == ["conv3x3.cu", "conv3x3_core.cuh", "fsr.cu", "resample_fused.cu",
+                       "resample_twopass.cu", "soft_warp.cu", "trunk_fused.cu"]
     written_out = ("__fmul_rn", "__fadd_rn")
     packing = {
         "resample_fused": (*written_out, "__fadd_rz", "fmaf", "cp.async"),
@@ -191,15 +197,17 @@ def test_kernel_source_is_plain_c():
         "fsr": (*written_out, "__fadd_rz", "8388608.0f"),
         "conv3x3": ("__fadd_rn", "__float2bfloat16_rn", "wgmma.mma_async", "cp.async"),
         "resample_twopass": ("fmaf", "truncf"),
-        "trunk_fused": (*written_out, "__float2bfloat16_rn", "wmma::mma_sync"),
+        "trunk_fused": (*written_out, "__float2bfloat16_rn", "wgmma.mma_async",
+                        "cudaLaunchCooperativeKernel"),
     }
     assert sorted(packing) == sorted(_build.SIGNATURES)
     for name, fns in _build.SIGNATURES.items():
-        text = _build.source_path(name).read_text()
+        text = "".join(path.read_text() for path in _build.source_files(name))
         assert "torch/extension.h" not in text and "#include <torch" not in text
         assert 'extern "C"' in text and "nu_cuda_error_string" in text
         assert all(fn in text for fn in fns)
         assert np.all([s in text for s in packing[name]])
-    assert "wmma::" not in _build.source_path("conv3x3").read_text()
+    for name in ("conv3x3", "trunk_fused"):
+        assert not any("wmma::" in path.read_text() for path in _build.source_files(name))
     fsr = _build.source_path("fsr").read_text()
     assert np.all([s in fsr for s in ("__fsub_rn", "__fdiv_rn", "__fsqrt_rn")])

@@ -168,19 +168,81 @@ def test_batch_is_per_image(rng):
         assert torch.equal(out[i:i + 1], tc.trunk_fused(x[i:i + 1].contiguous(), params, 2))
 
 
-@pytest.mark.parametrize("n, h, w, blocks, cout", [
-    (1, 270, 480, 2, 256), (4, 270, 480, 2, 256), (1, 135, 240, 3, 1024), (4, 27, 40, 2, 256),
-])
-def test_tile_plan_covers_the_frame(n, h, w, blocks, cout):
-    """The kernel's tile plan: a candidate tile, a grid no larger than the
-    resident blocks or the tiles, and scratch for three windows a block."""
-    slots = 2 * 132
-    th, tw, grid = tc.tile_plan(n, h, w, blocks, 128, 128, cout, slots)
-    assert th in tc.TILE_CHOICES[0] and tw in tc.TILE_CHOICES[1]
-    tiles = n * -(-h // th) * -(-w // tw)
-    assert 1 <= grid == min(tiles, slots)
-    grow = 2 * (tc.depth(blocks) - 1)
-    assert tc.scratch_elems(th, tw, grid, blocks, 128) == grid * 3 * (th + grow) * (tw + grow) * 128
+# the learned grids (x2 tpu4b2, x4 tpu4; N = 1 and 4) and a ragged 27x40
+PLAN_SHAPES = [(1, 270, 480, 2, 256), (4, 270, 480, 2, 256), (1, 135, 240, 3, 1024),
+               (4, 135, 240, 3, 1024), (4, 27, 40, 2, 256), (1, 27, 40, 3, 1024)]
+
+
+@pytest.mark.parametrize("variant", tc.VARIANTS)
+@pytest.mark.parametrize("n, h, w, blocks, cout", PLAN_SHAPES)
+def test_plan_deals_every_item_once_and_covers_the_frame(n, h, w, blocks, cout, variant):
+    """Each layer's (image, tile, channel tile) items are dealt to the
+    persistent blocks exactly once, and each channel tile's tiles cover
+    every position of every image exactly once (the overhang past the
+    frame is the kernel's to mask)."""
+    p = tc.plan(n, h, w, blocks, 128, cout, 132, variant)
+    assert (p.tile_w, p.stages) == variant and p.tile_h * p.tile_w == 256
+    for layer, c in enumerate(p.couts):
+        seen = np.concatenate([np.fromiter(tc.dealt(p, layer, b), np.int64) for b in range(p.grid)])
+        assert np.array_equal(np.sort(seen), np.arange(p.items[layer]))
+        cover = np.zeros((c // 128, n, p.tiles_h * p.tile_h, p.tiles_w * p.tile_w), np.int64)
+        for item in range(p.items[layer]):
+            img, y0, x0, n0 = tc.item_origin(p, layer, item)
+            assert y0 < h and x0 < w and n0 % 128 == 0
+            cover[n0 // 128, img, y0:y0 + p.tile_h, x0:x0 + p.tile_w] += 1
+        assert np.all(cover == 1)
+        assert p.tiles_h * p.tile_h - h < p.tile_h and p.tiles_w * p.tile_w - w < p.tile_w
+
+
+@pytest.mark.parametrize("n, h, w, blocks, cout", PLAN_SHAPES)
+def test_plan_grid_barriers_and_scratch(n, h, w, blocks, cout):
+    """The grid is the SM count unless no layer has that many items; one
+    barrier between layers; three activation buffers of n·h·w·cmid; the
+    tail's items are Cout / 128 times a layer's."""
+    p = tc.plan(n, h, w, blocks, 128, cout, 132)
+    d = tc.depth(blocks)
+    tiles = n * -(-h // 16) * -(-w // 16)
+    assert p.couts == (128,) * (d - 1) + (cout,)
+    assert p.items == (tiles,) * (d - 1) + (tiles * cout // 128,)
+    assert p.grid == min(132, tiles * cout // 128) and p.barriers == d - 1
+    assert p.act_elems == n * h * w * 128
+    assert tc.plan(n, h, w, blocks, 128, cout, 4).grid == 4
+
+
+def test_plan_rejects_unknown_variants():
+    with pytest.raises(ValueError, match="variant"):
+        tc.plan(1, 270, 480, 2, 128, 256, 132, (16, 5))
+
+
+def test_pack_params_layout(rng):
+    """Every layer repacked as the conv kernel takes its weights:
+    packed[o, dy, dx, c] == k[dy, dx, c, o], contiguous."""
+    _, params = _small(rng, blocks=1, cout=256)
+    packed = tc.pack_params(params)
+    assert len(packed) == tc.depth(1)
+    for k, kp in zip(params[0::2], packed):
+        assert kp.is_contiguous() and kp.shape == (k.shape[3], 3, 3, k.shape[2])
+        assert torch.equal(kp, k.permute(3, 0, 1, 2))
+        assert torch.equal(kp[5, 2, 1, 7], k[2, 1, 7, 5])
+
+
+def test_library_hash_covers_included_headers(tmp_path, monkeypatch):
+    """A library's name changes when a header its source includes changes,
+    so a changed header is never served by a stale build."""
+    from nu_scaler_tpu_torch.kernels import _build
+
+    (tmp_path / "conv3x3.cu").write_text('#include <cuda_runtime.h>\n#include "core.cuh"\n')
+    (tmp_path / "core.cuh").write_text('#pragma once\n#include "inner.cuh"\nint a;\n')
+    (tmp_path / "inner.cuh").write_text("int b;\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert [f.name for f in _build.source_files("conv3x3")] == ["conv3x3.cu", "core.cuh", "inner.cuh"]
+    first = _build.library_path("conv3x3")
+    (tmp_path / "inner.cuh").write_text("int b, c;\n")
+    second = _build.library_path("conv3x3")
+    (tmp_path / "core.cuh").write_text('#pragma once\n#include "inner.cuh"\nint a2;\n')
+    third = _build.library_path("conv3x3")
+    assert len({first, second, third}) == 3
+    assert all(p.parent == _build.BUILD_DIR and p.name.startswith("libconv3x3_") for p in (first, third))
 
 
 def test_ulp_tolerance_scales_with_the_output():
