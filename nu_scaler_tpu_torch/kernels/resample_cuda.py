@@ -12,8 +12,9 @@ Three wrappers of one kernel template, and one of two kernels:
   (replaces `resample_pallas.py:371` make_pallas_fused_blend)
 * `resample_twopass`        u8 [H,W,4] or [N,H,W,4] → [..,OH,OW,4] in two
   launches, the fp32 intermediate in device memory (replaces
-  `resample_pallas.py:65` make_pallas_resampler); the same bytes as
-  `resample_fused`, whose plain version it shares
+  `resample_pallas.py:65` make_pallas_resampler), on its own dense bands
+  (`twopass_bands`); the same bytes as `resample_fused`, whose plain version
+  it shares
 
 A wrapper given a CPU tensor runs the plain version; given a CUDA tensor it
 launches the kernel or raises. The resample has no learned weights: the
@@ -155,6 +156,29 @@ def band_tables(first: np.ndarray, taps: np.ndarray, tile: int, run: int,
     return np.ascontiguousarray(w), starts
 
 
+class TwoPassBands(NamedTuple):
+    """The two-call kernel's dense bands (`twopass_bands`), on a device: the
+    vertical weights fp32 [ceil(OH / RUN), wv, RUN] and their window wv; the
+    horizontal weights fp32 [wh, ceil(OW / GROUP), GROUP] and their window
+    wh."""
+
+    dv: torch.Tensor
+    wv: int
+    dh: torch.Tensor
+    wh: int
+
+
+def twopass_bands(first: np.ndarray, taps: np.ndarray, run: int) -> tuple[np.ndarray, int]:
+    """One axis's taps as the two-call kernel's dense bands: for each run of
+    `run` outputs, the weights of the run's window of inputs from
+    first[run · i] for each of its outputs, f32 [runs, window, run] (0
+    outside an output's band and for outputs past the axis), and the window,
+    the widest of any run (`footprint`)."""
+    window = footprint(first, taps.shape[1], run)
+    w, _ = band_tables(first, taps, run, run, window)
+    return np.ascontiguousarray(w[:, 0]), window
+
+
 def tile_plan(first_v, kv: int, first_h, kh: int, tile=None) -> TilePlan:
     """The kernel's tiling for these tap tables: the first of `TILES` (or the
     given `tile`) whose shared memory lets two blocks share an SM with two
@@ -216,6 +240,18 @@ class ResamplePlan:
         dh, hs = band_tables(first_h, taps_h, tp.tile_w, GROUP, tp.wh)
         dh = dh.transpose(0, 2, 1, 3)  # [tiles_x, wh, groups, GROUP]: a float4 per group
         return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device) for a in (dv, vs, dh, hs))
+
+    @functools.cached_property
+    def twopass(self) -> TwoPassBands:
+        """The two-call kernel's dense bands on the plan's device, built at
+        its first launch (the horizontal ones [wh, groups, GROUP]: a float4
+        per group, neighbouring groups side by side)."""
+        first_v, taps_v, first_h, taps_h = self._np
+        dv, wv = twopass_bands(first_v, taps_v, RUN)
+        dh, wh = twopass_bands(first_h, taps_h, GROUP)
+        dh = np.ascontiguousarray(dh.transpose(1, 0, 2))
+        return TwoPassBands(torch.from_numpy(dv).to(self.device), wv,
+                            torch.from_numpy(dh).to(self.device), wh)
 
     def tiling(self, tile: tuple[int, int]) -> tuple[TilePlan, tuple[torch.Tensor, ...]]:
         """Another tiling than the planned one, with its band tables, for
@@ -378,9 +414,10 @@ def _launch_vert(src: torch.Tensor, n: int, plan: ResamplePlan) -> torch.Tensor:
     lib = _build.load_library("resample_twopass")
     src = src.contiguous()
     mid = torch.empty((n, plan.out_h, plan.in_w, 4), dtype=torch.float32, device=src.device)
+    bands = plan.twopass
     err = lib.nu_resample_vert(
         src.device.index or 0, src.data_ptr(), n, plan.in_h, plan.in_w,
-        plan.first_v.data_ptr(), plan.taps_v.data_ptr(), plan.kv, plan.out_h,
+        plan.first_v.data_ptr(), bands.dv.data_ptr(), bands.wv, plan.out_h,
         mid.data_ptr(), torch.cuda.current_stream(src.device).cuda_stream,
     )
     if err != 0:
@@ -402,9 +439,10 @@ def _launch_horiz(mid: torch.Tensor, n: int, plan: ResamplePlan) -> torch.Tensor
                          f"got {mid.dtype} {tuple(mid.shape)}")
     mid = mid.contiguous()
     dst = torch.empty((n, plan.out_h, plan.out_w, 4), dtype=torch.uint8, device=mid.device)
+    bands = plan.twopass
     err = lib.nu_resample_horiz(
         mid.device.index or 0, mid.data_ptr(), n, plan.out_h, plan.in_w,
-        plan.first_h.data_ptr(), plan.taps_h.data_ptr(), plan.kh, plan.out_w,
+        plan.first_h.data_ptr(), bands.dh.data_ptr(), bands.wh, plan.out_w,
         dst.data_ptr(), torch.cuda.current_stream(mid.device).cuda_stream,
     )
     if err != 0:
