@@ -94,7 +94,7 @@ Phases, each printed on its own line with its seconds:
    ptxas' registers and spill stores from the build log; the fused trunk at ×2,
    ×4 and N = 4 against the same chain as conv3x3 launches and as F.conv2d
    calls (no single PyTorch call computes it), its weights' repack alone and
-   its barrier count, and at ×2 and ×4 in its four variants (16×16 or 8×32
+   its ready-flag count, and at ×2 and ×4 in its four variants (16×16 or 8×32
    tiles, 3 or 4 weight stages; each the default's bytes) with ptxas'
    registers and spill stores; the two-call resample, both
    launches and each alone, against resample_fused;
@@ -1649,14 +1649,14 @@ def main() -> int:
             pack_ms = time_ms(torch, lambda: tc.pack_params(params), flush)
             p = tc.plan(*x.shape[:3], blocks, params[0].shape[-1], params[-1].shape[0], sms)
             say(f"time trunk_fused [{name}] {tuple(x.shape)}, {tc.depth(blocks)} layers, grid {p.grid}, "
-                f"items per layer {p.items}, {p.barriers} barriers: {ms:.4f} ms with the weights' repack "
+                f"items per layer {p.items}, {p.flags} ready flags: {ms:.4f} ms with the weights' repack "
                 f"({pack_ms:.4f} ms alone) (the chain of {tc.depth(blocks)} conv3x3 launches {chain_ms:.4f} "
                 f"ms; of {tc.depth(blocks)} F.conv2d calls {lib_ms:.4f} ms; plain {plain_ms:.4f} ms; bound "
                 f"{b_ms:.4f} ms by {b_by}: {moved} bytes, {ops} bf16 operations; {100 * b_ms / ms:.1f}% of "
                 f"bound, {ops / ms / 1e9:.1f} TFLOP/s)")
             trunk_ms[name] = {"ms": ms, "plain_ms": plain_ms, "conv3x3_chain_ms": chain_ms,
                               "library_chain_ms": lib_ms, "bound_ms": b_ms, "bound_by": b_by,
-                              "pack_ms": pack_ms, "grid": p.grid, "barriers": p.barriers}
+                              "pack_ms": pack_ms, "grid": p.grid, "ready_flags": p.flags}
         # the kernel's tiles and ring depths: every variant must give the
         # default's bytes (each output is summed in the same order)
         by_variant = {}

@@ -93,7 +93,7 @@ SIGNATURES = {
     "trunk_fused": {
         "nu_trunk_fused": [
             _INT, _VP, _VP, _VP, _INT,  # device, x, packed kernels[depth], biases[depth], depth
-            _VP, _VP, _VP, _VP, _VP,  # feat, h, t, barrier counter, out
+            _VP, _VP, _VP, _VP, _VP,  # feat, h, t, ready flags, out
             _INT, _INT, _INT, _INT, _INT, _INT, _INT,  # n, h, w, cin, cmid, cout, blocks
             _INT, _INT, _INT, _INT,  # tile_w, stages, grid, round_sum
             _VP,  # stream

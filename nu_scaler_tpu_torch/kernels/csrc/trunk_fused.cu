@@ -20,18 +20,21 @@
 // 128 -> 128 and a tail 128 -> 256) needs 305.8 GFLOP, 0.309 ms, against
 // 0.030 ms for its input, weights and output.
 //
-// Design: layer-synchronous and persistent, on conv3x3.cu's main loop.
-// Keeping the chain on chip would need each tile's halo grown by the depth
-// (a 16 x 16 tile's 7-layer window is 230 KB a layer, more than a block's
-// 227 KB). Layer by layer over the whole frame needs no halo at all: the
-// operations are exactly the trunk's, and one 128-channel activation of the
-// x2 grid (270 x 480 x 128 bf16, 33.2 MB) fits in the 50 MB L2.
+// Design: layer by layer over the whole frame, persistent, on conv3x3.cu's
+// main loop. Keeping the chain on chip would need each tile's halo grown by
+// the depth (a 16 x 16 tile's 7-layer window is 230 KB a layer, more than a
+// block's 227 KB). Layer by layer over the whole frame needs no halo at all:
+// the operations are exactly the trunk's, and one 128-channel activation of
+// the x2 grid (270 x 480 x 128 bf16, 33.2 MB) fits in the 50 MB L2.
 //  * One block of 256 threads (two warpgroups) per SM, launched with
 //    cudaLaunchCooperativeKernel, so the blocks are co-resident or the launch
 //    is refused (the caller gets the error; nothing falls back).
-//  * Layer l's work items are (image, TH x TW tile, 128-channel output
-//    tile), item = (image * tiles + tile) * (Cout_l / 128) + channel tile,
-//    dealt round-robin: block b takes items b, b + grid, ...
+//  * Work items: layer l's are (image, TH x TW tile, 128-channel output
+//    tile), item = (image * tiles + tile) * (Cout_l / 128) + channel tile.
+//    The layers' items form one sequence, layer after layer, dealt
+//    round-robin: block b takes items b, b + grid, ... of the sequence, so
+//    a layer's last, partly filled round overlaps the next layer's first
+//    (the x4 grid's 135 tiles on 132 SMs).
 //  * Each item runs conv3x3_core.cuh's conv_tile as conv3x3.cu runs it (the
 //    halo by cp.async with SAME's zeros, the swizzled weight ring, wgmma with
 //    A by ldmatrix) and its stage_tile epilogue, then a 16-byte store loop
@@ -46,22 +49,30 @@
 //    and writes t, the tail reads t and writes the output. Positions outside
 //    the frame are never written or read: the halo load fills them with
 //    zeros.
-//  * Each layer's role (input, output, residual, weights, channels, ending)
-//    sits in shared memory, read again after each main loop, so that only
-//    the item index stays live in registers beside conv_tile's.
-//  * A grid-wide barrier between layers (depth - 1 per launch): every
-//    thread's writes, __syncthreads, then thread 0 fences, adds one to a
-//    counter the caller zeroes (a release add) and spins on an acquire load
-//    until every block of this layer has arrived; __syncthreads again. The
-//    next layer's cp.async.cg and ld.global.cg read through L2, so they see
-//    every block's writes.
+//  * Ready flags in place of a grid-wide barrier: a counter per (layer,
+//    image, tile), and one per layer, which the caller zeroes. When an
+//    item's tile is stored (every thread's stores, then __syncthreads),
+//    thread 0 adds one to both with release adds. An item of layer l first
+//    waits, one thread per neighbour by acquire loads, until the <= 9 tiles
+//    of layer l - 1 under its halo are stored in every channel tile; once a
+//    block has seen layer l - 1's counter complete it waits no more in layer
+//    l. Waiting on the tiles under the halo also orders every overwrite
+//    after the reads it replaces: a tile of layer l + 1 is written only
+//    after the tiles of layer l around it, which in turn waited on layer
+//    l - 1's within two tiles. The next layer's cp.async.cg and ld.global.cg
+//    read through L2, so they see the other blocks' writes. No item waits
+//    on a later one of the sequence, so the co-resident blocks always
+//    progress (a spin that never ends traps instead of hanging).
+//  * The layer's role (input, output, residual, weights, channels, ending)
+//    sits in shared memory, read again after each main loop, so that little
+//    beside conv_tile's own registers stays live across it.
 // Each output of each conv is summed in conv3x3.cu's order, whatever the
 // tile's place in the frame, and the epilogues round as the chain of
 // conv3x3 launches and bf16 skip additions does: the kernel gives the bytes
 // of trunk_chain(conv_cuda.conv3x3, ...).
 //
 // C interface: nu_trunk_fused launches on the caller's stream, allocates
-// nothing (the caller passes the activations and the zeroed counter) and
+// nothing (the caller passes the activations and the zeroed ready flags) and
 // returns cudaGetLastError() of the launch, or the occupancy query's or the
 // cooperative launch's error.
 
@@ -78,7 +89,7 @@ namespace {
 using namespace nu_conv;
 
 constexpr int kMaxLayers = 31;           // depth 3 + 2 * blocks, blocks <= 14
-constexpr long long kSpinLimit = 1LL << 26;  // ~7 s of 100 ns naps: a lost block traps, not hangs
+constexpr long long kSpinLimit = 1LL << 26;  // seconds of naps: a lost flag traps, not hangs
 
 // What a layer's epilogue does with its bf16 result c at a frame position.
 enum Ending {
@@ -104,27 +115,21 @@ struct Buffers {
   __nv_bfloat16* hbuf;
   __nv_bfloat16* tbuf;
   __nv_bfloat16* out;
-  unsigned int* counter;  // the barrier's arrivals, zero at launch
+  // (depth - 1) * n * tiles counters per (layer, image, tile), then depth - 1
+  // per layer, of every layer but the tail: the items stored; zero at launch
+  unsigned int* ready;
 };
 
-// Every block waits here until all gridDim.x blocks have arrived `round`
-// times in all (round = 1, 2, ...).
-__device__ __forceinline__ void grid_barrier(unsigned int* counter, unsigned int round) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    asm volatile("red.release.gpu.global.add.u32 [%0], %1;\n" ::"l"(counter), "r"(1u) : "memory");
-    const unsigned int target = round * gridDim.x;
+// Spins until *flag >= want (an acquire load), trapping if it never comes.
+__device__ __forceinline__ void wait_flag(const unsigned int* flag, unsigned int want) {
+  long long spins = 0;
+  while (true) {
     unsigned int seen;
-    long long spins = 0;
-    while (true) {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(seen) : "l"(counter) : "memory");
-      if (seen >= target) break;
-      if (++spins > kSpinLimit) __trap();
-      __nanosleep(100);
-    }
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n" : "=r"(seen) : "l"(flag) : "memory");
+    if (seen >= want) return;
+    if (++spins > kSpinLimit) __trap();
+    __nanosleep(64);
   }
-  __syncthreads();
 }
 
 __device__ __forceinline__ float bf(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -173,69 +178,112 @@ trunk_kernel(const __nv_bfloat16* __restrict__ x, const __grid_constant__ Layers
              const __grid_constant__ Geometry g, const __grid_constant__ Buffers buf) {
   constexpr int kEpi = ROUND_SUM ? kRoundSum : kSingle;
   extern __shared__ unsigned char smem_raw[];
-  // The layer's role lives in shared memory and is read again after each
-  // main loop: only the item index stays in registers beside the conv's.
+  // The layer's role and the flag of the block's last item live in shared
+  // memory and are read again after each main loop.
   __shared__ Role role;
+  __shared__ int s_role, s_done;  // the layer in `role`; the ready flag the last item sets, or -1
+  __shared__ int s_known;          // the last layer this block has seen complete
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t halo = (raw + 1023u) & ~1023u;
   unsigned char* stage_out = smem_raw + (halo - raw);
   const int tid = threadIdx.x;
+  const int per_layer = g.n * g.tiles;  // items of a layer of 128 output channels
+  if (tid == 0) {
+    s_role = -1;
+    s_done = -1;
+    s_known = -1;
+  }
+  // after the tile flags: one counter per layer, its items stored
+  unsigned int* layer_done = buf.ready + static_cast<size_t>(g.depth - 1) * per_layer;
 
-  for (int l = 0; l < g.depth; ++l) {
-    if (l > 0) grid_barrier(buf.counter, l);  // every block is done with layer l - 1
-    if (tid == 0) role = role_of(l, x, layers, g, buf);
-    __syncthreads();
-    const int items = g.n * g.tiles * (role.cout / kBN);
-    for (int it = blockIdx.x; it < items; it += gridDim.x) {
-      float acc[2][64];
-      {
-        const int nct = role.cout / kBN;
-        const int t = it / nct;
-        const int img = t / g.tiles, tile = t - img * g.tiles;
-        const size_t base = static_cast<size_t>(img) * g.h * g.w;
-        __syncthreads();  // the previous item's staged tile has been stored
-        conv_tile<TH, TW, NS>(halo, role.src + base * role.cin, role.k, g.h, g.w, role.cin,
-                              (tile / g.tiles_w) * TH, (tile % g.tiles_w) * TW,
-                              (it - t * nct) * kBN, acc);
+  int l = 0, first = 0;  // the layer of item `seq` and that layer's first index
+  for (int seq = blockIdx.x;; seq += gridDim.x) {
+    while (l < g.depth && seq >= first + per_layer * ((l == g.depth - 1 ? g.cout : g.cmid) / kBN)) {
+      first += per_layer * ((l == g.depth - 1 ? g.cout : g.cmid) / kBN);
+      ++l;
+    }
+    __syncthreads();  // the previous item is stored by every thread; its role is read
+    if (tid == 0) {
+      if (s_done >= 0) {  // the previous item's tile is ready for the next layer
+        asm volatile("red.release.gpu.global.add.u32 [%0], %1;\n"
+                     ::"l"(buf.ready + s_done), "r"(1u) : "memory");
+        asm volatile("red.release.gpu.global.add.u32 [%0], %1;\n"
+                     ::"l"(layer_done + s_done / per_layer), "r"(1u) : "memory");
       }
-      // the item's place again, from the role read after the main loop
-      const int cout_l = role.cout, nct = cout_l / kBN, ending = role.ending;
-      const int t = it / nct;
-      const int n0 = (it - t * nct) * kBN;
-      const int img = t / g.tiles, tile = t - img * g.tiles;
-      const int y0 = (tile / g.tiles_w) * TH, x0 = (tile % g.tiles_w) * TW;
-      const size_t base = static_cast<size_t>(img) * g.h * g.w;
-      if (role.relu) {
-        stage_tile<true, kEpi>(acc, stage_out, role.b, nullptr, n0);
-      } else {
-        stage_tile<false, kEpi>(acc, stage_out, role.b, nullptr, n0);
-      }
-      __nv_bfloat16* dst = role.dst;
-      const __nv_bfloat16* resid = role.resid;
-      const float c02 = __bfloat162float(__float2bfloat16_rn(0.2f));
-      for (int i = tid; i < kBM * (kBN / 8); i += kThreads) {
-        const int m = i >> 4, v = i & 15;
-        const int gy = y0 + m / TW, gx = x0 + m % TW;
-        if (gy >= g.h || gx >= g.w) continue;
-        const size_t pos = base + static_cast<size_t>(gy) * g.w + gx;
-        uint4 c = *reinterpret_cast<const uint4*>(stage_out + m * kRowBytes + v * 16);
-        if (ending != kStore) {
-          const uint4 rv = __ldcg(reinterpret_cast<const uint4*>(resid + pos * g.cmid + n0 + v * 8));
-          const __nv_bfloat16* r = reinterpret_cast<const __nv_bfloat16*>(&rv);
-          __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&c);
-#pragma unroll
-          for (int q = 0; q < 8; ++q) {
-            if (ending == kScaledSkip) {
-              const float scaled = bf(__float2bfloat16_rn(__fmul_rn(c02, bf(e[q]))));
-              e[q] = __float2bfloat16_rn(__fadd_rn(bf(r[q]), scaled));
-            } else {
-              e[q] = __float2bfloat16_rn(__fadd_rn(bf(e[q]), bf(r[q])));
-            }
-          }
-        }
-        *reinterpret_cast<uint4*>(dst + pos * cout_l + n0 + v * 8) = c;
+      if (l < g.depth && l != s_role) {
+        role = role_of(l, x, layers, g, buf);
+        s_role = l;
       }
     }
+    if (l == g.depth) break;
+    float acc[2][64];
+    {
+      const int it = seq - first;
+      const int nct = (l == g.depth - 1 ? g.cout : g.cmid) / kBN;
+      const int t = it / nct;
+      const int img = t / g.tiles, tile = t - img * g.tiles;
+      const int ty = tile / g.tiles_w, tx = tile - ty * g.tiles_w;
+      // wait until layer l - 1 has stored every tile under this one's halo
+      // (once the block has seen all of layer l - 1 stored, no more)
+      if (l > 0 && s_known < l - 1) {
+        if (tid < 9) {
+          const int ny = ty + tid / 3 - 1, nx = tx + tid % 3 - 1;
+          if (ny >= 0 && nx >= 0 && nx < g.tiles_w && ny * g.tiles_w + nx < g.tiles) {
+            const size_t flag = static_cast<size_t>(l - 1) * per_layer + img * g.tiles + ny * g.tiles_w + nx;
+            wait_flag(buf.ready + flag, g.cmid / kBN);
+          }
+        } else if (tid == 32) {  // has all of layer l - 1 been stored?
+          unsigned int seen;
+          asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                       : "=r"(seen) : "l"(layer_done + l - 1) : "memory");
+          if (seen == static_cast<unsigned int>(per_layer * (g.cmid / kBN))) s_known = l - 1;
+        }
+      }
+      __syncthreads();  // the role is written; the tiles under the halo are ready
+      const size_t base = static_cast<size_t>(img) * g.h * g.w;
+      conv_tile<TH, TW, NS>(halo, role.src + base * role.cin, role.k, g.h, g.w, role.cin, ty * TH,
+                            tx * TW, (it - t * nct) * kBN, acc);
+    }
+    // the item's place again, from the role read after the main loop
+    const int cout_l = role.cout, nct = cout_l / kBN, ending = role.ending;
+    const int it = seq - first;
+    const int t = it / nct;
+    const int n0 = (it - t * nct) * kBN;
+    const int img = t / g.tiles, tile = t - img * g.tiles;
+    const int y0 = (tile / g.tiles_w) * TH, x0 = (tile % g.tiles_w) * TW;
+    const size_t base = static_cast<size_t>(img) * g.h * g.w;
+    if (role.relu) {
+      stage_tile<true, kEpi>(acc, stage_out, role.b, nullptr, n0);
+    } else {
+      stage_tile<false, kEpi>(acc, stage_out, role.b, nullptr, n0);
+    }
+    __nv_bfloat16* dst = role.dst;
+    const __nv_bfloat16* resid = role.resid;
+    const float c02 = __bfloat162float(__float2bfloat16_rn(0.2f));
+    for (int i = tid; i < kBM * (kBN / 8); i += kThreads) {
+      const int m = i >> 4, v = i & 15;
+      const int gy = y0 + m / TW, gx = x0 + m % TW;
+      if (gy >= g.h || gx >= g.w) continue;
+      const size_t pos = base + static_cast<size_t>(gy) * g.w + gx;
+      uint4 c = *reinterpret_cast<const uint4*>(stage_out + m * kRowBytes + v * 16);
+      if (ending != kStore) {
+        const uint4 rv = __ldcg(reinterpret_cast<const uint4*>(resid + pos * g.cmid + n0 + v * 8));
+        const __nv_bfloat16* r = reinterpret_cast<const __nv_bfloat16*>(&rv);
+        __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&c);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          if (ending == kScaledSkip) {
+            const float scaled = bf(__float2bfloat16_rn(__fmul_rn(c02, bf(e[q]))));
+            e[q] = __float2bfloat16_rn(__fadd_rn(bf(r[q]), scaled));
+          } else {
+            e[q] = __float2bfloat16_rn(__fadd_rn(bf(e[q]), bf(r[q])));
+          }
+        }
+      }
+      *reinterpret_cast<uint4*>(dst + pos * cout_l + n0 + v * 8) = c;
+    }
+    // set at the next item's start; the tail's output is read by no later layer
+    if (tid == 0) s_done = l < g.depth - 1 ? l * per_layer + t : -1;
   }
 }
 
@@ -273,12 +321,13 @@ extern "C" {
 
 // ks: host array of `depth` device pointers to the layers' packed weights
 // [cout_l, 3, 3, cin_l] (head, block convs, trunk, tail); bs: their bf16
-// biases. feat, hbuf, tbuf: n * h * w * cmid bf16 each; counter: one zeroed
-// uint32 (cmid a multiple of 128). tile_w 16 (16 x 16 tiles) or 32 (8 x 32); stages 3 or 4; grid at
+// biases. feat, hbuf, tbuf: n * h * w * cmid bf16 each (cmid a multiple of
+// 128); ready: (depth - 1) * (n * tiles + 1) zeroed uint32, tiles the TH x
+// TW tiles of a frame. tile_w 16 (16 x 16 tiles) or 32 (8 x 32); stages 3 or 4; grid at
 // most the co-resident blocks (one per SM). Returns 0 on success, else a
 // cudaError_t code (see nu_cuda_error_string).
 int nu_trunk_fused(int device, const void* x, const void* const* ks, const void* const* bs,
-                   int depth, void* feat, void* hbuf, void* tbuf, void* counter, void* out, int n,
+                   int depth, void* feat, void* hbuf, void* tbuf, void* ready, void* out, int n,
                    int h, int w, int cin, int cmid, int cout, int blocks, int tile_w, int stages,
                    int grid, int round_sum, void* stream) {
   if (depth != 3 + 2 * blocks || blocks < 0 || depth > kMaxLayers || n < 1 || h < 1 || w < 1 ||
@@ -298,7 +347,9 @@ int nu_trunk_fused(int device, const void* x, const void* const* ks, const void*
   const int tile_h = kBM / tile_w;
   g.tiles_w = (w + tile_w - 1) / tile_w;
   g.tiles = g.tiles_w * ((h + tile_h - 1) / tile_h);
-  if (static_cast<long long>(g.tiles) * n * (cout / kBN) > 0x7fffffffLL) {
+  // every layer's items in one sequence, and a round of the grid past it
+  if (static_cast<long long>(g.tiles) * n * ((depth - 1) * (cmid / kBN) + cout / kBN) + grid >
+      0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Layers layers;
@@ -308,7 +359,7 @@ int nu_trunk_fused(int device, const void* x, const void* const* ks, const void*
   }
   const Buffers buf{static_cast<__nv_bfloat16*>(feat), static_cast<__nv_bfloat16*>(hbuf),
                     static_cast<__nv_bfloat16*>(tbuf), static_cast<__nv_bfloat16*>(out),
-                    static_cast<unsigned int*>(counter)};
+                    static_cast<unsigned int*>(ready)};
   const cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return static_cast<int>(e);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

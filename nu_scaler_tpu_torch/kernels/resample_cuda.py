@@ -227,9 +227,7 @@ class ResamplePlan:
             self.tiles = tile_plan(first_v, self.kv, first_h, self.kh)
             self.bands = self.band_tables(self.tiles)
         self.first_v = torch.from_numpy(first_v).to(self.device)
-        self.taps_v = torch.from_numpy(taps_v).to(self.device)
         self.first_h = torch.from_numpy(first_h).to(self.device)
-        self.taps_h = torch.from_numpy(taps_h).to(self.device)
 
     def band_tables(self, tp: TilePlan) -> tuple[torch.Tensor, ...]:
         """The kernel's band tables for the tiling `tp`, on the plan's device:

@@ -21,9 +21,10 @@ tail_b)`` of HWIO bf16 kernels and bf16 biases. The TPU tiling arguments
 (``th``, ``vmem_limit_mb``) have no counterpart: the kernel deals its own
 work items (`plan`).
 
-The kernel runs the layers one after another over the whole frame, with a
-grid-wide barrier between them, and each conv on `conv3x3.cu`'s main loop
-(the shared `csrc/conv3x3_core.cuh`). It sums every output in that loop's
+The kernel runs the layers one after another over the whole frame, each
+tile of a layer waiting on the ready flags of the tiles of the layer before
+under its halo, and each conv on `conv3x3.cu`'s main loop (the shared
+`csrc/conv3x3_core.cuh`). It sums every output in that loop's
 order, so it gives exactly the bytes of the chain of `conv3x3` launches,
 `trunk_chain(conv_cuda.conv3x3, ...)`. The plain version sums in another
 order (9 fp32 matmuls per conv), and a flipped rounding of one layer
@@ -158,9 +159,11 @@ class TrunkPlan(NamedTuple):
     """The kernel's launch: tile_h × tile_w output positions a tile (the
     conv's tile), `stages` weight stages, tiles_h × tiles_w tiles an image;
     per layer its output channels (`couts`) and its work items (`items`: n ·
-    tiles · couts[l] / 128); `grid` persistent blocks, `barriers` grid-wide
-    barriers, and the bf16 elements of each of the three activation buffers
-    (feat, h, t: n · h · w · cmid)."""
+    tiles · couts[l] / 128), which follow each other in one sequence; `grid`
+    persistent blocks; `flags` zeroed uint32 ready counters, one per (layer,
+    image, tile) and one per layer of every layer but the tail; and the bf16
+    elements of each of the three activation buffers (feat, h, t: n · h · w
+    · cmid)."""
 
     n: int
     tile_h: int
@@ -171,7 +174,7 @@ class TrunkPlan(NamedTuple):
     couts: tuple
     items: tuple
     grid: int
-    barriers: int
+    flags: int
     act_elems: int
 
 
@@ -181,7 +184,7 @@ def plan(n: int, h: int, w: int, blocks: int, cmid: int, cout: int, sms: int,
     block each): `variant` is one of `conv_cuda.VARIANTS`, (tile width,
     weight stages), 16 → 16×16 positions, 32 → 8×32 (every variant sums each
     output in the same order, so all give the same bytes). The grid is the
-    SM count, or fewer where no layer has that many items."""
+    SM count, or fewer where the layers have fewer items in all."""
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant}: the kernel has {VARIANTS}")
     tile_w, stages = variant
@@ -191,23 +194,7 @@ def plan(n: int, h: int, w: int, blocks: int, cmid: int, cout: int, sms: int,
     couts = tuple(cout if layer == d - 1 else cmid for layer in range(d))
     items = tuple(n * tiles_h * tiles_w * (c // LANES) for c in couts)
     return TrunkPlan(n, tile_h, tile_w, stages, tiles_h, tiles_w, couts, items,
-                     min(sms, max(items)), d - 1, n * h * w * cmid)
-
-
-def item_origin(p: TrunkPlan, layer: int, item: int) -> tuple[int, int, int, int]:
-    """(image, y0, x0, n0) of work item `item` of `layer`, as the kernel
-    decodes it: item = (image · tiles + tile) · (couts[layer] / 128) +
-    channel tile, tiles row-major."""
-    nct = p.couts[layer] // LANES
-    t, ct = divmod(item, nct)
-    img, tile = divmod(t, p.tiles_h * p.tiles_w)
-    ty, tx = divmod(tile, p.tiles_w)
-    return img, ty * p.tile_h, tx * p.tile_w, ct * LANES
-
-
-def dealt(p: TrunkPlan, layer: int, block: int) -> range:
-    """The items of `layer` that persistent block `block` computes."""
-    return range(block, p.items[layer], p.grid)
+                     min(sms, sum(items)), (d - 1) * (n * tiles_h * tiles_w + 1), n * h * w * cmid)
 
 
 def pack_params(params: Sequence[torch.Tensor]) -> list[torch.Tensor]:
@@ -232,7 +219,7 @@ def _launch(x: torch.Tensor, params: Sequence[torch.Tensor], blocks: int, round_
     p = plan(n, h, w, blocks, cmid, cout, sms, variant or DEFAULT_VARIANT)
     packed = pack_params(params)
     acts = torch.empty((3, p.act_elems), dtype=torch.bfloat16, device=x.device)
-    counter = torch.zeros(1, dtype=torch.int32, device=x.device)
+    ready = torch.zeros(p.flags, dtype=torch.int32, device=x.device)
     out = torch.empty((n, h, w, cout), dtype=torch.bfloat16, device=x.device)
     n_layers = depth(blocks)
     ks = (ctypes.c_void_p * n_layers)(*(k.data_ptr() for k in packed))
@@ -240,7 +227,7 @@ def _launch(x: torch.Tensor, params: Sequence[torch.Tensor], blocks: int, round_
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.nu_trunk_fused(
         x.device.index or 0, x.data_ptr(), ks, bs, n_layers,
-        acts[0].data_ptr(), acts[1].data_ptr(), acts[2].data_ptr(), counter.data_ptr(),
+        acts[0].data_ptr(), acts[1].data_ptr(), acts[2].data_ptr(), ready.data_ptr(),
         out.data_ptr(), n, h, w, cin, cmid, cout, blocks, p.tile_w, p.stages, p.grid,
         int(round_sum), stream,
     )

@@ -168,6 +168,25 @@ def test_batch_is_per_image(rng):
         assert torch.equal(out[i:i + 1], tc.trunk_fused(x[i:i + 1].contiguous(), params, 2))
 
 
+def item_origin(p, layer: int, item: int) -> tuple[int, int, int, int]:
+    """(image, y0, x0, n0) of work item `item` of `layer`, as the kernel
+    decodes it: item = (image · tiles + tile) · (couts[layer] / 128) +
+    channel tile, tiles row-major."""
+    nct = p.couts[layer] // 128
+    t, ct = divmod(item, nct)
+    img, tile = divmod(t, p.tiles_h * p.tiles_w)
+    ty, tx = divmod(tile, p.tiles_w)
+    return img, ty * p.tile_h, tx * p.tile_w, ct * 128
+
+
+def dealt(p, layer: int, block: int) -> range:
+    """The items of `layer` that persistent block `block` computes, as the
+    kernel deals them: every grid-th item of the layers' sequence from the
+    block's own index on."""
+    first = sum(p.items[:layer])
+    return range((block - first) % p.grid, p.items[layer], p.grid)
+
+
 # the learned grids (x2 tpu4b2, x4 tpu4; N = 1 and 4) and a ragged 27x40
 PLAN_SHAPES = [(1, 270, 480, 2, 256), (4, 270, 480, 2, 256), (1, 135, 240, 3, 1024),
                (4, 135, 240, 3, 1024), (4, 27, 40, 2, 256), (1, 27, 40, 3, 1024)]
@@ -177,17 +196,21 @@ PLAN_SHAPES = [(1, 270, 480, 2, 256), (4, 270, 480, 2, 256), (1, 135, 240, 3, 10
 @pytest.mark.parametrize("n, h, w, blocks, cout", PLAN_SHAPES)
 def test_plan_deals_every_item_once_and_covers_the_frame(n, h, w, blocks, cout, variant):
     """Each layer's (image, tile, channel tile) items are dealt to the
-    persistent blocks exactly once, and each channel tile's tiles cover
-    every position of every image exactly once (the overhang past the
-    frame is the kernel's to mask)."""
+    persistent blocks exactly once, every grid-th item of the layers'
+    sequence to each, and each channel tile's tiles cover every position of
+    every image exactly once (the overhang past the frame is the kernel's
+    to mask)."""
     p = tc.plan(n, h, w, blocks, 128, cout, 132, variant)
     assert (p.tile_w, p.stages) == variant and p.tile_h * p.tile_w == 256
     for layer, c in enumerate(p.couts):
-        seen = np.concatenate([np.fromiter(tc.dealt(p, layer, b), np.int64) for b in range(p.grid)])
+        first = sum(p.items[:layer])
+        seen = np.concatenate([np.fromiter(dealt(p, layer, b), np.int64) for b in range(p.grid)])
         assert np.array_equal(np.sort(seen), np.arange(p.items[layer]))
+        for b in (0, p.grid - 1):
+            assert all((first + i) % p.grid == b for i in dealt(p, layer, b))
         cover = np.zeros((c // 128, n, p.tiles_h * p.tile_h, p.tiles_w * p.tile_w), np.int64)
         for item in range(p.items[layer]):
-            img, y0, x0, n0 = tc.item_origin(p, layer, item)
+            img, y0, x0, n0 = item_origin(p, layer, item)
             assert y0 < h and x0 < w and n0 % 128 == 0
             cover[n0 // 128, img, y0:y0 + p.tile_h, x0:x0 + p.tile_w] += 1
         assert np.all(cover == 1)
@@ -195,16 +218,17 @@ def test_plan_deals_every_item_once_and_covers_the_frame(n, h, w, blocks, cout, 
 
 
 @pytest.mark.parametrize("n, h, w, blocks, cout", PLAN_SHAPES)
-def test_plan_grid_barriers_and_scratch(n, h, w, blocks, cout):
-    """The grid is the SM count unless no layer has that many items; one
-    barrier between layers; three activation buffers of n·h·w·cmid; the
-    tail's items are Cout / 128 times a layer's."""
+def test_plan_grid_flags_and_scratch(n, h, w, blocks, cout):
+    """The grid is the SM count unless the layers have fewer items in all;
+    a ready flag per (layer, image, tile) and per layer of every layer but
+    the tail; three activation buffers of n·h·w·cmid; the tail's items are
+    Cout / 128 times a layer's."""
     p = tc.plan(n, h, w, blocks, 128, cout, 132)
     d = tc.depth(blocks)
     tiles = n * -(-h // 16) * -(-w // 16)
     assert p.couts == (128,) * (d - 1) + (cout,)
     assert p.items == (tiles,) * (d - 1) + (tiles * cout // 128,)
-    assert p.grid == min(132, tiles * cout // 128) and p.barriers == d - 1
+    assert p.grid == min(132, (d - 1 + cout // 128) * tiles) and p.flags == (d - 1) * (tiles + 1)
     assert p.act_elems == n * h * w * 128
     assert tc.plan(n, h, w, blocks, 128, cout, 4).grid == 4
 

@@ -9,10 +9,11 @@ it also times parts of the work on their own:
 
 * a trunk of 0 residual blocks (3 layers: head, trunk conv, tail) against
   the served 2 blocks (7 layers) at ×2: their difference over 4 is the cost
-  of one 128 → 128 layer with its barrier;
-* "barriers only": a source variant whose work-item loops run no item, so
-  the launch is the layers' grid-wide barriers and nothing else (its bytes
-  are wrong; only its time means anything);
+  of one 128 → 128 layer with its waits on the layer before;
+* "synchronisation only": a source variant whose work items skip the conv
+  and the stores, so the launch is the items' waits on ready flags, their
+  signals and the block's barriers and nothing else (its bytes are wrong;
+  only its time means anything);
 * the weights' repack alone (`trunk_cuda.pack_params`), which the wrapper
   makes per call.
 
@@ -69,9 +70,11 @@ BASELINE_DIR = ROOT / "build" / "trunk_twopass_baseline"
 SOURCES = ("trunk_fused", "resample_twopass", "conv3x3")
 CSRC_REL = "nu_scaler_tpu_torch/kernels/csrc"
 
-# the layer-synchronous trunk with its work-item loops emptied: the barriers only
-_TRUNK_NO_ITEMS = [("    for (int it = blockIdx.x; it < items; it += gridDim.x) {",
-                    "    for (int it = blockIdx.x; it < 0 * items; it += gridDim.x) {")]
+# the layer-by-layer trunk with its items' conv and stores skipped: the
+# synchronisation only
+_TRUNK_SYNC_ONLY = [("      conv_tile<TH, TW, NS>(halo, role.src", "      if (g.n < 0) conv_tile<TH, TW, NS>(halo, role.src"),
+                    ("    for (int i = tid; i < kBM * (kBN / 8); i += kThreads) {",
+                     "    for (int i = tid; i < 0; i += kThreads) {")]
 
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 # the C interfaces of the sources before this design (see the docstring)
@@ -223,13 +226,14 @@ def main() -> int:
         dst = torch.empty((1, lz.out_h, lz.out_w, 4), dtype=torch.uint8, device=dev)
         if part in ("both", "vertical"):
             lib.nu_resample_vert(0, src.data_ptr(), 1, lz.in_h, lz.in_w, lz.first_v.data_ptr(),
-                                 lz.taps_v.data_ptr(), lz.kv, lz.out_h, mid.data_ptr(), stream)
+                                 taps_v.data_ptr(), lz.kv, lz.out_h, mid.data_ptr(), stream)
         if part in ("both", "horizontal"):
             lib.nu_resample_horiz(0, mid.data_ptr(), 1, lz.out_h, lz.in_w, lz.first_h.data_ptr(),
-                                  lz.taps_h.data_ptr(), lz.kh, lz.out_w, dst.data_ptr(), stream)
+                                  taps_h.data_ptr(), lz.kh, lz.out_w, dst.data_ptr(), stream)
         return dst
 
     mid = rc._launch_vert(src[None], 1, lz)
+    taps_v, taps_h = (torch.from_numpy(lz._np[i]).to(dev) for i in (1, 3))  # the compact tap tables
     checkout_calls = {
         "trunk_fused": {name: (lambda a=a: tc.trunk_fused(*a, True)) for name, a in trunk_in.items()},
         "resample_twopass": {
@@ -275,21 +279,21 @@ def main() -> int:
             print(f"{library} checkout, as built: ms {times} ({regs})", flush=True)
             if library == "trunk_fused":
                 seven, three = times["x2"], times["x2 0 blocks (3 layers)"]
-                print(f"trunk_fused checkout: one 128 -> 128 layer with its barrier at x2 "
+                print(f"trunk_fused checkout: one 128 -> 128 layer with its waits at x2 "
                       f"{(seven - three) / 4:.4f} ms ((7 layers - 3 layers) / 4)", flush=True)
                 pack = {name: round(time_ms(lambda a=a: tc.pack_params(a[1])), 4)
                         for name, a in trunk_in.items() if name in ("x2", "x4")}
                 print(f"trunk_fused checkout, the weights' repack alone: ms {pack}", flush=True)
                 text = texts["checkout"][library]
-                if all(old in text for old, _ in _TRUNK_NO_ITEMS):
-                    for old, new in _TRUNK_NO_ITEMS:
+                if all(old in text for old, _ in _TRUNK_SYNC_ONLY):
+                    for old, new in _TRUNK_SYNC_ONLY:
                         text = text.replace(old, new)
-                    _, regs = use(library, f"{library} checkout barriers only", text)
+                    _, regs = use(library, f"{library} checkout synchronisation only", text)
                     times = {name: round(time_ms(fn), 4) for name, fn in checkout_calls[library].items()}
-                    print(f"trunk_fused checkout, barriers only (no items; the repack included): "
-                          f"ms {times} ({regs})", flush=True)
+                    print(f"trunk_fused checkout, synchronisation only (no conv, no stores; the repack "
+                          f"included): ms {times} ({regs})", flush=True)
                 else:
-                    print("trunk_fused checkout: the source holds no work-item loop to empty", flush=True)
+                    print("trunk_fused checkout: the source holds no item to empty", flush=True)
     finally:
         _build.CSRC = csrc
         _build.load_library.cache_clear()
