@@ -80,6 +80,20 @@ Phases, each printed on its own line with its seconds:
    batch of 4, its counts read on their own (two launches a call), against
    the float64 golden (≥ 50 dB), and its device frames per second (the
    counterpart of bench.py's pallas_twocall_lanczos3_fps);
+4f. every rung of the learned ladder (RUNGS), each call's counts read on its
+   own, through create_advanced_upscaler("ultra") with the committed
+   weights: 1366×768 → 2732×1536 on all three ladders (the stride-2 tpu, its
+   convs at the kernel's padded widths), also as a batch of 4 and with
+   trunk_impl="fused" (one trunk_fused launch, the bytes of "layers");
+   720p → 1080p "quality" and 720p → 4K "ultra" (tpu4b2 ×2 and tpu4 ×4 on
+   the unfused graph, resized to the target); ESRGANLite at 1365×767 ×2 and
+   683×384 ×4; and a stride-8, 192-feature model on seeded weights at 1080p
+   ×2, fused (sparse base) and unfused. Gates: the kernel path against the
+   same graph on the plain convs (≥ 45 dB RGB, alpha equal), against the
+   fp32 twin on the bench frame (≥ 40 dB). Per case, beside the card's name
+   and power limit: upscale_arr frames/s and device ms a call, conv
+   launches, the conv work at the padded widths against the graph's own,
+   and each padded conv against F.conv2d at its real widths;
 5. times: per kernel the median of 20 CUDA-event timings after 3 warm-ups,
    the plain version's time, and the bound (the larger of bytes moved over
    the memory rate and operations over the rate of their type: fp32, or
@@ -100,8 +114,9 @@ Phases, each printed on its own line with its seconds:
    launches and each alone, against resample_fused;
 6. torch.profiler traces of 7 fused live steps, of 7 flow_soft live steps,
    of 7 FSR + flow_soft live steps and of 7 learned x2 upscale_arr calls,
-   with the layered and with the fused trunk: the device's busy share,
-   kernel launches per step and device time by kernel and copy.
+   with the layered and with the fused trunk, and of 7 calls of phase 4f's
+   stride-2, 720p→4K, ESRGANLite ×2 and stride-8 graphs: the device's busy
+   share, kernel launches per step and device time by kernel and copy.
 
 The line before the last is the card's name and power limit; the one before
 that is the kernels' JSON; the last line is the result JSON. Without a CUDA
@@ -111,6 +126,7 @@ prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -169,6 +185,18 @@ INT8_LEARNED = (("quality", 2, IN_H, IN_W, "tpu4b2", 76000, 42.0, 8, 0),
                 ("quality", 4, *SIZES["540p"], "tpu4", 52000, 40.0, 8, 1),
                 ("performance", 2, IN_H, IN_W, "tpu4b1", 40000, 42.0, 6, 0))
 LEARNED_GATE_DB = 45.0  # kernel path against the plain path, RGB
+# phase 4f, every rung of the learned ladder: (tag, learned_prefer, input h,
+# w, output h, w, the arch JAX's ladder serves, the graph)
+RUNGS = (
+    ("ultra x2 1366x768", "ultra", 768, 1366, 1536, 2732, "tpu", "FusedServing"),
+    ("quality x2 1366x768", "quality", 768, 1366, 1536, 2732, "tpu", "FusedServing"),
+    ("performance x2 1366x768", "performance", 768, 1366, 1536, 2732, "tpu", "FusedServing"),
+    ("quality 720p->1080p", "quality", 720, 1280, 1080, 1920, "tpu4b2", "UnfusedServing"),
+    ("ultra 720p->4K", "ultra", 720, 1280, 2160, 3840, "tpu4", "UnfusedServing"),
+    ("quality lite x2 1365x767", "quality", 767, 1365, 1534, 2730, "lite", "UnfusedServing"),
+    ("performance lite x4 683x384", "performance", 384, 683, 1536, 2732, "lite", "UnfusedServing"),
+)
+RUNG_TWIN_GATE_DB = 40.0  # every rung against its fp32 twin, on the bench frame
 FUSED_TRUNK_GATE_DB = 50.0  # trunk_impl="fused" against "layers", RGB
 T_START = time.perf_counter()
 
@@ -1366,6 +1394,197 @@ def main() -> int:
               f"two-call resample vs golden: {tgates['twocall_vs_golden_db']:.2f} dB")
         check(tgates["twocall_batch_first_equals_single"], "two-call batch[0] != the single frame")
 
+    with Phase("4f learned, every rung"):
+        # every rung of the learned ladder through create_advanced_upscaler
+        # ("ultra") at full width with the committed weights: the stride-2
+        # arch, the non-exact ratio's unfused graph (down and up to the
+        # target), ESRGANLite at x2 and x4; the counts are read for each call
+        # on its own. The input is the bench frame with a gradient alpha.
+        torch.cuda.empty_cache()
+        flush4f = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+
+        def rung_frame(h_: int, w_: int) -> np.ndarray:
+            f = bench_frame(h_, w_)
+            f[..., 3] = ((np.arange(h_)[:, None] + np.arange(w_)[None, :]) * 255 // (h_ + w_)).astype(np.uint8)
+            return f
+
+        rung_ups, rung_out, rung_counts, rgates, rtimes = {}, {}, {}, {}, {}
+        rung_launches = 0
+        for tag, prefer, h_, w_, oh_, ow_, arch, graph in RUNGS:
+            up = create_advanced_upscaler("ultra")
+            up.learned_prefer = prefer
+            up.initialize(w_, h_, ow_, oh_)
+            fn = up._fn
+            got = (up._serving_tier, fn.arch, type(fn.serving).__name__, fn.quantized)
+            check(got == ("learned", arch, graph, False), f"{tag}: serves {got}")
+            frame = rung_frame(h_, w_)
+            cc.reset_launches()
+            rung_out[tag] = np.frombuffer(up.upscale(frame.tobytes()), np.uint8).reshape(oh_, ow_, 4)
+            torch.cuda.synchronize()
+            rung_counts[tag] = dict(cc.launches)
+            rung_launches += cc.launches["conv3x3"]
+            check(rung_counts[tag] == {"conv3x3": fn.serving.convs_per_frame, "conv3x3_q": 0},
+                  f"{tag} launches: {rung_counts[tag]} (want {fn.serving.convs_per_frame} conv3x3)")
+            rung_ups[tag] = (up, frame)
+        say(f"launches on every rung [{card}]: {json.dumps(rung_counts)}")
+        # the three ladders serve the stride-2 arch at 1366x768: the same graph
+        check(all(np.array_equal(rung_out[f"{p} x2 1366x768"], rung_out["ultra x2 1366x768"])
+                  for p in ("quality", "performance")), "the ladders' stride-2 bytes differ")
+
+        # the batch of 4 through the graph, and trunk_impl="fused"
+        h_, w_, oh_, ow_ = 768, 1366, 1536, 2732
+        up_s2, frame_s2 = rung_ups["ultra x2 1366x768"]
+        batch4_s2 = [np.roll(frame_s2, 16 * i, axis=1).tobytes() for i in range(BATCH)]
+        cc.reset_launches()
+        b_out = up_s2.upscale_batch(batch4_s2)
+        torch.cuda.synchronize()
+        rung_counts[f"ultra x2 1366x768 batch of {BATCH}"] = dict(cc.launches)
+        rung_launches += cc.launches["conv3x3"]
+        check(cc.launches["conv3x3"] == up_s2._fn.serving.convs_per_frame, f"batch launches: {cc.launches}")
+        rgates["s2_batch_equals_singles"] = b_out == [up_s2.upscale(f) for f in batch4_s2]
+        fused_s2 = pel.make_pretrained_upscaler(h_, w_, oh_, ow_, "ultra", dev, "fused")
+        cc.reset_launches()
+        tc.reset_launches()
+        f_s2 = fused_s2(frame_s2).cpu().numpy()
+        torch.cuda.synchronize()
+        rung_counts["ultra x2 1366x768 trunk_impl=fused"] = {**tc.launches, **cc.launches}
+        rung_trunk_launches = tc.launches["trunk_fused"]
+        check((tc.launches["trunk_fused"], cc.launches["conv3x3"]) == (1, 0),
+              f"fused stride-2 launches: {rung_counts['ultra x2 1366x768 trunk_impl=fused']}")
+        rgates["s2_fused_equals_layers"] = bool(np.array_equal(f_s2, rung_out["ultra x2 1366x768"]))
+        say(f"launches, batch and fused trunk [{card}]: "
+            f"{json.dumps({k: v for k, v in rung_counts.items() if 'batch' in k or 'fused' in k})}")
+        check(rgates["s2_batch_equals_singles"], "stride-2 upscale_batch != upscale of each frame")
+        check(rgates["s2_fused_equals_layers"], "stride-2 trunk_impl='fused' != 'layers', byte for byte")
+
+        # the gates: the kernel path against the same graph on the plain
+        # convs, and against the fp32 twin (the same model in fp32, then the
+        # same resize)
+        for tag, prefer, h_, w_, oh_, ow_, arch, graph in RUNGS:
+            up, frame = rung_ups[tag]
+            if tag.startswith(("quality x2 1366", "performance x2 1366")):
+                continue  # the bytes of "ultra x2 1366x768", checked above
+            model, _ = pel.load_model(arch, up._fn.serving.upscale)
+            plain_fn = pel.make_serving_fn(model, h_, w_, oh_, ow_, dev, conv=cc.conv3x3_plain)
+            plain = plain_fn(torch.from_numpy(frame[None]).to(dev))[0].cpu().numpy()
+            x01 = torch.from_numpy(frame[None, ..., :3].astype(np.float32) / 255.0).to(dev)
+            twin = pel.make_twin(model, oh_, ow_)(x01)[0]
+            twin_u8 = torch.clamp(torch.round(twin * 255.0), 0, 255).to(torch.uint8).cpu().numpy()
+            got = rung_out[tag]
+            rgates[f"{tag}_vs_plain_path_db"] = psnr(got, plain)
+            rgates[f"{tag}_vs_plain_path_max_lsb"] = int(np.abs(got.astype(int) - plain).max())
+            rgates[f"{tag}_alpha_equal"] = bool(np.array_equal(got[..., 3], plain[..., 3]))
+            rgates[f"{tag}_vs_twin_db"] = psnr(got, twin_u8)
+            check(rgates[f"{tag}_vs_plain_path_db"] >= LEARNED_GATE_DB and rgates[f"{tag}_alpha_equal"],
+                  f"{tag} kernel path vs plain path: {rgates[f'{tag}_vs_plain_path_db']:.2f} dB")
+            check(rgates[f"{tag}_vs_twin_db"] >= RUNG_TWIN_GATE_DB,
+                  f"{tag} vs twin: {rgates[f'{tag}_vs_twin_db']:.2f} dB < {RUNG_TWIN_GATE_DB}")
+        # a stride-8, 192-feature model on seeded weights: the fused graph
+        # (sparse base) and the unfused one at 1080p x2, kernel against plain
+        gen = torch.Generator().manual_seed(SEED)
+        s8 = pel.ESRGANLiteTPU(features=192, blocks=3, upscale=2, stride=8, base_impl="sparse")
+        for name, p in s8.named_parameters():
+            fan_in = p.shape[0] * p.shape[1] * p.shape[2] if p.dim() == 4 else 1
+            p.data = (torch.randn(p.shape, generator=gen) / fan_in ** 0.5 if p.dim() == 4
+                      else 0.01 * torch.randn(p.shape, generator=gen))
+        s8_frame = rung_frame(IN_H, IN_W)
+        s8_graphs = {
+            "stride8 fused": (pel.FusedServing(s8, IN_H, IN_W, dev),
+                              pel.FusedServing(s8, IN_H, IN_W, dev, conv=cc.conv3x3_plain)),
+            "stride8 unfused": (pel.UnfusedServing(s8, IN_H, IN_W, OUT_H, OUT_W, dev),
+                                pel.UnfusedServing(s8, IN_H, IN_W, OUT_H, OUT_W, dev, conv=cc.conv3x3_plain)),
+        }
+        src8 = torch.from_numpy(s8_frame[None]).to(dev)
+        for tag, (ker_fn, plain_fn) in s8_graphs.items():
+            cc.reset_launches()
+            got = ker_fn(src8)[0].cpu().numpy()
+            torch.cuda.synchronize()
+            rung_counts[tag] = dict(cc.launches)
+            rung_launches += cc.launches["conv3x3"]
+            check(cc.launches["conv3x3"] == ker_fn.convs_per_frame, f"{tag} launches: {cc.launches}")
+            plain = plain_fn(src8)[0].cpu().numpy()
+            rgates[f"{tag}_vs_plain_path_db"] = psnr(got, plain)
+            rgates[f"{tag}_alpha_equal"] = bool(np.array_equal(got[..., 3], plain[..., 3]))
+            check(rgates[f"{tag}_vs_plain_path_db"] >= LEARNED_GATE_DB and rgates[f"{tag}_alpha_equal"],
+                  f"{tag} kernel path vs plain path: {rgates[f'{tag}_vs_plain_path_db']:.2f} dB")
+        say(f"every-rung gates [{card}]: " + json.dumps(rgates))
+
+        # per case: upscale_arr frames/s and device ms a call; the conv work
+        # at the kernel's padded widths against the graph's own widths; and
+        # each distinct padded conv against F.conv2d at its real widths
+        cuda_gen = torch.Generator(device=dev).manual_seed(SEED)
+
+        def spy_convs(serving, src):
+            """(positions, h, w, k, b, relu) of each conv launch of one call."""
+            seen, orig = [], serving.conv
+
+            def spy(x, k, b, relu, round_sum):
+                seen.append((x.shape[0] * x.shape[1] * x.shape[2], x.shape[1], x.shape[2], k, b, relu))
+                return orig(x, k, b, relu, round_sum)
+
+            serving.conv = spy
+            try:
+                serving(src)
+            finally:
+                serving.conv = orig
+            return seen
+
+        timed = []  # (tag, the call timed, its serving graph, its input batch)
+        for tag, *_ in RUNGS:
+            if tag.startswith(("quality x2 1366", "performance x2 1366")):
+                continue  # the "ultra" call's graph
+            up, frame = rung_ups[tag]
+            src = torch.from_numpy(frame).to(dev)
+            timed.append((tag, functools.partial(up.upscale_arr, src), up._fn.serving, src[None]))
+        src = torch.from_numpy(frame_s2).to(dev)
+        timed.append(("ultra x2 1366x768 trunk_impl=fused", functools.partial(fused_s2, src),
+                      fused_s2.serving, src[None]))
+        timed += [(tag, functools.partial(ker_fn, src8), ker_fn, src8) for tag, (ker_fn, _) in s8_graphs.items()]
+        conv_pairs = {}
+        for tag, run, serving, src in timed:
+            run()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                run()
+            torch.cuda.synchronize()
+            fps = 10 / (time.perf_counter() - t0)
+            dev_ms = time_ms(torch, run, flush4f)
+            rtimes[tag] = {"upscale_arr_fps_device": fps, "device_ms_per_call": dev_ms}
+            if serving.trunk_impl == "fused":
+                say(f"time every rung [{tag}] [{card}]: {fps:.2f} frames/s, {dev_ms:.4f} ms a call on "
+                    f"the card (one trunk_fused launch)")
+                continue
+            seen = spy_convs(serving, src)
+            padded_ops = sum(2 * 9 * k.shape[2] * k.shape[3] * n_pos for n_pos, _, _, k, _, _ in seen)
+            real_ops = sum(2 * 9 * ci * co * n_pos for (n_pos, *_), (ci, co) in zip(seen, serving.widths))
+            rtimes[tag].update({"conv_launches": len(seen), "conv_ops_padded": padded_ops,
+                                "conv_ops_real": real_ops, "padded_over_real": padded_ops / real_ops})
+            say(f"time every rung [{tag}] [{card}]: {fps:.2f} frames/s, {dev_ms:.4f} ms a call on the "
+                f"card; {len(seen)} conv launches, {padded_ops / 1e9:.2f} GFLOP at the padded widths "
+                f"against {real_ops / 1e9:.2f} at the graph's ({padded_ops / real_ops:.2f}x)")
+            for (_, h_c, w_c, k, b, relu), (ci, co) in zip(seen, serving.widths):
+                key = (h_c, w_c, k.shape[2], k.shape[3], ci, co)
+                if key in conv_pairs or (k.shape[2], k.shape[3]) == (ci, co):
+                    continue
+                x = torch.randn((1, h_c, w_c, k.shape[2]), generator=cuda_gen, device=dev).to(torch.bfloat16)
+                x[..., ci:] = 0
+                xc = x[..., :ci].permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+                wc = k[:, :, :ci, :co].permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+                bc = b[:co].contiguous()
+                ker_ms = time_ms(torch, lambda: cc.conv3x3(x, k, b, relu, True), flush4f)
+                lib_ms = time_ms(torch, lambda: torch.nn.functional.conv2d(xc, wc, bc, padding=1), flush4f)
+                lib_d = float((torch.nn.functional.conv2d(xc, wc, bc, padding=1).permute(0, 2, 3, 1).float()
+                               - cc.conv3x3(x, k, b, False, True)[..., :co].float()).abs().max().item())
+                conv_pairs[key] = {"case": tag, "positions": f"{h_c}x{w_c}",
+                                   "padded": f"{k.shape[2]}->{k.shape[3]}", "real": f"{ci}->{co}",
+                                   "kernel_ms": ker_ms, "F_conv2d_real_ms": lib_ms,
+                                   "max_abs_diff_F_conv2d": lib_d}
+                say(f"  conv [{tag}] {h_c}x{w_c} padded {k.shape[2]}->{k.shape[3]}: {ker_ms:.4f} ms; "
+                    f"F.conv2d at the real {ci}->{co}: {lib_ms:.4f} ms (max |d| {lib_d:.4g}) [{card}]")
+        say(f"e2e every rung [{card}]: " + json.dumps(rtimes))
+        del flush4f
+
     with Phase("5 times"):
         flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
         tables = 4 * (OUT_H * (1 + lz.kv) + OUT_W * (1 + lz.kh))
@@ -1573,6 +1792,10 @@ def main() -> int:
         rows.append({
             "name": "conv3x3", "route": "cuda", "source": CONV_SOURCE, "replaces": REPLACES["conv3x3"],
             "launches": learned_counts["conv3x3"], "max_abs_err": errs["conv3x3"], **main,
+            # phase 4f's rungs (the stride-2, unfused, ESRGANLite and stride-8
+            # graphs) at the kernel's padded widths, each padded shape beside
+            # F.conv2d at its real widths
+            "launches_every_rung": rung_launches, "padded_shapes": list(conv_pairs.values()),
             "inputs": f"a tpu4b2 block conv's committed weights on trunk-like activations, "
                       f"1x{th2}x{tw2}x128 -> 128 (the x2 trunk grid of the input)",
             "max_abs_err_units": "bf16 value, every value within conv_cuda.ulp_tolerance",
@@ -1678,6 +1901,7 @@ def main() -> int:
         rows.append({
             "name": "trunk_fused", "route": "cuda", "source": TRUNK_SOURCE, "replaces": REPLACES["trunk_fused"],
             "launches": fused_counts["trunk_fused"], "max_abs_err": errs["trunk_fused"], **main,
+            "launches_every_rung": rung_trunk_launches,
             # no single PyTorch call computes the trunk: library_chain_ms is
             # the same chain as 7 (x2) or 9 (x4) F.conv2d calls
             "library_ms": None,
@@ -1739,6 +1963,15 @@ def main() -> int:
         busy = trace_calls(torch, q_ups[("quality", 2)].upscale_arr, torch.from_numpy(frames["a"]).to(dev),
                            7, Path(_build.BUILD_DIR) / "learned_quality_x2_trace.json")
         say("trace learned quality x2 (int8) upscale_arr: " + json.dumps(busy))
+        # phase 4f's rungs: where a call's device time goes on the padded graphs
+        for tag in ("ultra x2 1366x768", "ultra 720p->4K", "quality lite x2 1365x767"):
+            up, frame = rung_ups[tag]
+            busy = trace_calls(torch, up.upscale_arr, torch.from_numpy(frame).to(dev), 7,
+                               Path(_build.BUILD_DIR) / f"rung_{tag.split()[1].replace('>', '')}_trace.json")
+            say(f"trace every rung [{tag}] upscale_arr [{card}]: " + json.dumps(busy))
+        busy = trace_calls(torch, s8_graphs["stride8 fused"][0], src8, 7,
+                           Path(_build.BUILD_DIR) / "rung_stride8_trace.json")
+        say(f"trace every rung [stride8 fused] [{card}]: " + json.dumps(busy))
 
     say(f"total {time.perf_counter() - T_START:.1f} s")
     say(json.dumps({"kernels": rows}))

@@ -8,6 +8,13 @@ from nu_scaler_tpu_torch.core._constants import (
     UpscalingQuality,
 )
 from nu_scaler_tpu_torch.core.interpolator import WgpuFrameInterpolator, create_interpolator
+from nu_scaler_tpu_torch.core.technologies import (
+    NISUpscaler,
+    PassThroughUpscaler,
+    create_upscaler,
+    is_supported,
+    upscale_image_file,
+)
 from nu_scaler_tpu_torch.core.upscaler import (
     PyAdvancedWgpuUpscaler,
     PyFsrUpscaler,
@@ -26,6 +33,11 @@ __all__ = [
     "create_fsr_upscaler",
     "create_advanced_upscaler",
     "create_best_upscaler",
+    "create_upscaler",
+    "is_supported",
+    "upscale_image_file",
+    "NISUpscaler",
+    "PassThroughUpscaler",
     "WgpuFrameInterpolator",
     "create_interpolator",
     "UpscalingQuality",

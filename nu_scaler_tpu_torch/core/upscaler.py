@@ -211,13 +211,18 @@ class PyAdvancedWgpuUpscaler(PyWgpuUpscaler):
     detection, memory stats, allocation strategy, adaptive quality and
     cleanup, and the learned tier.
 
-    Quality "ultra" serves the learned network (`models/esrgan_lite.py`) for
-    the ladder named by `learned_prefer` (set by the caller, as the app's
-    facade does; default "quality"): "ultra" in bf16, "quality" and
-    "performance" on the int8 grid, all through the conv kernel. A ratio or
-    frame size no ported arch serves raises `NotImplementedError` naming its
-    ROADMAP item, at `initialize`: there is no silent classical fallback.
-    Other qualities run the classical resample kernel."""
+    Quality "ultra" serves the learned network (`models/esrgan_lite.py`)
+    for every request, through the conv kernel, on the ladder named by
+    `learned_prefer` (set by the caller, as the app's facade does; default
+    "quality"): "performance" through `make_fast_upscaler`, the others
+    through `make_pretrained_upscaler`, as `nu_scaler_core/upscaler.py:244-
+    248` does. The ladder picks what JAX's picks: at an exact ×2 / ×4 on a
+    frame stride 4 divides, tpu4b2 / tpu4 (int8 on "quality", tpu4b1 int8
+    at ×2 on "performance", bf16 on "ultra"); on a frame only stride 2
+    divides, the stride-2 tpu at ×2; at another ratio the same nets' bf16
+    output resized to the target; where none serves, ESRGANLite. There is
+    no classical fallback. Other qualities run the classical resample
+    kernel."""
 
     _QUALITY_RANK = {
         UpscalingQuality.ULTRA: 5,
@@ -262,13 +267,14 @@ class PyAdvancedWgpuUpscaler(PyWgpuUpscaler):
         self._upscale_scale = output_width / input_width  # lib.rs:434 (width only)
         self._serving_tier = "classical"
         if self._quality == UpscalingQuality.ULTRA:
+            sizes = (self.input_height, self.input_width, self.output_height, self.output_width)
             try:
-                self._fn = _learned.make_pretrained_upscaler(
-                    self.input_height, self.input_width, self.output_height, self.output_width,
-                    self.learned_prefer, self.device,
-                )
-            except NotImplementedError:
-                self._initialized = False  # nothing serves this request
+                if self.learned_prefer == "performance":
+                    self._fn = _learned.make_fast_upscaler(*sizes, self.device)
+                else:
+                    self._fn = _learned.make_pretrained_upscaler(*sizes, self.learned_prefer, self.device)
+            except Exception:
+                self._initialized = False  # no classical stand-in for a failed learned tier
                 raise
             self._serving_tier = "learned"
         self._pool.set_allocation_strategy(AllocationStrategy.for_frame(input_width, input_height))

@@ -5,6 +5,10 @@ its plain PyTorch version.
 (→ `_make_kernel` :26): a 3×3 SAME (zero padding) convolution of bf16 NHWC
 ``[N, H, W, Cin]`` with bf16 HWIO weights ``[3, 3, Cin, Cout]`` and a bf16
 bias ``[Cout]`` to bf16 ``[N, H, W, Cout]``, Cin and Cout multiples of 128.
+A conv of another width (the stride-2 and stride-8 archs, the RGB heads and
+tails of the non-exact-ratio graph, ESRGANLite) runs on the same kernel with
+its weights zero-padded once at load (`pad_weights`) and its activations'
+lanes zero-padded (`conv3x3_padded`), which is exact.
 What both versions compute, in the Pallas kernel's order of rounding: the 9
 taps' products summed in fp32 (bf16 × bf16 is exact in fp32), the bias added
 in fp32 after the sum, then ReLU if asked, then one rounding to bf16. With
@@ -43,6 +47,7 @@ from __future__ import annotations
 import contextlib
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -152,6 +157,50 @@ def conv3x3_q_plain(xq: torch.Tensor, kq: torch.Tensor, scale: torch.Tensor,
     if relu:
         acc = torch.clamp_min(acc, 0.0)
     return acc.to(torch.bfloat16)
+
+
+def lanes(c: int) -> int:
+    """`c` channels rounded up to a multiple of `LANES`, the kernel's width."""
+    return -(-c // LANES) * LANES
+
+
+def pad_weights(k: np.ndarray, b: Optional[np.ndarray] = None):
+    """A conv of any width on the kernel's widths, once at load: HWIO `k`
+    [3, 3, Cin, Cout] → [3, 3, lanes(Cin), lanes(Cout)] with zero kernel rows
+    for the padded inputs and zero columns for the padded outputs, and the
+    bias [Cout] → [lanes(Cout)] with zeros (returned with k when given)."""
+    cin, cout = k.shape[2], k.shape[3]
+    kp = np.zeros((3, 3, lanes(cin), lanes(cout)), np.float32)
+    kp[:, :, :cin, :cout] = k
+    if b is None:
+        return kp
+    bp = np.zeros((lanes(cout),), np.float32)
+    bp[:cout] = b
+    return kp, bp
+
+
+def pad_lanes(x: torch.Tensor, c: int) -> torch.Tensor:
+    """x [..., C] → [..., c] with zero lanes appended (x itself when C is c)."""
+    if x.shape[-1] == c:
+        return x.contiguous()
+    return torch.cat([x, x.new_zeros((*x.shape[:-1], c - x.shape[-1]))], dim=-1)
+
+
+def conv3x3_padded(x: torch.Tensor, kp: torch.Tensor, bp: torch.Tensor, cout: int,
+                   relu: bool = False, round_sum: bool = False, conv=None) -> torch.Tensor:
+    """A 3×3 conv of any width through `conv` (`conv3x3` by default): `x`
+    [N, H, W, C ≤ Cin'] zero-padded to the padded weights' Cin' (`pad_lanes`),
+    `kp` and `bp` from `pad_weights`, and the output's padded lanes sliced
+    off past `cout`. Exact: a padded lane adds +0 products to each fp32 sum,
+    and a padded output is 0 + 0 (ReLU(0) = 0)."""
+    y = (conv or conv3x3)(pad_lanes(x, kp.shape[2]), kp, bp, relu, round_sum)
+    return y if y.shape[-1] == cout else y[..., :cout]
+
+
+def conv3x3_padded_plain(x: torch.Tensor, kp: torch.Tensor, bp: torch.Tensor, cout: int,
+                         relu: bool = False, round_sum: bool = False) -> torch.Tensor:
+    """`conv3x3_padded` on the kernel's plain version."""
+    return conv3x3_padded(x, kp, bp, cout, relu, round_sum, conv3x3_plain)
 
 
 def ulp_bf16(v: torch.Tensor) -> torch.Tensor:

@@ -1,54 +1,65 @@
-"""ESRGAN-lite, the learned "ultra" tier — the port of
-`nu_scaler_tpu/models/esrgan_lite.py` (its bf16 serving path).
+"""ESRGAN-lite, the learned tier — the port of
+`nu_scaler_tpu/models/esrgan_lite.py` (its serving paths).
 
 `ESRGANLiteTPU` is the network as an `nn.Module` in the [0, 1] domain: a
 space-to-depth(stride) front end, a head conv, residual blocks
 (conv → ReLU → conv, 0.2-scaled skip), a trunk conv with the global skip, a
 tail conv that emits every output phase, and a fixed bilinear base over the
-s2d neighbourhood added back. Its convs follow flax `nn.Conv` in the module's
-dtype: the sum in fp32, rounded to the dtype, then the bias added in the
-dtype. In fp32 it is the twin the JAX package's fidelity gate compares the
-served bytes with (`bench.py` `_twin_model_fn`: f32 parameters on f32
-input).
+s2d neighbourhood added back (a dense 3×3 conv, or at stride 8 the
+structured "sparse" form with JAX's roundings, `sparse_base`). `ESRGANLite`
+is the "lite" net the JAX ladder falls back to: full resolution, 2×
+pixel-shuffle stages and an `image_resize` base. Their convs follow flax
+`nn.Conv` in the module's dtype: the sum in fp32, rounded to the dtype, then
+the bias added in the dtype. In fp32 they are the twins the JAX package's
+fidelity gate compares the served bytes with (`bench.py` `_twin_model_fn`:
+f32 parameters on f32 input), then resized to the target (`make_twin`).
 
-`make_serving_fn_fused` is the production serving graph for exact ratios
-(`esrgan_lite.py:891` in its bf16 branch): u8 RGBA in, u8 RGBA out, in the
-raw 0..255 domain (1/255 folded into the head kernel, 255 into the tail),
-with alpha riding the bilinear base. Its seven (x2, tpu4b2) or nine (x4,
-tpu4) 3×3 convs go through `kernels.conv_cuda.conv3x3`, the port of the
-Pallas `make_conv3x3`, with ``round_sum=True``: the JAX graph's XLA conv
-rounds its sum to bf16 before the bias is added in bf16, and the kernel's
-epilogue does the same. With ``trunk_impl="fused"`` the whole chain, head to
-tail, is one launch of `kernels.trunk_cuda.trunk_fused`, the port of the
-Pallas `make_trunk_fused`, with the same rounding (the counterpart of the
-JAX model's `conv_impl` switch); "layers" stays the default. The fixed base
-is an fp32 VALID conv, exact in any order. Every other cast to bf16 sits
-where the JAX graph puts it.
+`make_serving_fn` dispatches as JAX's does (`esrgan_lite.py:1096`):
 
-With ``quant_scales`` (a checkpoint's int8 calibration) the graph is the
-int8 branch of `make_serving_fn_fused` (`esrgan_lite.py:950-1076`) that the
-"quality" (default) and "performance" ladders serve: every residual-block,
-trunk and tail conv is `_conv_i8` — the activation quantised by
-`conv_cuda.quantize_act`, then `conv_cuda.conv3x3_q`, the conv kernel's
-int8-grid epilogue — and, with "head" / "base" scales, the head and the
-fixed base too (the base VALID on the edge-padded 128-lane input: the
-kernel runs it SAME over the padded tensor and the interior is kept).
-`make_quant_apply` is its fp32 twin, the one the bench's gates compare with.
+- `FusedServing`, `make_serving_fn_fused`: the production graph for an
+  `ESRGANLiteTPU` at an exact ratio on a frame its stride divides (`:891`),
+  u8 RGBA in, u8 RGBA out, in the raw 0..255 domain (1/255 folded into the
+  head kernel, 255 into the tail), alpha riding the bilinear base. Its convs
+  go through `kernels.conv_cuda.conv3x3`, the port of the Pallas
+  `make_conv3x3`, with ``round_sum=True``: the JAX graph's XLA conv rounds
+  its sum to bf16 before the bias is added in bf16, and the kernel's
+  epilogue does the same. With ``trunk_impl="fused"`` the chain, head to
+  tail, is one launch of `kernels.trunk_cuda.trunk_fused`, the port of the
+  Pallas `make_trunk_fused`, with the same rounding; "layers" stays the
+  default. With ``quant_scales`` (a checkpoint's int8 calibration) it is the
+  int8 branch (`:950-1076`) that the "quality" (default) and "performance"
+  ladders serve: every residual-block, trunk and tail conv is `_conv_i8` —
+  the activation quantised by `conv_cuda.quantize_act`, then
+  `conv_cuda.conv3x3_q`, the conv kernel's int8-grid epilogue — and, with
+  "head" / "base" scales, the head and the fixed base too.
+- `UnfusedServing`: the other branch (`:1171-1181`), for every other
+  request: a ratio the net does not land on (its ×2 or ×4 output resized to
+  the target by `ops.image_resize`, the port's `jax.image.resize`), and
+  ESRGANLite. The model's bf16 forward on [0, 1] RGB, its convs on the same
+  kernel, the alpha plane resized on its own. It ignores int8 scales, as
+  JAX's does.
+
+Every conv of another width than the kernel's multiples of 128 (the stride-2
+arch's 16-lane head and 64 features, tpu8w's 192, the RGB heads and tails,
+ESRGANLite's 3, 32 and 128) runs on the same kernel with its weights
+zero-padded once at load (`conv_cuda.pad_weights`), which is exact.
+`make_quant_apply` is the int8 graph's fp32 twin.
 
 Weights and int8 scales come from the files under
-`nu_scaler_tpu_torch/weights/`, written from the orbax checkpoints and their
-``act_scales.json`` by `tools/export_torch_weights.py`. The stride-2 and
-stride-8 archs and the non-exact-ratio path raise `NotImplementedError`
-with their ROADMAP item.
+`nu_scaler_tpu_torch/weights/`, written from the orbax checkpoints (and
+ESRGANLite's seed-0 initialisations) by `tools/export_torch_weights.py`.
+`make_pretrained_upscaler` walks JAX's ladder (`_build_pretrained`,
+`:591-649`) and serves every request the JAX package serves.
 """
 
 from __future__ import annotations
 
+import copy
 import functools
 import hashlib
 import json
 from pathlib import Path
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
@@ -57,6 +68,7 @@ from torch import nn
 
 from nu_scaler_tpu_torch.device import resolve_device
 from nu_scaler_tpu_torch.kernels import conv_cuda, trunk_cuda
+from nu_scaler_tpu_torch.ops.image_resize import image_resize
 from nu_scaler_tpu_torch.ops.resample import to_device_u8
 
 WEIGHTS_DIR = Path(__file__).resolve().parents[1] / "weights"
@@ -87,7 +99,8 @@ ARCH_LADDER = {
         ("tpu", {}, None),
     ),
 }
-NOT_PORTED_ARCH = "is not ported yet (ROADMAP queue 1, item 9)"
+LITE = "lite"  # the arch name of ESRGANLite, as JAX's fn.arch reports it
+BASE_IMPLS = ("conv", "sparse")
 
 
 # ---------------------------------------------------------------------------
@@ -125,6 +138,26 @@ def _bilinear_base_kernel(c: int, upscale: int, stride: int = 2) -> np.ndarray:
                     for ch in range(c):
                         k[diy + 1, dix + 1, qy * s * c + qx * c + ch, py * r * c + px * c + ch] += wy * wx
     return k
+
+
+@functools.lru_cache(maxsize=8)
+def _sparse_base_terms(c: int, upscale: int, stride: int):
+    """The fixed base kernel K[3, 3, I, O] factored into the dense centre
+    cell's [I, O] matrix and, per neighbour cell offset (oy, ox) in row-major
+    order, a pair (A [I, k], columns [k]): A holds the k output phases that
+    offset reaches (edge and corner phases only), `columns` their output
+    channels — the one-tap scatter B of `esrgan_lite.py:209-229`."""
+    k = _bilinear_base_kernel(c, upscale, stride)
+    terms = []
+    for oy in (-1, 0, 1):
+        for ox in (-1, 0, 1):
+            if oy == 0 and ox == 0:
+                continue
+            m = k[oy + 1, ox + 1]
+            nz = np.nonzero(np.any(m != 0.0, axis=0))[0]
+            if nz.size:
+                terms.append((oy, ox, np.ascontiguousarray(m[:, nz]), nz))
+    return k[1, 1], tuple(terms)
 
 
 def _expand_in_rgba(k: np.ndarray, st: int, scale: float) -> np.ndarray:
@@ -195,6 +228,50 @@ def _edge_pad(x: torch.Tensor) -> torch.Tensor:
     return F.pad(x.permute(0, 3, 1, 2), (1, 1, 1, 1), mode="replicate").permute(0, 2, 3, 1)
 
 
+def _shift_edge(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """out[n, i, j] = x[n, clip(i + dy), clip(j + dx)] for |dy|, |dx| ≤ 1
+    (`_shift_edge_nhwc`, `esrgan_lite.py:232`)."""
+    h, w = x.shape[1], x.shape[2]
+    return _edge_pad(x)[:, 1 + dy : 1 + dy + h, 1 + dx : 1 + dx + w, :]
+
+
+def dense_base(s2d: torch.Tensor, c: int, upscale: int, stride: int) -> torch.Tensor:
+    """The fixed bilinear base as the dense 3×3 VALID conv on the
+    edge-padded s2d, in s2d's dtype. Its taps are multiples of 1/16 (×2) or
+    1/64 (×4) on values with 8 significant bits, so the fp32 sum is exact in
+    any order and one rounding to the dtype gives the bf16 conv's value."""
+    k = torch.from_numpy(_bilinear_base_kernel(c, upscale, stride)).to(s2d.device)
+    return conv_cuda.conv_valid_f32(_edge_pad(s2d.float()), k).to(s2d.dtype)
+
+
+def sparse_base(s2d: torch.Tensor, c: int, upscale: int, stride: int) -> torch.Tensor:
+    """The fixed base in its structured form (`base_impl="sparse"`,
+    `esrgan_lite.py:314-322,1064-1069`), with JAX's roundings in s2d's
+    dtype: the centre cell's product, rounded; then per neighbour offset, in
+    order, its reduction over the edge-shifted s2d, rounded, scattered onto
+    its output phases (an exact one-tap copy) and added to the running sum,
+    rounded. Each product sum is exact in fp32 (as in `dense_base`); the
+    roundings of the running sum are not, so their order is kept."""
+    center, terms = _sparse_base_terms(c, upscale, stride)
+    dt, dev = s2d.dtype, s2d.device
+
+    def rounded_product(x: torch.Tensor, m: np.ndarray) -> torch.Tensor:
+        with conv_cuda.full_fp32_matmul():
+            return (x.float() @ torch.from_numpy(m).to(dev)).to(dt)
+
+    base = rounded_product(s2d, center)
+    for oy, ox, a, columns in terms:
+        cols = torch.from_numpy(columns).to(dev)
+        red = rounded_product(_shift_edge(s2d, oy, ox), a)
+        base[..., cols] = base[..., cols] + red  # the other phases add an exact 0
+    return base
+
+
+def fixed_base(s2d: torch.Tensor, c: int, upscale: int, stride: int, base_impl: str) -> torch.Tensor:
+    """The fixed bilinear base by `base_impl` ("conv" or "sparse")."""
+    return (sparse_base if base_impl == "sparse" else dense_base)(s2d, c, upscale, stride)
+
+
 class Conv3x3(nn.Module):
     """flax `nn.Conv(features, (3, 3), padding="SAME")`: HWIO `kernel`,
     `bias`; in the parameters' dtype the sum (fp32) is rounded to the dtype
@@ -224,12 +301,16 @@ class ResBlock(nn.Module):
 class ESRGANLiteTPU(nn.Module):
     """The s2d / phase-domain ESRGAN-lite (`esrgan_lite.py:248`). Parameter
     names follow the flax module's (``head.kernel``, ``block0.conv1.bias``,
-    …); `params_from_flax` maps a flax tree onto them."""
+    …); `params_from_flax` maps a flax tree onto them. `base_impl` "sparse"
+    is the structured base the JAX ladder serves at stride 8."""
 
     def __init__(self, features: int = 64, blocks: int = 3, upscale: int = 2,
-                 stride: int = 2) -> None:
+                 stride: int = 2, base_impl: str = "conv") -> None:
         super().__init__()
+        if base_impl not in BASE_IMPLS:
+            raise ValueError(f"base_impl must be one of {BASE_IMPLS}, got {base_impl!r}")
         self.features, self.blocks, self.upscale, self.stride = features, blocks, upscale, stride
+        self.base_impl = base_impl
         r = stride * upscale
         self.head = Conv3x3(stride * stride * 3, features)  # RGB
         for i in range(blocks):
@@ -252,10 +333,47 @@ class ESRGANLiteTPU(nn.Module):
             h = blk(h)
         h = self.trunk(h) + feat
         tail = self.tail(h)
-        base_k = torch.from_numpy(_bilinear_base_kernel(x01.shape[-1], self.upscale, st))
-        base = conv_cuda.conv_valid_f32(_edge_pad(s2d), base_k.to(dt).to(s2d.device)).to(dt)
-        phases = tail + base
+        phases = tail + fixed_base(s2d, x01.shape[-1], self.upscale, st, self.base_impl)
         return phases if phase_domain else _d2s(phases, r)
+
+
+class ESRGANLite(nn.Module):
+    """The "lite" net (`esrgan_lite.py:145`) the JAX ladder falls back to: a
+    head, residual blocks and a trunk at full resolution, then per stage a
+    conv to 4·features, a 2× pixel shuffle and ReLU, a tail to RGB, and the
+    input resized bilinearly (`image_resize`, in x's dtype) added back."""
+
+    def __init__(self, features: int = 32, blocks: int = 4, stages: int = 1) -> None:
+        super().__init__()
+        self.features, self.blocks, self.stages = features, blocks, stages
+        self.upscale = 2 ** stages
+        self.head = Conv3x3(3, features)
+        for i in range(blocks):
+            self.add_module(f"block{i}", ResBlock(features))
+        self.trunk = Conv3x3(features, features)
+        for s in range(stages):
+            self.add_module(f"up{s}", Conv3x3(features, 4 * features))
+        self.tail = Conv3x3(features, 3)
+
+    def res_blocks(self) -> list[ResBlock]:
+        return [getattr(self, f"block{i}") for i in range(self.blocks)]
+
+    def up_convs(self) -> list[Conv3x3]:
+        return [getattr(self, f"up{s}") for s in range(self.stages)]
+
+    def forward(self, x01: torch.Tensor) -> torch.Tensor:
+        """x01: [N, H, W, 3] in [0, 1] → [N, uH, uW, 3], in the parameters'
+        dtype."""
+        x = x01.to(self.head.kernel.dtype)
+        feat = self.head(x)
+        h = feat
+        for blk in self.res_blocks():
+            h = blk(h)
+        h = self.trunk(h) + feat
+        for up in self.up_convs():
+            h = torch.relu(_d2s(up(h), 2))
+        out = self.tail(h)
+        return image_resize(x, out.shape) + out
 
 
 def params_from_flax(tree) -> dict:
@@ -321,25 +439,57 @@ def load_act_scales(arch: str, upscale: int) -> Optional[dict]:
     return dict(scales) if isinstance(scales, dict) and scales else None
 
 
-def load_model(arch: str, upscale: int) -> Optional[tuple[ESRGANLiteTPU, dict]]:
-    """The fp32 module with the committed weights of `arch` at `upscale`,
-    and its metadata; None when the port carries no such weights."""
+def load_model(arch: str, upscale: int) -> Optional[tuple[nn.Module, dict]]:
+    """The fp32 module with the committed weights of `arch` at `upscale`
+    (`ESRGANLite` for "lite", else `ESRGANLiteTPU`, with the sparse base at
+    stride 8 as `_build_pretrained` picks it), and its metadata; None when
+    the port carries no such weights."""
     loaded = load_weights(arch, upscale)
     if loaded is None:
         return None
     tree, meta = loaded
-    model = ESRGANLiteTPU(upscale=upscale, **meta["model"])
+    if arch == LITE:
+        model = ESRGANLite(stages=meta["stages"], **meta["model"])
+    else:
+        kw = meta["model"]
+        model = ESRGANLiteTPU(upscale=upscale, base_impl="sparse" if kw["stride"] == 8 else "conv", **kw)
     model.load_state_dict(params_from_flax(tree))
     return model, meta
 
 
+def make_twin(model: nn.Module, out_h: int, out_w: int) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The fp32 twin the fidelity gates compare the served bytes with: the
+    model in fp32 on [0, 1] RGB [N, H, W, 3], then resized to the target
+    (`image_resize`) where the net does not land on it. The model's own
+    dtype is left as it is."""
+    m32 = copy.deepcopy(model).float()
+
+    def fn(x01: torch.Tensor) -> torch.Tensor:
+        out = m32.to(x01.device)(x01.float())
+        if tuple(out.shape[1:3]) != (out_h, out_w):
+            out = image_resize(out, (out.shape[0], out_h, out_w, out.shape[3]))
+        return out
+
+    return fn
+
+
 # ---------------------------------------------------------------------------
-# the serving graph
+# the serving graphs
 # ---------------------------------------------------------------------------
 
 ConvFn = Callable[..., torch.Tensor]  # (x, k, b, relu, round_sum) → bf16
 ConvQFn = Callable[..., torch.Tensor]  # (xq, kq, scale, b, relu) → bf16
 TRUNK_IMPLS = ("layers", "fused")
+INV_255 = 1.0 / 255.0
+
+
+def _np32(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().float().numpy()
+
+
+def _check_trunk_impl(trunk_impl: str) -> None:
+    if trunk_impl not in TRUNK_IMPLS:
+        raise ValueError(f"trunk_impl must be one of {TRUNK_IMPLS}, got {trunk_impl!r}")
 
 
 class QConv(NamedTuple):
@@ -357,6 +507,11 @@ class FusedServing:
     """The raw-domain serving graph of `make_serving_fn_fused`: u8 RGBA
     [N, H, W, 4] → u8 RGBA [N, uH, uW, 4] for the whole batch.
 
+    Every conv runs at the kernel's widths: the weights are zero-padded at
+    load (`conv_cuda.pad_weights`), the head's s2d lanes zero-padded to them
+    (16 → 128 at stride 2, 64 → 128 at stride 4 as the JAX graph does, 256
+    at stride 8 as it is), and the tail's padded phases sliced off.
+
     bf16 (``quant_scales`` None): `trunk_impl` "layers" runs the learned
     layers as one conv launch each, with `conv` (the kernel wrapper by
     default; `conv_cuda.conv3x3_plain` to run the graph on its plain
@@ -366,14 +521,17 @@ class FusedServing:
     tail — and the head and the fixed base where the scales name them — run
     on the int8 grid through `conv_q` (`conv_cuda.conv3x3_q` by default;
     `conv_cuda.conv3x3_q_plain` for the plain version); a missing "head" /
-    "base" leaves the bf16 head and the fp32 base. The fused trunk is bf16
-    only, as JAX's is."""
+    "base" leaves the bf16 head and the exact base. The fused trunk is bf16
+    only, as JAX's is.
+
+    The base is the model's `base_impl`: the dense conv, or at stride 8 the
+    sparse form in bf16 with JAX's roundings (never on the int8 grid there,
+    `esrgan_lite.py:990`)."""
 
     def __init__(self, model: ESRGANLiteTPU, in_h: int, in_w: int, device,
                  conv: Optional[ConvFn] = None, trunk_impl: str = "layers",
                  quant_scales: Optional[dict] = None, conv_q: Optional[ConvQFn] = None) -> None:
-        if trunk_impl not in TRUNK_IMPLS:
-            raise ValueError(f"trunk_impl must be one of {TRUNK_IMPLS}, got {trunk_impl!r}")
+        _check_trunk_impl(trunk_impl)
         if quant_scales is not None and trunk_impl != "layers":
             raise ValueError("trunk_impl='fused' serves bf16 only: the int8 ladders run "
                              "trunk_impl='layers'")
@@ -382,39 +540,36 @@ class FusedServing:
             raise ValueError(f"{in_w}x{in_h} is not a multiple of the stride {st}")
         self.device = resolve_device(device)
         self.in_hw = (in_h, in_w)
-        self.stride, self.r = st, st * up
+        self.stride, self.upscale, self.r = st, up, st * up
+        self.base_impl = model.base_impl
         self.conv = conv or conv_cuda.conv3x3
         self.conv_q = conv_q or conv_cuda.conv3x3_q
         self.trunk_impl = trunk_impl
 
-        def np32(t: torch.Tensor) -> np.ndarray:
-            return t.detach().cpu().float().numpy()
-
         def bf16(a: np.ndarray) -> torch.Tensor:
             return torch.from_numpy(np.ascontiguousarray(a)).to(self.device).to(torch.bfloat16)
 
-        head_k = _expand_in_rgba(np32(model.head.kernel), st, 1 / 255.0)
-        # the head's 64 s2d lanes are padded to 128 with zero lanes (and zero
-        # kernel rows), as the JAX graph does for its 128-lane contraction
-        self.pad_c = 128 - head_k.shape[2] if head_k.shape[2] == 64 else 0
-        if self.pad_c:
-            head_k = np.concatenate(
-                [head_k, np.zeros((3, 3, self.pad_c, head_k.shape[-1]), np.float32)], axis=2)
-        self.head = (bf16(head_k), bf16(np32(model.head.bias)))
-        self.blocks = [
-            tuple((bf16(np32(c.kernel)), bf16(np32(c.bias))) for c in (blk.conv1, blk.conv2))
-            for blk in model.res_blocks()
-        ]
-        self.trunk = (bf16(np32(model.trunk.kernel)), bf16(np32(model.trunk.bias)))
-        tail_k, tail_b = _expand_out_rgba(np32(model.tail.kernel), np32(model.tail.bias),
-                                          self.r, 255.0)
+        # the head's s2d lanes, and the RGBA-interleaved phases the tail emits
+        self.head_lanes = conv_cuda.lanes(st * st * 4)
+        self.phases = self.r * self.r * 4
+        head_k, head_b = conv_cuda.pad_weights(_expand_in_rgba(_np32(model.head.kernel), st, 1 / 255.0),
+                                               _np32(model.head.bias))
+        blocks = [tuple(conv_cuda.pad_weights(_np32(c.kernel), _np32(c.bias)) for c in (blk.conv1, blk.conv2))
+                  for blk in model.res_blocks()]
+        trunk_k, trunk_b = conv_cuda.pad_weights(_np32(model.trunk.kernel), _np32(model.trunk.bias))
+        tail_k, tail_b = conv_cuda.pad_weights(*_expand_out_rgba(_np32(model.tail.kernel),
+                                                                 _np32(model.tail.bias), self.r, 255.0))
+        self.head = (bf16(head_k), bf16(head_b))
+        self.blocks = [tuple((bf16(k), bf16(b)) for k, b in blk) for blk in blocks]
+        self.trunk = (bf16(trunk_k), bf16(trunk_b))
         self.tail = (bf16(tail_k), bf16(tail_b))
-        # taps are multiples of 1/16 (x2) or 1/64 (x4) on integers ≤ 255:
-        # the fp32 base is exact in any order
-        self.base_k = torch.from_numpy(_bilinear_base_kernel(4, up, st)).to(self.device)
         # the fused kernel's flat params: head, block convs, trunk, tail
         self.trunk_params = (*self.head, *(t for blk in self.blocks for kb in blk for t in kb),
                              *self.trunk, *self.tail)
+        # each bf16 conv's (Cin, Cout) in JAX's graph, before the padding to
+        # the kernel's widths (JAX pads a 64-lane head input to 128 itself)
+        f, cin = model.features, st * st * 4
+        self.widths = ((128 if cin == 64 else cin, f), *[(f, f)] * (2 * len(blocks) + 1), (f, self.phases))
 
         self.quant_scales = quant_scales
         if quant_scales is None:
@@ -422,29 +577,23 @@ class FusedServing:
         q = quant_scales
 
         def qconv(k: np.ndarray, b: Optional[np.ndarray], ax: float, dc: bool = False) -> QConv:
+            # a padded row or column is zero: kq 0, and its channel's scale 1
             kq, dq = (_quant_kernel_i8_dc if dc else _quant_kernel_i8)(k)
             return QConv(bf16(kq.astype(np.float32)), conv_cuda.qgrid_scale(dq, ax).to(self.device),
                          None if b is None else torch.from_numpy(b).to(self.device), float(ax))
 
-        self.q_blocks = [
-            tuple(qconv(np32(c.kernel), np32(c.bias), q[f"block{i}/{name}"])
-                  for name, c in (("conv1", blk.conv1), ("conv2", blk.conv2)))
-            for i, blk in enumerate(model.res_blocks())
-        ]
-        self.q_trunk = qconv(np32(model.trunk.kernel), np32(model.trunk.bias), q["trunk"])
+        self.q_blocks = [tuple(qconv(k, b, q[f"block{i}/{name}"]) for (k, b), name in zip(blk, ("conv1", "conv2")))
+                         for i, blk in enumerate(blocks)]
+        self.q_trunk = qconv(trunk_k, trunk_b, q["trunk"])
         # the EXPANDED tail (×255, RGBA-interleaved) is quantised, as JAX does
         self.q_tail = qconv(tail_k, tail_b, q["tail"])
         # head and base: normalised-domain maxima, ×255 for the raw u8 input
-        self.q_head = (qconv(head_k, np32(model.head.bias), 255.0 * q["head"])
-                       if "head" in q else None)
+        self.q_head = qconv(head_k, head_b, 255.0 * q["head"]) if "head" in q else None
         self.q_base = None
-        if "base" in q:
-            # on the head's 128-lane input: the padded rows are zero, and the
+        if "base" in q and self.base_impl == "conv":
+            # on the head's padded input: the padded rows are zero, and the
             # zero lanes edge-pad to zero
-            base_k = _bilinear_base_kernel(4, up, st)
-            if self.pad_c:
-                base_k = np.concatenate(
-                    [base_k, np.zeros((3, 3, self.pad_c, base_k.shape[-1]), np.float32)], axis=2)
+            base_k = conv_cuda.pad_weights(_bilinear_base_kernel(4, up, st))
             self.q_base = qconv(base_k, None, 255.0 * q["base"], dc=True)
 
     @property
@@ -457,13 +606,14 @@ class FusedServing:
         return 3 + 2 * len(self.blocks) + (self.quantized and self.q_base is not None)
 
     def run_trunk(self, s2d_head: torch.Tensor) -> torch.Tensor:
-        """The bf16 learned layers, head to tail: bf16 [N, h, w, 128] → bf16
-        [N, h, w, r²·4], by `trunk_impl`."""
+        """The bf16 learned layers, head to tail: bf16 [N, h, w, head_lanes]
+        → bf16 [N, h, w, r²·4], by `trunk_impl`."""
         if self.trunk_impl == "fused":
-            return trunk_cuda.trunk_fused(s2d_head, self.trunk_params, len(self.blocks),
-                                          round_sum=True)
-        return trunk_cuda.trunk_chain(self.conv, s2d_head, self.trunk_params, len(self.blocks),
-                                      round_sum=True)
+            out = trunk_cuda.trunk_fused(s2d_head, self.trunk_params, len(self.blocks), round_sum=True)
+        else:
+            out = trunk_cuda.trunk_chain(self.conv, s2d_head, self.trunk_params, len(self.blocks),
+                                         round_sum=True)
+        return out[..., : self.phases]
 
     def _qconv(self, c: QConv, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
         """`_conv_i8(x, kq, dq, b, ax)`: quantise, then the int8-grid conv."""
@@ -482,9 +632,9 @@ class FusedServing:
         for c1, c2 in self.q_blocks:
             h = h + c02 * self._qconv(c2, self._qconv(c1, h, relu=True))
         h = self._qconv(self.q_trunk, h) + feat
-        tail = self._qconv(self.q_tail, h)
+        tail = self._qconv(self.q_tail, h)[..., : self.phases]
         if self.q_base is None:
-            return tail, self.base_f32(s2d)
+            return tail, self.base(s2d)
         # VALID on the edge-padded input: SAME over the padded tensor, the
         # interior kept (it reads no zero padding). Quantising commutes with
         # the edge padding, so the head's quantised input serves when the
@@ -493,32 +643,134 @@ class FusedServing:
             xq_head = conv_cuda.quantize_act(s2d_head, self.q_base.ax)
         base = self.conv_q(_edge_pad(xq_head).contiguous(), self.q_base.kq, self.q_base.scale,
                            None, False)
-        return tail, base[:, 1:-1, 1:-1, :]
+        return tail, base[:, 1:-1, 1:-1, : self.phases]
 
-    def base_f32(self, s2d: torch.Tensor) -> torch.Tensor:
-        """The fixed bilinear base in fp32 (exact), as bf16."""
-        return conv_cuda.conv_valid_f32(_edge_pad(s2d.float()), self.base_k).to(torch.bfloat16)
+    def base(self, s2d: torch.Tensor) -> torch.Tensor:
+        """The fixed bilinear base on the raw RGBA s2d, bf16."""
+        return fixed_base(s2d, 4, self.upscale, self.stride, self.base_impl)
 
     def trunk_input(self, img: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """u8 [N, H, W, 4] → (the raw s2d, bf16 [N, h, w, st²·4]; the head's
-        input, its 64 lanes zero-padded to 128)."""
+        input, its lanes zero-padded to the kernel's width)."""
         if tuple(img.shape[1:3]) != self.in_hw or img.shape[3] != 4 or img.dtype != torch.uint8:
             raise ValueError(f"expected u8 [N, {self.in_hw[0]}, {self.in_hw[1]}, 4], "
                              f"got {img.dtype} {tuple(img.shape)}")
         s2d = _s2d(img.to(torch.bfloat16), self.stride)  # raw 0..255, exact in bf16
-        if self.pad_c:
-            return s2d, torch.cat([s2d, s2d.new_zeros((*s2d.shape[:3], self.pad_c))], dim=-1)
-        return s2d, s2d.contiguous()
+        return s2d, conv_cuda.pad_lanes(s2d, self.head_lanes)
 
     def __call__(self, img: torch.Tensor) -> torch.Tensor:
         s2d, s2d_head = self.trunk_input(img)
         if self.quantized:
             tail, base = self.run_int8(s2d, s2d_head)
         else:
-            tail, base = self.run_trunk(s2d_head), self.base_f32(s2d)
+            tail, base = self.run_trunk(s2d_head), self.base(s2d)
         phases = tail + base  # [N, h, w, r²·4] raw-scale RGBA-interleaved
         ph_u8 = torch.clamp(torch.round(phases), 0, 255).to(torch.uint8)
         return _d2s(ph_u8, self.r)
+
+
+class UnfusedServing:
+    """The other branch of `make_serving_fn` (`esrgan_lite.py:1171-1181`):
+    u8 RGBA [N, H, W, 4] → u8 RGBA [N, out_h, out_w, 4] for the whole batch,
+    for an `ESRGANLiteTPU` at a ratio it does not land on, or `ESRGANLite`:
+
+        f = u8 → fp32 · (1/255); RGB → bf16
+        out = the model's bf16 forward → fp32, resized to the target where
+              it differs (`image_resize`)
+        alpha = image_resize(f's alpha)
+        clip(round(· 255)) → u8
+
+    The forward's convs run on the conv kernel through `conv` (the wrapper
+    by default; `conv_cuda.conv3x3_plain` for the plain version) with
+    ``round_sum=True``, flax `nn.Conv`'s rounding in bf16, on weights
+    zero-padded at load; `trunk_impl="fused"` runs an `ESRGANLiteTPU`'s
+    chain as one launch of the fused trunk. The base is the model's: dense
+    or sparse on the s2d, or `image_resize` for ESRGANLite. int8 scales do
+    not reach this branch, as in JAX."""
+
+    def __init__(self, model: nn.Module, in_h: int, in_w: int, out_h: int, out_w: int, device,
+                 conv: Optional[ConvFn] = None, trunk_impl: str = "layers") -> None:
+        _check_trunk_impl(trunk_impl)
+        self.lite = isinstance(model, ESRGANLite)
+        if self.lite and trunk_impl != "layers":
+            raise ValueError(f"trunk_impl={trunk_impl!r}: ESRGANLite's {model.features}-feature "
+                             f"trunk ends in {4 * model.features}-channel pixel-shuffle stages, not "
+                             f"the head-to-tail chain the fused trunk runs; it serves 'layers'")
+        st = 1 if self.lite else model.stride
+        if in_h % st or in_w % st:
+            raise ValueError(f"{in_w}x{in_h} is not a multiple of the stride {st}")
+        self.device = resolve_device(device)
+        self.in_hw, self.out_hw = (in_h, in_w), (out_h, out_w)
+        self.stride, self.upscale = st, model.upscale
+        self.conv = conv or conv_cuda.conv3x3
+        self.trunk_impl = trunk_impl
+        self.quantized = False  # the branch serves bf16 whatever the scales
+
+        def padded(c: Conv3x3) -> tuple[torch.Tensor, torch.Tensor]:
+            k, b = conv_cuda.pad_weights(_np32(c.kernel), _np32(c.bias))
+            return (torch.from_numpy(k).to(self.device).to(torch.bfloat16),
+                    torch.from_numpy(b).to(self.device).to(torch.bfloat16))
+
+        self.n_blocks = model.blocks
+        chain = [model.head, *(c for blk in model.res_blocks() for c in (blk.conv1, blk.conv2)),
+                 model.trunk]
+        if self.lite:
+            # head to the first up conv is the trunk chain's shape (its
+            # "tail" the 4·features up conv, ReLU after the shuffle)
+            chain += [model.up_convs()[0]]
+            self.ups = [padded(c) for c in model.up_convs()[1:]]
+            self.rgb_tail = padded(model.tail)
+        else:
+            chain += [model.tail]
+            self.r = st * model.upscale
+            self.base_impl = model.base_impl
+        self.chain_params = tuple(t for c in chain for t in padded(c))
+        self.head_lanes = self.chain_params[0].shape[2]
+        # each conv's (Cin, Cout) in the model, before the padding
+        self.widths = tuple(tuple(c.kernel.shape[2:]) for c in chain + ([*model.up_convs()[1:], model.tail]
+                                                                         if self.lite else []))
+
+    @property
+    def convs_per_frame(self) -> int:
+        """Launches of the conv kernel per call ("layers")."""
+        return 3 + 2 * self.n_blocks + (len(self.ups) + 1 if self.lite else 0)
+
+    def run_chain(self, x: torch.Tensor) -> torch.Tensor:
+        """Head to tail (or to ESRGANLite's first up conv), bf16, on the
+        padded widths, by `trunk_impl`."""
+        x = conv_cuda.pad_lanes(x, self.head_lanes)
+        if self.trunk_impl == "fused":
+            return trunk_cuda.trunk_fused(x, self.chain_params, self.n_blocks, round_sum=True)
+        return trunk_cuda.trunk_chain(self.conv, x, self.chain_params, self.n_blocks, round_sum=True)
+
+    def net(self, rgb: torch.Tensor) -> torch.Tensor:
+        """The model's bf16 forward: bf16 [N, H, W, 3] in [0, 1] → bf16
+        [N, uH, uW, 3]."""
+        if self.lite:
+            h = torch.relu(_d2s(self.run_chain(rgb), 2))
+            for k, b in self.ups:
+                h = torch.relu(_d2s(conv_cuda.conv3x3_padded(h, k, b, k.shape[3], False, True, self.conv), 2))
+            out = conv_cuda.conv3x3_padded(h, *self.rgb_tail, 3, False, True, self.conv)
+            return image_resize(rgb, out.shape) + out
+        s2d = _s2d(rgb, self.stride)
+        tail = self.run_chain(s2d)[..., : self.r * self.r * 3]
+        return _d2s(tail + fixed_base(s2d, 3, self.upscale, self.stride, self.base_impl), self.r)
+
+    def __call__(self, img: torch.Tensor) -> torch.Tensor:
+        if tuple(img.shape[1:3]) != self.in_hw or img.shape[3] != 4 or img.dtype != torch.uint8:
+            raise ValueError(f"expected u8 [N, {self.in_hw[0]}, {self.in_hw[1]}, 4], "
+                             f"got {img.dtype} {tuple(img.shape)}")
+        n = img.shape[0]
+        f = img.float() * torch.tensor(INV_255, dtype=torch.float32, device=img.device)
+        out = self.net(f[..., :3].to(torch.bfloat16)).float()
+        if tuple(out.shape[1:3]) != self.out_hw:
+            out = image_resize(out, (n, *self.out_hw, 3))
+        alpha = image_resize(f[..., 3:], (n, *self.out_hw, 1))
+        full = torch.cat([out, alpha], dim=-1)
+        return torch.clamp(torch.round(full * 255.0), 0, 255).to(torch.uint8)
+
+
+Serving = Union[FusedServing, UnfusedServing]
 
 
 def make_serving_fn_fused(model: ESRGANLiteTPU, in_h: int, in_w: int, device=None,
@@ -530,17 +782,20 @@ def make_serving_fn_fused(model: ESRGANLiteTPU, in_h: int, in_w: int, device=Non
     return FusedServing(model, in_h, in_w, device, conv, trunk_impl, quant_scales, conv_q)
 
 
-def make_serving_fn(model: ESRGANLiteTPU, in_h: int, in_w: int, out_h: int, out_w: int,
-                    device=None) -> FusedServing:
-    """Exact-ratio dispatch of `make_serving_fn` (esrgan_lite.py:1096): the
-    fused graph. Its other branch (a ratio the net does not land on, or a
-    frame the stride does not divide) is not ported."""
+def make_serving_fn(model: nn.Module, in_h: int, in_w: int, out_h: int, out_w: int, device=None,
+                    conv: Optional[ConvFn] = None, trunk_impl: str = "layers",
+                    quant_scales: Optional[dict] = None) -> Serving:
+    """The dispatch of `make_serving_fn` (`esrgan_lite.py:1096-1120`): an
+    `ESRGANLiteTPU` at its exact ratio serves the fused graph (int8 with
+    `quant_scales`; a frame its stride does not divide raises ValueError, as
+    JAX's s2d cannot take it); every other request the unfused branch,
+    which ignores `quant_scales`. JAX's middle branch serves only
+    ``conv_impl != "conv"``, which no ladder builds; the port has no
+    counterpart."""
     u = model.upscale
-    if (out_h, out_w) != (in_h * u, in_w * u) or in_h % model.stride or in_w % model.stride:
-        raise NotImplementedError(
-            f"learned serving of {in_w}x{in_h} → {out_w}x{out_h} at x{u}, stride "
-            f"{model.stride} (the non-exact-ratio path of make_serving_fn) {NOT_PORTED_ARCH}")
-    return FusedServing(model, in_h, in_w, device)
+    if isinstance(model, ESRGANLiteTPU) and (out_h, out_w) == (in_h * u, in_w * u):
+        return FusedServing(model, in_h, in_w, device, conv, trunk_impl, quant_scales)
+    return UnfusedServing(model, in_h, in_w, out_h, out_w, device, conv, trunk_impl)
 
 
 def make_quant_apply(model: ESRGANLiteTPU, scales: dict) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -551,20 +806,17 @@ def make_quant_apply(model: ESRGANLiteTPU, scales: dict) -> Callable[[torch.Tens
     st, up = model.stride, model.upscale
     r = st * up
 
-    def np32(t: torch.Tensor) -> np.ndarray:
-        return t.detach().cpu().float().numpy()
-
     def qconv(k: np.ndarray, b: Optional[torch.Tensor], ax: float, dc: bool = False):
         kq, dq = (_quant_kernel_i8_dc if dc else _quant_kernel_i8)(k)
         return (torch.from_numpy(kq.astype(np.float32)), conv_cuda.qgrid_scale(dq, ax),
                 None if b is None else b.detach().float(), float(ax))
 
-    blocks = [tuple(qconv(np32(c.kernel), c.bias, scales[f"block{i}/{name}"])
+    blocks = [tuple(qconv(_np32(c.kernel), c.bias, scales[f"block{i}/{name}"])
                     for name, c in (("conv1", blk.conv1), ("conv2", blk.conv2)))
               for i, blk in enumerate(model.res_blocks())]
-    trunk = qconv(np32(model.trunk.kernel), model.trunk.bias, scales["trunk"])
-    tail = qconv(np32(model.tail.kernel), model.tail.bias, scales["tail"])
-    head = qconv(np32(model.head.kernel), model.head.bias, scales["head"]) if "head" in scales else None
+    trunk = qconv(_np32(model.trunk.kernel), model.trunk.bias, scales["trunk"])
+    tail = qconv(_np32(model.tail.kernel), model.tail.bias, scales["tail"])
+    head = qconv(_np32(model.head.kernel), model.head.bias, scales["head"]) if "head" in scales else None
     base = (qconv(_bilinear_base_kernel(3, up, st), None, scales["base"], dc=True)
             if "base" in scales else None)
 
@@ -597,11 +849,12 @@ def make_quant_apply(model: ESRGANLiteTPU, scales: dict) -> Callable[[torch.Tens
 
 
 class LearnedUpscaler:
-    """``u8 [H, W, 4] → u8 [uH, uW, 4]``, or a batch ``[N, H, W, 4]`` through
-    the same graph in one pass. Outputs stay on the device. `arch`, `step`
-    and `quantized` (the int8 graph serves) say what serves."""
+    """``u8 [H, W, 4] → u8 [OH, OW, 4]``, or a batch ``[N, H, W, 4]`` through
+    the same graph in one pass. Outputs stay on the device. `arch` and `step`
+    say what serves (JAX's ``fn.arch``), and `quantized` whether the int8
+    graph serves."""
 
-    def __init__(self, serving: FusedServing, arch: str, step: int) -> None:
+    def __init__(self, serving: Serving, arch: str, step: int) -> None:
         self.serving, self.arch, self.step = serving, arch, step
         self.device = serving.device
         self.quantized = serving.quantized
@@ -615,21 +868,19 @@ class LearnedUpscaler:
         raise ValueError(f"expected [H, W, 4] or [N, H, W, 4], got {tuple(x.shape)}")
 
 
-@functools.lru_cache(maxsize=8)
+@functools.lru_cache(maxsize=16)
 def _cached_model(arch: str, upscale: int):
     return load_model(arch, upscale)
 
 
 @functools.lru_cache(maxsize=16)
 def _build_pretrained(in_h, in_w, out_h, out_w, prefer, device, trunk_impl) -> LearnedUpscaler:
-    if prefer not in ARCH_LADDER:
-        raise ValueError(f"prefer must be one of {tuple(ARCH_LADDER)}, got {prefer!r}")
+    """JAX's `_build_pretrained` (`esrgan_lite.py:591-649`): the first entry
+    of the ladder whose stride divides the frame, whose weights the port
+    carries and, for a "quant" entry, whose scales match; else ESRGANLite at
+    the stage count. `make_serving_fn` then picks the graph."""
     stages = scale_to_stages(in_h, out_h)
     u = 2 ** stages
-    if (out_h, out_w) != (in_h * u, in_w * u):
-        raise NotImplementedError(
-            f"learned upscale {in_w}x{in_h} → {out_w}x{out_h} is not an exact x{u}: the "
-            f"non-exact-ratio serving path {NOT_PORTED_ARCH}")
     for arch, kw, mode in ARCH_LADDER[prefer]:
         st = kw.get("stride", 2)
         if in_h % st or in_w % st:
@@ -642,33 +893,44 @@ def _build_pretrained(in_h, in_w, out_h, out_w, prefer, device, trunk_impl) -> L
             continue  # an int8 entry without its calibration
         model, meta = loaded
         # "ultra" serves bf16; the other ladders serve int8 whenever the
-        # served checkpoint's scales match
-        serving = FusedServing(model, in_h, in_w, device, trunk_impl=trunk_impl,
-                               quant_scales=None if prefer == "ultra" else scales)
+        # served checkpoint's scales match and the fused graph serves
+        serving = make_serving_fn(model, in_h, in_w, out_h, out_w, device, trunk_impl=trunk_impl,
+                                  quant_scales=None if prefer == "ultra" else scales)
         return LearnedUpscaler(serving, arch, meta["step"])
-    raise NotImplementedError(
-        f"no ported learned arch serves x{u} at {in_w}x{in_h}: the stride-2 arch and "
-        f"ESRGANLite, which the JAX ladder falls back to, {NOT_PORTED_ARCH}")
+    loaded = _cached_model(LITE, u)
+    if loaded is None:
+        raise ValueError(f"no learned weights serve x{u}: the port carries ESRGANLite at "
+                         f"x2, x4 and x8, as the JAX ladder's reach")
+    model, meta = loaded
+    return LearnedUpscaler(make_serving_fn(model, in_h, in_w, out_h, out_w, device,
+                                           trunk_impl=trunk_impl), LITE, meta["step"])
 
 
 def make_pretrained_upscaler(in_h: int, in_w: int, out_h: int, out_w: int,
-                             prefer: str = "ultra", device=None,
+                             prefer: str = "quality", device=None,
                              trunk_impl: str = "layers") -> LearnedUpscaler:
-    """The learned tier for these sizes on `device` (the card unless "cpu"):
-    the first entry of the `prefer` ladder ("ultra", "quality" or
-    "performance") whose stride divides the frame, whose weights the port
-    carries and, for an int8 entry, whose scales match; bf16 for "ultra",
-    int8 for the others where the scales allow. Cached per (sizes, prefer,
-    device, trunk_impl); `trunk_impl="fused"` with an int8 ladder raises
-    ValueError."""
-    return _build_pretrained(in_h, in_w, out_h, out_w, prefer, resolve_device(device),
-                             trunk_impl)
+    """The learned tier for these sizes on `device` (the card unless "cpu"),
+    as the JAX package's `make_pretrained_upscaler` serves it: the `prefer`
+    ladder ("quality", the default; "ultra"; "performance"; any other name
+    serves "quality"), bf16 for "ultra", int8 for the others where the
+    served checkpoint's scales match and the ratio is exact. Cached per
+    (sizes, prefer, device, trunk_impl); `trunk_impl="fused"` with the int8
+    graph or ESRGANLite raises ValueError."""
+    if prefer not in ARCH_LADDER:
+        prefer = "quality"
+    return _build_pretrained(in_h, in_w, out_h, out_w, prefer, resolve_device(device), trunk_impl)
 
 
 def make_pretrained_batch_upscaler(in_h: int, in_w: int, out_h: int, out_w: int,
-                                   prefer: str = "ultra", device=None,
+                                   prefer: str = "quality", device=None,
                                    trunk_impl: str = "layers") -> LearnedUpscaler:
-    """Batched learned serving: u8 [N, H, W, 4] → u8 [N, uH, uW, 4], the batch
+    """Batched learned serving: u8 [N, H, W, 4] → u8 [N, OH, OW, 4], the batch
     through the graph (one launch per conv layer, or one for the fused trunk),
-    not a loop."""
+    not a loop, as JAX's vmap of the single-frame graph."""
     return make_pretrained_upscaler(in_h, in_w, out_h, out_w, prefer, device, trunk_impl)
+
+
+def make_fast_upscaler(in_h: int, in_w: int, out_h: int, out_w: int, device=None) -> LearnedUpscaler:
+    """The "performance" learned tier (`esrgan_lite.py:525-534`): the fast
+    ladder, tpu4b1 first, then the stride-8 trunks, then the quality order."""
+    return make_pretrained_upscaler(in_h, in_w, out_h, out_w, "performance", device)

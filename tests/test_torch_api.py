@@ -216,7 +216,7 @@ def test_advanced_ultra_serves_the_learned_tier(rng):
         assert up._serving_tier == "learned" and up._fn.arch == arch
         assert up.upscale_scale == ow / w
         img = rng.integers(0, 256, (h, w, 4), np.uint8)
-        want = pel.make_pretrained_upscaler(h, w, oh, ow, device="cpu")(img).numpy().tobytes()
+        want = pel.make_pretrained_upscaler(h, w, oh, ow, "ultra", device="cpu")(img).numpy().tobytes()
         assert up.upscale(img.tobytes()) == want
         assert torch.equal(up.upscale_arr(img), torch.from_numpy(np.frombuffer(want, np.uint8).reshape(oh, ow, 4).copy()))
 
@@ -267,21 +267,32 @@ def test_advanced_adaptive_upgrade_capped_at_requested(pattern, monkeypatch):
     assert up.get_quality_str() == "balanced" and up._serving_tier == "classical"
 
 
-@pytest.mark.parametrize("prefer, sizes, item", [
-    ("quality", (30, 30, 60, 60), 9),        # the default ladder, stride 4 does not divide 30
-    ("performance", (32, 32, 96, 96), 9),    # x3 lands on no exact ratio
-    ("ultra", (32, 32, 96, 96), 9),          # x3 lands on no exact ratio
-    ("ultra", (30, 30, 60, 60), 9),          # stride 4 does not divide 30
+@pytest.mark.parametrize("prefer, sizes, arch", [
+    ("quality", (30, 30, 60, 60), "tpu"),          # the default ladder, stride 4 does not divide 30
+    ("performance", (32, 32, 96, 96), "tpu4"),     # x3 lands on no exact ratio: x4, resized
+    ("ultra", (32, 32, 96, 96), "tpu4"),
+    ("ultra", (30, 30, 60, 60), "tpu"),            # stride 4 does not divide 30: the stride-2 arch
+    ("quality", (31, 31, 62, 62), "lite"),         # odd sides: ESRGANLite
 ])
-def test_advanced_unported_learned_requests_raise(prefer, sizes, item):
-    """An unported learned request raises at initialize, naming its ROADMAP
-    item, and leaves the instance uninitialized: no classical stand-in."""
+def test_advanced_unported_learned_requests_raise(rng, prefer, sizes, arch):
+    """The learned requests that raised before the rest of the ladder was
+    ported serve at initialize, as nu_scaler_core's class does: the JAX
+    ladder's arch ("performance" through make_fast_upscaler), the bytes of
+    the served function, and no classical stand-in."""
+    import nu_scaler_tpu.models.esrgan_lite as el
+    from nu_scaler_tpu_torch.models import esrgan_lite as pel
+
     up = pc.create_advanced_upscaler("ultra", device="cpu")
     up.learned_prefer = prefer
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}\\b"):
-        up.initialize(*sizes)
-    with pytest.raises(RuntimeError, match="Upscaler not initialized"):
-        up.upscale(b"\x00" * (sizes[0] * sizes[1] * 4))
+    w, h, ow, oh = sizes
+    up.initialize(*sizes)
+    jfn = el.make_fast_upscaler(h, w, oh, ow) if prefer == "performance" else \
+        el.make_pretrained_upscaler(h, w, oh, ow, prefer=prefer)
+    assert up._serving_tier == "learned" and up._fn.arch == arch == jfn.arch
+    img = rng.integers(0, 256, (h, w, 4), np.uint8)
+    want = pel.make_pretrained_upscaler(h, w, oh, ow, prefer, device="cpu")(img)
+    out = up.upscale(img.tobytes())
+    assert len(out) == ow * oh * 4 and out == want.numpy().tobytes()
 
 
 @pytest.mark.parametrize("prefer, sizes, arch", [

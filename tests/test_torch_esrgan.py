@@ -134,7 +134,7 @@ def served(restored):
             model = el.ESRGANLiteTPU(upscale=upscale, **kw)
             jfn = el.make_serving_fn_fused(model, params, h, w, quant_scales=None)
             twin = jax.jit(lambda x: model.apply(params, x))  # bench.py _twin_model_fn
-            port = pel.make_pretrained_upscaler(h, w, upscale * h, upscale * w, device="cpu")
+            port = pel.make_pretrained_upscaler(h, w, upscale * h, upscale * w, "ultra", device="cpu")
             assert (port.arch, port.step, port.quantized) == (arch, SERVED[upscale][2], False)
             cache[(upscale, h, w)] = (jfn, twin, port)
         return cache[(upscale, h, w)]
@@ -197,7 +197,7 @@ def test_batch_through_the_graph_equals_frames(served):
     _, _, port = served(2, 32, 64)
     rng = np.random.default_rng(9)
     frames = rng.integers(0, 256, (3, 32, 64, 4), np.uint8)
-    batch = pel.make_pretrained_batch_upscaler(32, 64, 64, 128, device="cpu")(frames)
+    batch = pel.make_pretrained_batch_upscaler(32, 64, 64, 128, "ultra", device="cpu")(frames)
     assert batch.shape == (3, 64, 128, 4)
     for i in range(3):
         assert torch.equal(batch[i], port(frames[i]))
@@ -218,16 +218,21 @@ def test_serving_counts_its_convs(served):
     assert len(calls) == 7 and all(s == (2, 8, 16, 128) for s in calls)
 
 
-@pytest.mark.parametrize("prefer, sizes, item", [
-    ("ultra", (32, 64, 96, 192), "item 9"),   # x3 lands on no exact ratio
-    ("ultra", (30, 62, 60, 124), "item 9"),   # stride 4 does not divide: the stride-2 arch
-    ("ultra", (32, 64, 256, 512), "item 9"),  # x8: no weights carried
-    ("quality", (30, 62, 60, 124), "item 9"),
-    ("performance", (30, 62, 60, 124), "item 9"),
+@pytest.mark.parametrize("prefer, sizes, arch", [
+    ("ultra", (32, 64, 96, 192), "tpu4"),     # x3: the x4 net, resized
+    ("ultra", (30, 62, 60, 124), "tpu"),      # stride 4 does not divide: the stride-2 arch
+    ("ultra", (32, 64, 256, 512), "lite"),    # x8: ESRGANLite
+    ("quality", (30, 62, 60, 124), "tpu"),
+    ("performance", (30, 62, 60, 124), "tpu"),
 ])
-def test_unported_requests_raise(prefer, sizes, item):
-    with pytest.raises(NotImplementedError, match=item):
-        pel.make_pretrained_upscaler(*sizes, prefer=prefer, device="cpu")
+def test_unported_requests_raise(prefer, sizes, arch):
+    """The requests that raised before the rest of the ladder was ported
+    now serve the JAX ladder's arch, u8 RGBA of the output size (their bytes
+    against JAX's: tests/test_torch_esrgan_ladder.py)."""
+    up = pel.make_pretrained_upscaler(*sizes, prefer=prefer, device="cpu")
+    assert up.arch == arch == el.make_pretrained_upscaler(*sizes, prefer=prefer).arch
+    out = up(np.zeros((sizes[0], sizes[1], 4), np.uint8))
+    assert out.shape == (sizes[2], sizes[3], 4) and out.dtype == torch.uint8
 
 
 @pytest.mark.parametrize("prefer, sizes, arch", [
@@ -244,9 +249,11 @@ def test_int8_ladder_requests_serve(prefer, sizes, arch):
 
 
 def test_make_serving_fn_exact_ratio_only():
+    """The fused graph serves only the exact ratio; another ratio serves the
+    unfused branch; a frame the stride does not divide cannot take the
+    fused graph's s2d (ValueError), as in JAX."""
     model, _ = pel.load_model("tpu4b2", 2)
     assert isinstance(pel.make_serving_fn(model, 32, 64, 64, 128, "cpu"), pel.FusedServing)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pel.make_serving_fn(model, 32, 64, 60, 120, "cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    assert isinstance(pel.make_serving_fn(model, 32, 64, 60, 120, "cpu"), pel.UnfusedServing)
+    with pytest.raises(ValueError, match="stride 4"):
         pel.make_serving_fn(model, 30, 64, 60, 128, "cpu")

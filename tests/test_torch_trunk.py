@@ -86,9 +86,9 @@ def test_fused_serving_matches_layers_and_jax(upscale):
     x2 59.16 dB, x4 57.28 dB, the layered path's readings)."""
     arch, _ = SERVED[upscale]
     h, w = 32, 64
-    fused = pel.make_pretrained_upscaler(h, w, upscale * h, upscale * w, device="cpu",
+    fused = pel.make_pretrained_upscaler(h, w, upscale * h, upscale * w, "ultra", device="cpu",
                                          trunk_impl="fused")
-    layers = pel.make_pretrained_upscaler(h, w, upscale * h, upscale * w, device="cpu")
+    layers = pel.make_pretrained_upscaler(h, w, upscale * h, upscale * w, "ultra", device="cpu")
     assert fused.serving.trunk_impl == "fused" and layers.serving.trunk_impl == "layers"
     assert fused.arch == arch
     rng = np.random.default_rng(upscale * 1000 + h)
@@ -104,7 +104,7 @@ def test_fused_serving_matches_layers_and_jax(upscale):
     assert got.shape == want.shape == (upscale * h, upscale * w, 4)
     assert psnr_rgb(got, want) >= 45.0
     assert np.array_equal(got[..., 3], want[..., 3])
-    batch = pel.make_pretrained_batch_upscaler(h, w, upscale * h, upscale * w, device="cpu",
+    batch = pel.make_pretrained_batch_upscaler(h, w, upscale * h, upscale * w, "ultra", device="cpu",
                                                trunk_impl="fused")
     frames = np.stack([img, np.roll(img, 3, axis=1)])
     assert torch.equal(batch(frames)[0], fused(img))

@@ -2,11 +2,17 @@
 
 The port (`nu_scaler_tpu_torch`) imports neither JAX nor orbax, so it reads
 its weights from numpy files committed inside its package. This tool
-restores the orbax checkpoints the JAX package serves as its "ultra" tier
-(`nu_scaler_tpu.models.train.load_checkpoint`) and writes, per checkpoint,
+restores the orbax checkpoints the JAX package's learned ladders serve
+(`nu_scaler_tpu.models.train.load_checkpoint`), and the seed-0
+initialisations its ESRGANLite serves where no checkpoint exists
+(`esrgan_lite.get_params` → `init_params(0, stages)`), and writes, per
+checkpoint,
 
     nu_scaler_tpu_torch/weights/esrgan_{arch}_x{upscale}_{step}.npz
     nu_scaler_tpu_torch/weights/esrgan_{arch}_x{upscale}_{step}.json
+
+(arch "lite" for ESRGANLite; step 0 and ``"init": "flax seed 0"`` in the
+sidecar for an initialisation).
 
 The npz holds every parameter as float32 under its flax path joined by "/"
 (``head/kernel``, ``block0/conv1/bias``, ...), exactly as restored. The JSON
@@ -36,14 +42,23 @@ ROOT = Path(__file__).resolve().parents[1]
 OUT_DIR = ROOT / "nu_scaler_tpu_torch" / "weights"
 
 # (arch, stages, step the JAX package serves, model kwargs): the checkpoints
-# of the "ultra", "quality" and "performance" ladders at stride 4
-# (esrgan_lite.py _ARCH_LADDER): tpu4b2 at x2, tpu4 at x4 (there is no
-# tpu4b2 x4 checkpoint), tpu4b1 at x2 (the head of "performance")
+# of the "ultra", "quality" and "performance" ladders (esrgan_lite.py
+# _ARCH_LADDER): tpu4b2 at x2, tpu4 at x4 (there is no tpu4b2 x4 checkpoint),
+# tpu4b1 at x2 (the head of "performance"), the stride-2 tpu at x2 (frames
+# stride 4 does not divide), and ESRGANLite ("lite"), the ladder's last
+# resort: its checkpoint at x2, its seed-0 initialisations at x4 and x8
+# (step 0). The stride-8 archs (tpu8, tpu8w: x2 only) are not exported: no
+# request reaches them, since tpu4b1 x2 serves every frame stride 8 divides.
 EXPORTS = (
     ("tpu4b2", 1, 76000, dict(stride=4, features=128, blocks=2)),
     ("tpu4", 2, 52000, dict(stride=4, features=128, blocks=3)),
     ("tpu4b1", 1, 40000, dict(stride=4, features=128, blocks=1)),
+    ("tpu", 1, 12000, dict(stride=2, features=64, blocks=3)),
+    ("lite", 1, 6000, dict(features=32, blocks=4)),
+    ("lite", 2, 0, dict(features=32, blocks=4)),
+    ("lite", 3, 0, dict(features=32, blocks=4)),
 )
+INIT = "flax seed 0"  # the sidecar's note on a step-0 export
 
 
 def flatten(tree, prefix: str = "") -> dict:
@@ -69,14 +84,29 @@ def same_arrays(npz: Path, flat: dict) -> bool:
             for k in flat)
 
 
-def export(arch: str, stages: int, step: int, kwargs: dict, out_dir: Path = OUT_DIR) -> Path:
-    sys.path.insert(0, str(ROOT))
-    from nu_scaler_tpu.models.train import load_act_scales, load_checkpoint
+def restore(arch: str, stages: int, step: int):
+    """(params, step): the orbax checkpoint, or for step 0 ESRGANLite's
+    seed-0 initialisation (`init_params(0, stages)`, what `get_params` serves
+    without a checkpoint)."""
+    from nu_scaler_tpu.models.esrgan_lite import init_params
+    from nu_scaler_tpu.models.train import load_checkpoint
 
+    if step == 0:
+        if arch != "lite" or load_checkpoint(stages) is not None:
+            raise ValueError(f"{arch} x{2 ** stages}: step 0 exports ESRGANLite's initialisation "
+                             f"where the JAX package has no checkpoint")
+        return init_params(0, stages)[1], 0
     restored = load_checkpoint(stages, arch)
     if restored is None:
         raise FileNotFoundError(f"no checkpoint for {arch} x{2 ** stages}")
-    params, got_step = restored
+    return restored
+
+
+def export(arch: str, stages: int, step: int, kwargs: dict, out_dir: Path = OUT_DIR) -> Path:
+    sys.path.insert(0, str(ROOT))
+    from nu_scaler_tpu.models.train import load_act_scales
+
+    params, got_step = restore(arch, stages, step)
     if got_step != step:
         raise ValueError(f"{arch} x{2 ** stages}: latest step is {got_step}, expected {step}")
     flat = flatten(params)
@@ -94,6 +124,8 @@ def export(arch: str, stages: int, step: int, kwargs: dict, out_dir: Path = OUT_
         "parameters": int(sum(a.size for a in flat.values())),
         "sha256": hashlib.sha256(npz.read_bytes()).hexdigest(),
     }
+    if step == 0:
+        meta["init"] = INIT
     scales = load_act_scales(stages, arch, step)  # None unless its step is `step`
     if scales is not None:
         meta["act_scales"] = {"step": step, "scales": scales}
