@@ -94,6 +94,25 @@ Phases, each printed on its own line with its seconds:
    and power limit: upscale_arr frames/s and device ms a call, conv
    launches, the conv work at the padded widths against the graph's own,
    and each padded conv against F.conv2d at its real widths;
+4g. the live 4:2:0 link and the flow modes, at 1080p→4K: the 4:2:0
+   converters (ops/color.py) on the card against the numpy goldens of
+   capture/video.py (≥ 50 dB and ≤ 1 LSB, as bench.py's psnr_yuv420_ingest_db
+   and psnr_yuv420_deliver_db) and against the CPU (≤ 1 LSB); the live
+   4:2:0 step as bench.py builds it (LivePipeline with the fused blend
+   kernel, a 4:2:0 ingest_fn and delivery deliver_fn) over 8 frames: 15
+   (y, u, v) payloads, the first frame and mid ≥ 50 dB against the golden
+   4:2:0 of the float64 goldens of the ingested frames, its launch counts,
+   output fps on the card and fetched, and the payload MB in and out; again
+   with a PREVIEW_H-row preview (the "area" resample on resample_fused, each
+   payload equal to the plain version's); benchmark_live_pipeline's dict;
+   modes "flow" and "flow_exact" through WgpuFrameInterpolator (interpolate_py,
+   and interpolate_multi_py at t = (1/3, 2/3) for "flow", equal to the single
+   calls): the card against the CPU (≥ 50 dB RGB, alpha equal for "flow";
+   flow fields ≤ 1e-2 px), both beating the cross-fade on the texture moved
+   8 px; a LivePipeline with the lanczos3 upscale and the "flow"
+   interpolator (2 resample_fused launches a step, no soft warp); the timing
+   API of "blend", "flow_soft", "flow" and "flow_exact" (the JAX keys, every
+   value > 0, the total the calibration's);
 5. times: per kernel the median of 20 CUDA-event timings after 3 warm-ups,
    the plain version's time, and the bound (the larger of bytes moved over
    the memory rate and operations over the rate of their type: fp32, or
@@ -111,8 +130,10 @@ Phases, each printed on its own line with its seconds:
    its ready-flag count, and at ×2 and ×4 in its four variants (16×16 or 8×32
    tiles, 3 or 4 weight stages; each the default's bytes) with ptxas'
    registers and spill stores; the two-call resample, both
-   launches and each alone, against resample_fused;
+   launches and each alone, against resample_fused; phase 4g's flow_soft
+   warp stage within 2x of the soft warp wrapper's time;
 6. torch.profiler traces of 7 fused live steps, of 7 flow_soft live steps,
+   of 7 live 4:2:0 steps, of 7 "flow" and 7 "flow_exact" calls,
    of 7 FSR + flow_soft live steps and of 7 learned x2 upscale_arr calls,
    with the layered and with the fused trunk, and of 7 calls of phase 4f's
    stride-2, 720p→4K, ESRGANLite ×2 and stride-8 graphs: the device's busy
@@ -138,6 +159,7 @@ IN_H, IN_W, OUT_H, OUT_W = 1080, 1920, 2160, 3840
 SEED = 0
 PSNR_GATE_DB = 50.0  # the JAX side's lanczos3 and blend gates
 LIVE_FRAMES = 8
+PREVIEW_H = 540  # the live 4:2:0 delivery's preview height (phase 4g)
 BATCH = 4
 SOURCE = "nu_scaler_tpu_torch/kernels/csrc/resample_fused.cu"
 SOFT_SOURCE = "nu_scaler_tpu_torch/kernels/csrc/soft_warp.cu"
@@ -168,7 +190,11 @@ FSR_RAGGED = (83, 101)  # FSR frames whose sides no tile of the kernel divides
 RAGGED = ((768, 1366, None), (900, 1600, None), (1080, 1920, "tall8x32"))
 SOFT_TILES = ((8, 128), (8, 32))  # the default preset's warp tile, and "tall"'s at 1080p
 SOFT_EDGE_TILE = (8, 12)  # its cells' boundaries fall at columns 6 + 12i: inside runs of 4 or 8
-FLOW_TILE_GATE_PX = 1e-2  # flow tiles, card vs CPU
+FLOW_TILE_GATE_PX = 1e-2  # flow tiles, card vs CPU (and the flow modes' fields)
+# the keys of get_last_gpu_duration_detail per mode (the JAX package's
+# stage_timings_ms keys), "wall_ms" aside
+STAGE_KEYS = {"blend": {"total_ms", "blend_ms"}, "flow_soft": {"total_ms", "flow_ms", "warp_ms"},
+              "flow": {"total_ms", "flow_ms", "warp_ms"}, "flow_exact": {"total_ms", "flow_ms", "warp_ms"}}
 SPLIT_STEPS = 10
 # Published peaks (NVIDIA data sheets): device memory bytes/s, fp32 FLOP/s
 # outside the tensor cores. The H100 SXM row is the default.
@@ -273,6 +299,18 @@ def psnr(a: np.ndarray, b: np.ndarray) -> float:
     d = a[..., :3].astype(np.float64) - b[..., :3].astype(np.float64)
     mse = float(np.mean(d * d))
     return float("inf") if mse <= 0.0 else 20.0 * np.log10(255.0 / np.sqrt(mse))
+
+
+def plane_psnr(a: np.ndarray, b: np.ndarray) -> float:
+    """PSNR of two u8 planes of any shape (a 4:2:0 plane has no channels)."""
+    d = a.astype(np.float64) - b.astype(np.float64)
+    mse = float(np.mean(d * d))
+    return float("inf") if mse <= 0.0 else 10.0 * np.log10(255.0 ** 2 / mse)
+
+
+def lsb(a: np.ndarray, b: np.ndarray) -> int:
+    """Max |a − b| of two u8 arrays."""
+    return int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max())
 
 
 def diff_stats(x, y) -> tuple[int, float]:
@@ -520,6 +558,7 @@ def main() -> int:
         create_advanced_upscaler,
         create_fsr_upscaler,
     )
+    from nu_scaler_tpu_torch.capture.video import _rgba_to_yuv420, _yuv420_to_rgba
     from nu_scaler_tpu_torch.kernels import _build
     from nu_scaler_tpu_torch.kernels import conv_cuda as cc
     from nu_scaler_tpu_torch.kernels import fsr_cuda as fc
@@ -528,9 +567,10 @@ def main() -> int:
     from nu_scaler_tpu_torch.kernels import soft_warp_cuda as swc
     from nu_scaler_tpu_torch.kernels import trunk_cuda as tc
     from nu_scaler_tpu_torch.models import esrgan_lite as pel
+    from nu_scaler_tpu_torch.ops import color
     from nu_scaler_tpu_torch.ops import interpolate as interp
     from nu_scaler_tpu_torch.ops import resample
-    from nu_scaler_tpu_torch.runtime.streaming import LivePipeline
+    from nu_scaler_tpu_torch.runtime.streaming import LivePipeline, benchmark_live_pipeline
 
     # plain versions and goldens in full fp32 / fp64: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1585,6 +1625,180 @@ def main() -> int:
         say(f"e2e every rung [{card}]: " + json.dumps(rtimes))
         del flush4f
 
+    with Phase("4g live 4:2:0 and the flow modes"):
+        # the live link's 4:2:0 conversions against the numpy goldens: the
+        # capture planes of the bench frame in, the 4K bench frame out
+        gy, gu, gv = _rgba_to_yuv420(frames["a"])
+        ingest = color.make_yuv420_to_rgba(IN_H, IN_W)
+        rgba_in = ingest(*(torch.from_numpy(p).to(dev) for p in (gy, gu, gv))).cpu().numpy()
+        rgba_in_cpu = color.make_yuv420_to_rgba(IN_H, IN_W, "cpu")(gy, gu, gv).numpy()
+        want_in = _yuv420_to_rgba(gy, gu, gv)
+        big = bench_frame(OUT_H, OUT_W)
+        planes_out = [p.cpu().numpy() for p in color.make_rgba_to_yuv420(OUT_H, OUT_W)(torch.from_numpy(big).to(dev))]
+        planes_cpu = [p.numpy() for p in color.make_rgba_to_yuv420(OUT_H, OUT_W, "cpu")(big)]
+        want_out = _rgba_to_yuv420(big)
+        color_gates = {
+            "psnr_yuv420_ingest_db": psnr(rgba_in, want_in),
+            "ingest_max_lsb": lsb(rgba_in, want_in),
+            "ingest_card_vs_cpu_max_lsb": lsb(rgba_in, rgba_in_cpu),
+            "psnr_yuv420_deliver_db": min(plane_psnr(p, q) for p, q in zip(planes_out, want_out)),
+            "deliver_max_lsb": max(lsb(p, q) for p, q in zip(planes_out, want_out)),
+            "deliver_card_vs_cpu_max_lsb": max(lsb(p, q) for p, q in zip(planes_out, planes_cpu)),
+        }
+        say(f"color gates [{card}]: " + json.dumps(color_gates))
+        for name in ("psnr_yuv420_ingest_db", "psnr_yuv420_deliver_db"):
+            check(color_gates[name] >= PSNR_GATE_DB, f"{name} {color_gates[name]:.2f} dB < {PSNR_GATE_DB}")
+        for name in ("ingest_max_lsb", "ingest_card_vs_cpu_max_lsb", "deliver_max_lsb",
+                     "deliver_card_vs_cpu_max_lsb"):
+            check(color_gates[name] <= 1, f"{name}: {color_gates[name]} LSB")
+
+        # the live 4:2:0 step as bench.py builds it: 4:2:0 planes in, the fused
+        # resample + cross-fade kernel, 4:2:0 planes out
+        deliver = color.make_delivery_fn(OUT_H, OUT_W, "yuv420")
+        live_planes = [_rgba_to_yuv420(f) for f in live_in]
+
+        def make_yuv_pipe(deliver_fn=deliver):
+            return LivePipeline(None, depth=2, fused_step_fn=step, ingest_fn=ingest, deliver_fn=deliver_fn)
+
+        rc.reset_launches()
+        pipe = make_yuv_pipe()
+        yuv_out = []
+        for pl in live_planes:
+            yuv_out += pipe.put(pl)
+        yuv_out += pipe.drain()
+        torch.cuda.synchronize()
+        yuv_counts = {k: rc.launches[k] for k in ("resample_fused", "resample_fused_blend")}
+        say(f"launches on the live 4:2:0 path: {json.dumps(yuv_counts)}")
+        check(yuv_counts == {"resample_fused": 1, "resample_fused_blend": LIVE_FRAMES - 1},
+              f"live 4:2:0 launches: {yuv_counts}")
+        shapes = ((OUT_H, OUT_W), (OUT_H // 2, OUT_W // 2), (OUT_H // 2, OUT_W // 2))
+        check(len(yuv_out) == 2 * LIVE_FRAMES - 1, f"live 4:2:0 payloads: {len(yuv_out)}")
+        check(all(isinstance(o, tuple) and tuple(p.shape for p in o) == shapes
+                  and all(p.dtype == np.uint8 for p in o) for o in yuv_out), "live 4:2:0 payload shapes")
+        # the first frame and the first mid against the float64 goldens of the
+        # ingested frames (the mid: the round-blend of the two), packed 4:2:0
+        ga, gb = (golden(torch, _yuv420_to_rgba(*pl), wv, wh).cpu().numpy() for pl in live_planes[:2])
+        gmid = np.clip(np.round((ga.astype(np.float64) + gb.astype(np.float64)) * 0.5), 0, 255).astype(np.uint8)
+        live_gates = {
+            "first_planes_db": min(plane_psnr(p, q) for p, q in zip(yuv_out[0], _rgba_to_yuv420(ga))),
+            "mid_planes_db": min(plane_psnr(p, q) for p, q in zip(yuv_out[1], _rgba_to_yuv420(gmid))),
+        }
+        say(f"live 4:2:0 vs goldens [{card}]: " + json.dumps(live_gates))
+        check(min(live_gates.values()) >= PSNR_GATE_DB, f"live 4:2:0 below the gate: {live_gates}")
+
+        # the same step with a PREVIEW_H-row preview: the area resample on
+        # resample_fused, its bytes those of the plain version
+        preview = color.make_delivery_fn(OUT_H, OUT_W, "yuv420", PREVIEW_H)
+        ph, pw = preview.out_hw
+        area = resample.make_resampler(OUT_H, OUT_W, ph, pw, "area")
+        rgba_pipe = LivePipeline(None, depth=2, fused_step_fn=step, ingest_fn=ingest)
+        rgba_out = []
+        for pl in live_planes:
+            rgba_out += rgba_pipe.put_device(pl)
+        rgba_out += rgba_pipe.drain_device()
+        torch.cuda.synchronize()
+        rc.reset_launches()
+        pipe = make_yuv_pipe(preview)
+        prev_out = []
+        for pl in live_planes:
+            prev_out += pipe.put_device(pl)
+        prev_out += pipe.drain_device()
+        torch.cuda.synchronize()
+        prev_counts = {k: rc.launches[k] for k in ("resample_fused", "resample_fused_blend")}
+        say(f"launches on the live 4:2:0 path with a {ph}x{pw} preview: {json.dumps(prev_counts)}")
+        check(prev_counts == {"resample_fused": 1 + len(prev_out), "resample_fused_blend": LIVE_FRAMES - 1},
+              f"preview launches: {prev_counts}")
+        pack = color.make_rgba_to_yuv420(ph, pw)
+        for o_rgba, o_yuv in zip(rgba_out, prev_out):
+            plain = pack(rc.resample_plain(o_rgba, area.plan))
+            check(all(torch.equal(x, y) for x, y in zip(o_yuv, plain)), "preview != its plain version")
+        mb_in = color.payload_bytes("yuv420", IN_H, IN_W) / 1e6
+        live_e2e = {
+            "live_yuv420_output_fps_device": live_fps(torch, make_yuv_pipe, live_planes, False),
+            "live_yuv420_output_fps_host": live_fps(torch, make_yuv_pipe, live_planes, True),
+            "live_yuv420_preview_output_fps_host": live_fps(
+                torch, lambda: make_yuv_pipe(preview), live_planes, True),
+            "payload_mb_in": mb_in, "payload_mb_out": color.payload_bytes("yuv420", OUT_H, OUT_W) / 1e6,
+            "payload_mb_out_preview": color.payload_bytes("yuv420", ph, pw) / 1e6,
+            "payload_mb_out_rgba": color.payload_bytes("rgba", OUT_H, OUT_W) / 1e6,
+        }
+        say(f"e2e live 4:2:0 [{card}]: " + json.dumps(live_e2e))
+        bench = benchmark_live_pipeline(up_fn, interp.make_interpolator(IN_H, IN_W, "blend"), live_in * 2)
+        say(f"benchmark_live_pipeline lanczos3 + blend, host frames in and out [{card}]: " + json.dumps(bench))
+        check(bench["output_frames"] == 2 * (2 * LIVE_FRAMES - 4), f"benchmark frames: {bench}")
+
+        # the modes "flow" and "flow_exact" through the API, the card against
+        # the CPU, and on a texture moved by 8 px against the cross-fade
+        w0, w8, w4 = (wave_pattern(IN_W, IN_H, s_) for s_ in (0.0, 8.0, 4.0))
+        blend_wave = interp.blend_only(torch.from_numpy(w0), torch.from_numpy(w8), 0.5).numpy()
+        cpu_a, cpu_b = torch.from_numpy(frames["a"]), torch.from_numpy(frames["b"])
+        mode_gates = {"wave_blend_vs_truth_db": psnr(blend_wave, w4)}
+        flow_fns = {"flow": (interp.compute_flow_fast, interp.warp_blend_fast),
+                    "flow_exact": (interp.compute_flow, interp.warp_blend)}
+        for mode, (flow_of, warp) in flow_fns.items():
+            fi = WgpuFrameInterpolator(mode=mode)
+            mid = np.frombuffer(fi.interpolate_py(frames["a"].tobytes(), frames["b"].tobytes(), IN_W, IN_H),
+                                np.uint8).reshape(IN_H, IN_W, 4)
+            flow_card = flow_of(on_dev["a"], on_dev["b"])
+            flow_cpu = flow_of(cpu_a, cpu_b)
+            mid_cpu = warp(cpu_a, cpu_b, flow_cpu, 0.5).numpy()
+            wave = np.frombuffer(fi.interpolate_py(w0.tobytes(), w8.tobytes(), IN_W, IN_H),
+                                 np.uint8).reshape(IN_H, IN_W, 4)
+            mode_gates[f"{mode}_card_vs_cpu_db"] = psnr(mid, mid_cpu)
+            mode_gates[f"{mode}_card_vs_cpu_max_lsb"] = lsb(mid, mid_cpu)
+            mode_gates[f"{mode}_alpha_equal"] = bool(np.array_equal(mid[..., 3], mid_cpu[..., 3]))
+            mode_gates[f"{mode}_flow_card_vs_cpu_px"] = float((flow_card.cpu() - flow_cpu).abs().max())
+            mode_gates[f"{mode}_mean_flow_px"] = [float(v) for v in flow_card.mean(dim=(0, 1)).cpu()]
+            mode_gates[f"wave_{mode}_vs_truth_db"] = psnr(wave, w4)
+            if mode == "flow":
+                ts = (1.0 / 3.0, 2.0 / 3.0)
+                mids = fi.interpolate_multi_py(frames["a"].tobytes(), frames["b"].tobytes(), IN_W, IN_H, times=ts)
+                mode_gates["flow_multi_equals_single"] = all(
+                    m == fi.interpolate_py(frames["a"].tobytes(), frames["b"].tobytes(), IN_W, IN_H, time_t=t)
+                    for m, t in zip(mids, ts))
+        say(f"flow modes gates [{card}]: " + json.dumps(mode_gates))
+        for mode in flow_fns:
+            check(mode_gates[f"{mode}_card_vs_cpu_db"] >= PSNR_GATE_DB, f"{mode}: card vs CPU below the gate")
+            check(mode_gates[f"{mode}_flow_card_vs_cpu_px"] <= FLOW_TILE_GATE_PX, f"{mode}: flow card != CPU")
+            check(mode_gates[f"wave_{mode}_vs_truth_db"] > mode_gates["wave_blend_vs_truth_db"],
+                  f"{mode} does not beat the cross-fade on the moving texture")
+        check(mode_gates["flow_alpha_equal"], "flow: alpha differs between the card and the CPU")
+        check(mode_gates["flow_multi_equals_single"], "flow: interpolate_multi_py != interpolate_py")
+
+        # the live step with a lanczos3 upscale and the flow interpolator: two
+        # resample launches a step (mid and current) and no soft warp
+        flow_interp = interp.make_interpolator(IN_H, IN_W, "flow")
+        rc.reset_launches()
+        swc.reset_launches()
+        fpipe = LivePipeline(up_fn, flow_interp, depth=2)
+        per_step, flow_live = [], []
+        for f in live_in:
+            before = rc.launches["resample_fused"]
+            flow_live += fpipe.put(f)
+            per_step.append(rc.launches["resample_fused"] - before)
+        flow_live += fpipe.drain()
+        torch.cuda.synchronize()
+        say(f"launches on the flow live path: resample_fused per step {per_step}, "
+            f"soft_warp_blend {swc.launches['soft_warp_blend']}")
+        check(per_step == [1] + [2] * (LIVE_FRAMES - 1) and swc.launches["soft_warp_blend"] == 0,
+              f"flow live launches: {per_step}")
+        check(len(flow_live) == 2 * LIVE_FRAMES - 1, f"flow live frames: {len(flow_live)}")
+        g4_counts = {k: yuv_counts[k] + prev_counts[k] for k in yuv_counts}
+        g4_counts["resample_fused"] += sum(per_step)
+
+        # the timing API: each mode's device ms and stages, the calibration's
+        timing = {}
+        for mode, keys in STAGE_KEYS.items():
+            fi = WgpuFrameInterpolator(mode=mode)
+            fi.interpolate_py(frames["a"].tobytes(), frames["b"].tobytes(), IN_W, IN_H)
+            ms, detail = fi.get_last_gpu_duration_ms(), fi.get_last_gpu_duration_detail()
+            calibrated = interp.calibrated_step_ms(*fi._last_key, device=dev)
+            timing[mode] = {"gpu_duration_ms": ms, **detail}
+            check(set(detail) == keys | {"wall_ms"}, f"{mode}: timing keys {sorted(detail)}")
+            check(all(v > 0 for v in detail.values()), f"{mode}: a timing is not positive: {detail}")
+            check(ms == calibrated == detail["total_ms"], f"{mode}: {ms} ms is not the calibration's")
+        say(f"timing API at 1080p (device ms, CUDA events) [{card}]: " + json.dumps(timing))
+
     with Phase("5 times"):
         flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
         tables = 4 * (OUT_H * (1 + lz.kv) + OUT_W * (1 + lz.kh))
@@ -1619,7 +1833,8 @@ def main() -> int:
                 lambda: rc.resample_blend_plain(on_dev["b"], prev, lz, (1 / 3, 2 / 3)), 1, 2),
         }
         rows = []
-        launched = {name: counts[name] + flow_counts.get(name, 0) for name in counts}
+        launched = {name: counts[name] + flow_counts.get(name, 0) + g4_counts.get(name, 0)
+                    for name in counts}
         for name, (kernel, plain, n, n_ts) in cases.items():
             b_ms, b_by = bound(n, n_ts)
             ms, plain_ms = time_ms(torch, kernel, flush), time_ms(torch, plain, flush)
@@ -1657,7 +1872,7 @@ def main() -> int:
             "k8": (on_dev["a"], on_dev["b"], tiles, interp.WARP_K),
             "noise": (on_dev["n1"], on_dev["n2"], soft_cases[1][4], interp.SOFT_WARP_K),
         }
-        soft_ms, soft_floor = {}, {}
+        soft_ms, soft_floor, soft_wrapper_ms = {}, {}, {}
         soft_regs = ptxas_registers(_build.BUILD_LOGS.get("soft_warp", ""), r"soft_warp_kernel\w*")
         soft_regs = next(iter(soft_regs.values()), "not in this build log")
         for name, (fa, fb, tl, k_soft) in soft_timed.items():
@@ -1680,8 +1895,15 @@ def main() -> int:
                 f"{ops / f32_rate * 1e3:.4f} ms, instruction floor {ops / (f32_rate / 2) * 1e3:.4f} ms; "
                 f"bound {b_ms:.4f} ms by {b_by}, {100 * b_ms / ms:.1f}% of it; ptxas {soft_regs})")
             soft_ms[name] = (ms, plain_ms, b_ms, b_by)
+            soft_wrapper_ms[name] = wrapper_ms
             soft_floor[name] = ops / (f32_rate / 2) * 1e3
         (ms, plain_ms, b_ms, b_by), noise = soft_ms["main"], soft_ms["noise"]
+        # phase 4g's timing API: flow_soft's warp stage (the wrapper, its front
+        # end included, CUDA events a step) against the wrapper timed here
+        ratio = timing["flow_soft"]["warp_ms"] / soft_wrapper_ms["main"]
+        say(f"timing API flow_soft warp_ms {timing['flow_soft']['warp_ms']:.4f} ms against the soft "
+            f"warp wrapper's {soft_wrapper_ms['main']:.4f} ms here: {ratio:.2f}x [{card}]")
+        check(0.5 <= ratio <= 2.0, f"flow_soft warp_ms is {ratio:.2f}x the soft warp's time")
         rows.append({
             "name": "soft_warp_blend", "route": "cuda", "source": SOFT_SOURCE,
             "replaces": REPLACES["soft_warp_blend"],
@@ -1951,6 +2173,14 @@ def main() -> int:
         busy = trace_steps(torch, LivePipeline(up_fn, interp_fn, depth=2), live_in,
                            Path(_build.BUILD_DIR) / "flow_soft_trace.json")
         say("trace flow_soft: " + json.dumps(busy))
+        busy = trace_steps(torch, make_yuv_pipe(), live_planes, Path(_build.BUILD_DIR) / "live_yuv420_trace.json")
+        say(f"trace live 4:2:0 [{card}]: " + json.dumps(busy))
+        pair_dev = (on_dev["a"], on_dev["b"])
+        for mode in ("flow", "flow_exact"):
+            fn = interp.make_interpolator(IN_H, IN_W, mode)
+            busy = trace_calls(torch, lambda p, fn=fn: fn(p[0], p[1], 0.5), pair_dev, 7,
+                               Path(_build.BUILD_DIR) / f"{mode}_trace.json")
+            say(f"trace {mode} interpolate [{card}]: " + json.dumps(busy))
         busy = trace_steps(torch, make_fsr_pipe(), live_in,
                            Path(_build.BUILD_DIR) / "fsr_flow_soft_trace.json")
         say("trace fsr + flow_soft: " + json.dumps(busy))

@@ -1,7 +1,8 @@
-"""Numpy golden references for the port's resample, soft-warp and FSR paths.
+"""Numpy golden references for the port's resample, interpolation (flow,
+warp / blend), soft-warp and FSR paths.
 
-The port's own copy of the resample goldens of the JAX package (it imports
-nothing from that package). They encode the semantics of the reference
+The port's own copy of the goldens of the JAX package (it imports nothing
+from that package). They encode the semantics of the reference
 implementation's shaders:
 
 * Frames are RGBA uint8 arrays of shape [H, W, 4].
@@ -57,6 +58,36 @@ def nearest_ref(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     ys = (np.arange(out_h, dtype=np.uint64) * in_h) // out_h
     xs = (np.arange(out_w, dtype=np.uint64) * in_w) // out_w
     return img[ys.astype(np.int64)][:, xs.astype(np.int64)]
+
+
+def bilinear_ref(img_u8: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """Bilinear upscale, WGSL semantics (BILINEAR_UPSCALE_SHADER,
+    upscale/mod.rs:236-262).
+
+    fx = x * in/out (top-left aligned, NOT half-pixel-center), x0 = trunc(fx),
+    x1 = min(x0+1, in-1), lerp with dx = fx - x0 on f32 values in [0,1],
+    trunc-packed back to u8.
+    """
+    in_h, in_w = img_u8.shape[:2]
+    f = unpack_u8(img_u8)
+
+    fx = np.arange(out_w, dtype=np.float32) * np.float32(in_w) / np.float32(out_w)
+    fy = np.arange(out_h, dtype=np.float32) * np.float32(in_h) / np.float32(out_h)
+    x0 = fx.astype(np.int64)
+    y0 = fy.astype(np.int64)
+    x1 = np.minimum(x0 + 1, in_w - 1)
+    y1 = np.minimum(y0 + 1, in_h - 1)
+    dx = (fx - x0.astype(np.float32))[None, :, None]
+    dy = (fy - y0.astype(np.float32))[:, None, None]
+
+    c00 = f[y0][:, x0]
+    c10 = f[y0][:, x1]
+    c01 = f[y1][:, x0]
+    c11 = f[y1][:, x1]
+    c0 = c00 + dx * (c10 - c00)  # mix(c00, c10, dx)
+    c1 = c01 + dx * (c11 - c01)
+    c = c0 + dy * (c1 - c0)
+    return pack_u8_trunc(c)
 
 
 # --- separable filter kernels (G1 algorithm set, Nu_scale/src/upscale/common.rs:68-88)
@@ -185,6 +216,181 @@ def separable_resample_ref(img_u8: np.ndarray, out_h: int, out_w: int, algorithm
     tmp = (wv @ f.reshape(h, w * c)).reshape(out_h, w, c)
     out = np.tensordot(tmp, wh, axes=([1], [1])).transpose(0, 2, 1)
     return pack_u8_trunc(np.ascontiguousarray(out).astype(np.float32))
+
+
+# ---------------------------------------------------------------------------
+# Interpolation pipeline kernels
+# ---------------------------------------------------------------------------
+
+
+def _sample_bilinear_clamp(img_f: np.ndarray, xs: np.ndarray, ys: np.ndarray) -> np.ndarray:
+    """textureSampleLevel with a bilinear, clamp-to-edge sampler.
+
+    `xs`, `ys` are continuous pixel coordinates (texel centers at k+0.5), shape
+    [H, W]. Matches wgpu sampler semantics used by warp_blend.wgsl:40-41.
+    """
+    h, w = img_f.shape[:2]
+    # convert texel-center coordinates to sample positions
+    fx = xs - 0.5
+    fy = ys - 0.5
+    x0 = np.floor(fx).astype(np.int64)
+    y0 = np.floor(fy).astype(np.int64)
+    dx = (fx - x0)[..., None]
+    dy = (fy - y0)[..., None]
+    x0c = np.clip(x0, 0, w - 1)
+    x1c = np.clip(x0 + 1, 0, w - 1)
+    y0c = np.clip(y0, 0, h - 1)
+    y1c = np.clip(y0 + 1, 0, h - 1)
+    c00 = img_f[y0c, x0c]
+    c10 = img_f[y0c, x1c]
+    c01 = img_f[y1c, x0c]
+    c11 = img_f[y1c, x1c]
+    c0 = c00 + dx * (c10 - c00)
+    c1 = c01 + dx * (c11 - c01)
+    return c0 + dy * (c1 - c0)
+
+
+def warp_blend_ref(
+    frame_a_u8: np.ndarray,
+    frame_b_u8: np.ndarray,
+    flow: np.ndarray,
+    time_t: float,
+) -> np.ndarray:
+    """Motion-compensated blend; warp_blend.wgsl:29-46.
+
+    Samples A at (pos+0.5) - t*flow, B at (pos+0.5) + (1-t)*flow with a
+    bilinear clamp sampler, then mix(c0, c1, t), rgba8unorm (round) output.
+    `flow` is [H, W, 2] pixel-delta (x, y).
+    """
+    h, w = frame_a_u8.shape[:2]
+    a = unpack_u8(frame_a_u8)
+    b = unpack_u8(frame_b_u8)
+    gx, gy = np.meshgrid(np.arange(w, dtype=np.float32) + 0.5, np.arange(h, dtype=np.float32) + 0.5)
+    c0 = _sample_bilinear_clamp(a, gx - time_t * flow[..., 0], gy - time_t * flow[..., 1])
+    c1 = _sample_bilinear_clamp(b, gx + (1.0 - time_t) * flow[..., 0], gy + (1.0 - time_t) * flow[..., 1])
+    return pack_u8_round(c0 + (c1 - c0) * np.float32(time_t))
+
+
+def gaussian_blur_ref(img_f: np.ndarray) -> np.ndarray:
+    """Separable 5-tap Gaussian, weights 1-4-6-4-1 / 16, clamp-to-edge
+    (gaussian_blur_h.wgsl:18-20, unrolled taps :33-51; then the V pass)."""
+    w = np.array([1, 4, 6, 4, 1], dtype=np.float32) / 16.0
+    h_, w_ = img_f.shape[:2]
+    out = np.zeros_like(img_f)
+    for k, wk in enumerate(w):
+        xs = np.clip(np.arange(w_) + k - 2, 0, w_ - 1)
+        out += wk * img_f[:, xs]
+    out2 = np.zeros_like(out)
+    for k, wk in enumerate(w):
+        ys = np.clip(np.arange(h_) + k - 2, 0, h_ - 1)
+        out2 += wk * out[ys]
+    return out2
+
+
+def downsample2x_ref(img_f: np.ndarray) -> np.ndarray:
+    """2x2 average downsample to floor(size/2) (downsample.wgsl:28-37)."""
+    h, w = img_f.shape[:2]
+    oh, ow = h // 2, w // 2
+    v = img_f[: oh * 2, : ow * 2]
+    return 0.25 * (v[0::2, 0::2] + v[1::2, 0::2] + v[0::2, 1::2] + v[1::2, 1::2])
+
+
+def luminance_ref(rgba_f: np.ndarray) -> np.ndarray:
+    """mean(RGB) luminance, horn_schunck.wgsl:18-21 (0.33333 each)."""
+    return (rgba_f[..., 0] + rgba_f[..., 1] + rgba_f[..., 2]) * np.float32(0.33333)
+
+
+def horn_schunck_step_ref(
+    lum1: np.ndarray, lum2: np.ndarray, flow: np.ndarray, lam: float
+) -> np.ndarray:
+    """One Jacobi Horn-Schunck iteration; horn_schunck.wgsl:52-91.
+
+    * 3x3 neighbor average of flow (center included), clamp-to-edge
+    * central-difference gradients of lum1 (clamped indices)
+    * It = lum2 - lum1
+    * common = (Ix*ua + Iy*va + It) / (lambda + Ix^2 + Iy^2)
+    * new = avg - common * (Ix, Iy)
+    """
+    h, w = lum1.shape
+    ys, xs = np.arange(h), np.arange(w)
+
+    # 3x3 clamped box average of flow
+    avg = np.zeros_like(flow)
+    for dy in (-1, 0, 1):
+        yy = np.clip(ys + dy, 0, h - 1)
+        for dx in (-1, 0, 1):
+            xx = np.clip(xs + dx, 0, w - 1)
+            avg += flow[yy][:, xx]
+    avg /= 9.0
+
+    xp1 = np.minimum(xs + 1, w - 1)
+    xm1 = np.maximum(xs, 1) - 1
+    yp1 = np.minimum(ys + 1, h - 1)
+    ym1 = np.maximum(ys, 1) - 1
+    ix = (lum1[:, xp1] - lum1[:, xm1]) * 0.5
+    iy = (lum1[yp1] - lum1[ym1]) * 0.5
+    it = lum2 - lum1
+
+    common = (ix * avg[..., 0] + iy * avg[..., 1] + it) / (lam + ix * ix + iy * iy)
+    out = np.empty_like(flow)
+    out[..., 0] = avg[..., 0] - common * ix
+    out[..., 1] = avg[..., 1] - common * iy
+    return out
+
+
+def flow_upsample_ref(flow: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """Bilinear flow upsample via normalized-UV sampling
+    (flow_upsample.wgsl:25-35): sample src at ((dst+0.5)/dst_size)*src_size."""
+    in_h, in_w = flow.shape[:2]
+    gx, gy = np.meshgrid(
+        (np.arange(out_w, dtype=np.float32) + 0.5) * (in_w / out_w),
+        (np.arange(out_h, dtype=np.float32) + 0.5) * (in_h / out_h),
+    )
+    return _sample_bilinear_clamp(flow, gx, gy)
+
+
+def flow_refine_step_ref(
+    lum1: np.ndarray, lum2: np.ndarray, flow: np.ndarray, alpha: float
+) -> np.ndarray:
+    """Residual HS refinement; the behavior flow_refine.wgsl:101-137 intended
+    (the WGSL never compiled in the reference — SURVEY §2 C4).
+
+    It = lum2[round-trunc(x + u_old) clamped] - lum1[x]
+    update = grad * (grad.u_old + It) / (alpha^2 + |grad|^2)
+    laplacian = 4-neighbor avg - center
+    f_new = f_old - update + alpha * laplacian
+    """
+    h, w = lum1.shape
+    ys, xs = np.arange(h), np.arange(w)
+    xp1 = np.minimum(xs + 1, w - 1)
+    xm1 = np.maximum(xs, 1) - 1
+    yp1 = np.minimum(ys + 1, h - 1)
+    ym1 = np.maximum(ys, 1) - 1
+    ix = (lum1[:, xp1] - lum1[:, xm1]) * 0.5
+    iy = (lum1[yp1] - lum1[ym1]) * 0.5
+
+    gx, gy = np.meshgrid(xs.astype(np.float32), ys.astype(np.float32))
+    # WGSL does vec2<u32>(clamp(f, 0, size-1)) — trunc to integer coords
+    wx = np.clip(gx + flow[..., 0], 0, w - 1).astype(np.int64)
+    wy = np.clip(gy + flow[..., 1], 0, h - 1).astype(np.int64)
+    it = lum2[wy, wx] - lum1
+
+    num = ix * flow[..., 0] + iy * flow[..., 1] + it
+    den = alpha * alpha + ix * ix + iy * iy
+    contrib_x = np.where(np.abs(den) > 1e-6, num / den * ix, 0.0)
+    contrib_y = np.where(np.abs(den) > 1e-6, num / den * iy, 0.0)
+
+    lap = np.zeros_like(flow)
+    lap += flow[:, xp1]
+    lap += flow[:, xm1]
+    lap += flow[yp1]
+    lap += flow[ym1]
+    lap = lap * 0.25 - flow
+
+    out = np.empty_like(flow)
+    out[..., 0] = flow[..., 0] - contrib_x + alpha * lap[..., 0]
+    out[..., 1] = flow[..., 1] - contrib_y + alpha * lap[..., 1]
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,1 +1,1 @@
-"""Tensor ops of the port (resample, cross-fade)."""
+"""Tensor ops of the port (resample, FSR, interpolation, 4:2:0 colour, metrics)."""

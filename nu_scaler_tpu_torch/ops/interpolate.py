@@ -1,6 +1,7 @@
 """Frame interpolation ops of the port: the counterpart of
-`nu_scaler_tpu/ops/interpolate.py` for the zero-flow cross-fade ("blend") and
-the production motion-compensated mode ("flow_soft").
+`nu_scaler_tpu/ops/interpolate.py` for the zero-flow cross-fade ("blend"),
+the production motion-compensated mode ("flow_soft"), the hard block warp
+("flow") and the per-pixel warp ("flow_exact").
 
 flow_soft, per frame pair (u8 [H, W, 4] × 2):
 
@@ -14,12 +15,27 @@ tiles) takes the JAX package's ragged branch instead: full-resolution flow,
 then the overlapped soft warp of `warp_blend_soft` in plain PyTorch, with the
 JAX function's bf16 slabs and accumulators.
 
-The flow stage was plain XLA in the JAX package and is plain PyTorch here:
-elementwise ops, gathers and small sums, all fp32 and none a matmul or a
-convolution, so the caller's TF32 settings cannot reach it. The soft warp is
-the one CUDA kernel of the mode. The other flow modes ("flow", "flow_exact")
-are ROADMAP queue 1, item 8; "flow_soft_ref" is item 10. They raise
+flow: the same luma pyramid and HS down to full resolution (8 residual
+iterations a level, `compute_flow_fast`), then RGB block-warped by −t·flow
+and (1 − t)·flow (each tile's nearest of the K = 8 most common integer
+offsets, one bilinear lerp) and mixed, alpha cross-faded
+(`warp_blend_fast`).
+
+flow_exact: an RGBA Gaussian pyramid, HS at the coarsest level and 4
+iterations of residual refinement a level with the warp recomputed inside
+every iteration (`compute_flow`), then a per-pixel bilinear warp of both
+frames (`warp_blend`): the reference's designed path and its goldens.
+
+The flow stages and both warps of "flow" and "flow_exact" were plain XLA in
+the JAX package and are plain PyTorch here: elementwise ops, gathers and
+small sums, all fp32 and none a matmul or a convolution, so the caller's
+TF32 settings cannot reach them. The soft warp is the one CUDA kernel of
+these modes. "flow_soft_ref" (ROADMAP queue 1, item 10) raises
 NotImplementedError.
+
+`calibrated_step_ms` and `stage_timings_ms` time a mode's step and its
+stages on the device (`utils/tracing.device_timer`), for the API's
+`get_last_gpu_duration_ms`.
 """
 
 from __future__ import annotations
@@ -32,15 +48,12 @@ import torch
 
 from nu_scaler_tpu_torch.device import resolve_device
 from nu_scaler_tpu_torch.kernels.soft_warp_cuda import candidates, soft_warp_blend
-from nu_scaler_tpu_torch.ops.resample import apply_taps, device_taps, resize_f32
+from nu_scaler_tpu_torch.ops.resample import apply_taps, device_taps, resize_f32, to_device_u8
+from nu_scaler_tpu_torch.utils.tracing import device_timer
 
 MODES = ("blend", "flow", "flow_soft", "flow_soft_ref", "flow_exact")
-PORTED_MODES = ("blend", "flow_soft")
-_NOT_PORTED = {
-    "flow": "ROADMAP queue 1, item 8",
-    "flow_exact": "ROADMAP queue 1, item 8",
-    "flow_soft_ref": "ROADMAP queue 1, item 10",
-}
+PORTED_MODES = ("blend", "flow", "flow_soft", "flow_exact")
+_NOT_PORTED = {"flow_soft_ref": "ROADMAP queue 1, item 10"}
 
 # The JAX package's constants (nu_scaler_tpu/ops/interpolate.py:40-44, 389-398).
 DEFAULT_LAMBDA = 0.1
@@ -78,7 +91,7 @@ def check_mode(mode: str) -> None:
 
 
 # ---------------------------------------------------------------------------
-# luma pyramid
+# pyramids
 # ---------------------------------------------------------------------------
 
 
@@ -97,6 +110,43 @@ def _shift_edge(x: torch.Tensor, d: int, dim: int) -> torch.Tensor:
 def luminance(rgba: torch.Tensor) -> torch.Tensor:
     """(r + g + b) · 0.33333 (horn_schunck.wgsl:18-21)."""
     return (rgba[..., 0] + rgba[..., 1] + rgba[..., 2]) * 0.33333
+
+
+_BLUR = (0.0625, 0.25, 0.375, 0.25, 0.0625)  # 1-4-6-4-1 / 16, exact in fp32
+
+
+def _blur5(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """The 5-tap blur along `dim`, clamped edges, taps summed in order."""
+    out = _shift_edge(x, -2, dim) * _BLUR[0]
+    for k in range(1, 5):
+        out = out + _shift_edge(x, k - 2, dim) * _BLUR[k]
+    return out
+
+
+def gaussian_blur(img: torch.Tensor) -> torch.Tensor:
+    """Separable 5-tap 1-4-6-4-1/16 blur of [..., H, W, C], clamped edges:
+    columns, then rows."""
+    return _blur5(_blur5(img, -2), -3)
+
+
+def downsample2x(img: torch.Tensor) -> torch.Tensor:
+    """2×2 average of [..., H, W, C] to floor(size / 2)."""
+    h, w = img.shape[-3], img.shape[-2]
+    oh, ow = h // 2, w // 2
+    v = img[..., : oh * 2, : ow * 2, :]
+    v = v.reshape(*v.shape[:-3], oh, 2, ow, 2, v.shape[-1])
+    return v.mean(dim=(-2, -4))
+
+
+def build_pyramid(img_f: torch.Tensor, levels: int) -> list[torch.Tensor]:
+    """Gaussian pyramid of [..., H, W, C] fp32: level 0 the frame, each next
+    blur → 2× downsample; stops early when a side is below 4."""
+    pyr = [img_f]
+    for _ in range(levels - 1):
+        if pyr[-1].shape[-3] < 4 or pyr[-1].shape[-2] < 4:
+            break  # a further halving would degenerate (tiny frames)
+        pyr.append(downsample2x(gaussian_blur(pyr[-1])))
+    return pyr
 
 
 def pyramid_step_matrix(in_size: int) -> np.ndarray:
@@ -153,13 +203,14 @@ def _gradients(lum: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return ix, iy
 
 
-def horn_schunck(lum1: torch.Tensor, lum2: torch.Tensor, flow0: torch.Tensor, iters: int) -> torch.Tensor:
-    """`iters` Jacobi iterations of the coarse HS update (λ =
-    `DEFAULT_LAMBDA`); flow [h, w, 2] (x, y) in and out. Gradients and It are hoisted out of the loop; the loop
-    runs on the planar [2, h, w] flow."""
+def horn_schunck(lum1: torch.Tensor, lum2: torch.Tensor, flow0: torch.Tensor, iters: int,
+                 lam: float = DEFAULT_LAMBDA) -> torch.Tensor:
+    """`iters` Jacobi iterations of the coarse HS update (smoothness `lam`);
+    flow [h, w, 2] (x, y) in and out. Gradients and It are hoisted out of
+    the loop; the loop runs on the planar [2, h, w] flow."""
     ix, iy = _gradients(lum1)
     it = lum2 - lum1
-    denom = DEFAULT_LAMBDA + ix * ix + iy * iy
+    denom = lam + ix * ix + iy * iy
     f = flow0.permute(2, 0, 1)
     for _ in range(iters):
         avg = _box3_avg(f)
@@ -172,6 +223,91 @@ def flow_upsample(flow: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Center-aligned bilinear resize of a flow field [h, w, 2]; the vectors
     are not rescaled (the caller applies ×2)."""
     return resize_f32(flow, out_h, out_w, "bilinear_center")
+
+
+def _grid(h: int, w: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Column and row index planes [h, w], fp32."""
+    gx = torch.arange(w, dtype=torch.float32, device=device).expand(h, w)
+    gy = torch.arange(h, dtype=torch.float32, device=device)[:, None].expand(h, w)
+    return gx, gy
+
+
+def flow_refine(lum1: torch.Tensor, lum2: torch.Tensor, flow: torch.Tensor, iters: int,
+                alpha: float = DEFAULT_ALPHA, subpixel: bool = True) -> torch.Tensor:
+    """Residual HS refinement at one pyramid level (flow [h, w, 2]): each
+    iteration warps `lum2` by the current flow and recomputes It from it,
+    then takes the update grad·(grad·f + It) / (α² + |grad|²), guarded
+    where the denominator is ≤ 1e-6, and adds α times the 4-neighbour
+    Laplacian. subpixel=True samples the warp bilinearly at texel centres;
+    False truncates to integer coordinates (the WGSL's semantics)."""
+    h, w = lum1.shape[-2], lum1.shape[-1]
+    ix, iy = _gradients(lum1)
+    den = alpha * alpha + ix * ix + iy * iy
+    valid = den.abs() > 1e-6
+    gx, gy = _grid(h, w, lum1.device)
+    lum2c = lum2[..., None]  # channel dim for the bilinear sampler
+    f = flow
+    for _ in range(iters):
+        if subpixel:
+            warped = _sample_bilinear(lum2c, gx + f[..., 0] + 0.5, gy + f[..., 1] + 0.5)[..., 0]
+            it = warped - lum1
+        else:
+            wx = torch.clamp(gx + f[..., 0], 0, w - 1).to(torch.int64)
+            wy = torch.clamp(gy + f[..., 1], 0, h - 1).to(torch.int64)
+            it = lum2[wy, wx] - lum1
+        num = ix * f[..., 0] + iy * f[..., 1] + it
+        scale = torch.where(valid, num / den, 0.0)
+        lap_rows = _shift_edge(f, 1, -3) + _shift_edge(f, -1, -3)
+        lap_cols = _shift_edge(f, 1, -2) + _shift_edge(f, -1, -2)
+        lap = (lap_rows + lap_cols) * 0.25 - f
+        upd = torch.stack((scale * ix, scale * iy), dim=-1)
+        f = f - upd + alpha * lap
+    return f
+
+
+# ---------------------------------------------------------------------------
+# the per-pixel warp (flow_exact)
+# ---------------------------------------------------------------------------
+
+
+def _sample_bilinear(img_f: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor) -> torch.Tensor:
+    """Bilinear clamp-to-edge sample of [H, W, C] at continuous texel
+    coordinates (centres at k + 0.5): floor, then each of the four corner
+    indices clamped on its own (the wgpu sampler)."""
+    h, w = img_f.shape[-3], img_f.shape[-2]
+    fx = xs - 0.5
+    fy = ys - 0.5
+    x0 = torch.floor(fx)
+    y0 = torch.floor(fy)
+    dx = (fx - x0)[..., None]
+    dy = (fy - y0)[..., None]
+    x0, y0 = x0.to(torch.int64), y0.to(torch.int64)
+    x0c, x1c = x0.clamp(0, w - 1), (x0 + 1).clamp(0, w - 1)
+    y0c, y1c = y0.clamp(0, h - 1), (y0 + 1).clamp(0, h - 1)
+    c00 = img_f[y0c, x0c]
+    c10 = img_f[y0c, x1c]
+    c01 = img_f[y1c, x0c]
+    c11 = img_f[y1c, x1c]
+    c0 = c00 + dx * (c10 - c00)
+    c1 = c01 + dx * (c11 - c01)
+    return c0 + dy * (c1 - c0)
+
+
+def warp_blend(frame_a: torch.Tensor, frame_b: torch.Tensor, flow: torch.Tensor,
+               time_t: float) -> torch.Tensor:
+    """Motion-compensated blend, u8 [H, W, 4] × 2 + flow [H, W, 2] → u8: A
+    sampled at p + 0.5 − t·flow, B at p + 0.5 + (1 − t)·flow, mixed by t,
+    rounded half to even (rgba8unorm packing)."""
+    h, w = frame_a.shape[-3], frame_a.shape[-2]
+    a = frame_a.to(torch.float32) * (1.0 / 255.0)
+    b = frame_b.to(torch.float32) * (1.0 / 255.0)
+    gx, gy = _grid(h, w, a.device)
+    gx, gy = gx + 0.5, gy + 0.5
+    t = torch.tensor(time_t, dtype=torch.float32, device=a.device)
+    c0 = _sample_bilinear(a, gx - t * flow[..., 0], gy - t * flow[..., 1])
+    c1 = _sample_bilinear(b, gx + (1.0 - t) * flow[..., 0], gy + (1.0 - t) * flow[..., 1])
+    out = c0 + (c1 - c0) * t
+    return torch.clamp(torch.round(out * 255.0), 0, 255).to(torch.uint8)
 
 
 # ---------------------------------------------------------------------------
@@ -229,28 +365,76 @@ def block_warp_planar(
     return top_row + fry_px * (bot_row - top_row)
 
 
+def block_warp(img_f: torch.Tensor, offset_field: torch.Tensor, k: int = WARP_K,
+               rng: int = WARP_RANGE) -> torch.Tensor:
+    """Channel-minor wrapper over `block_warp_planar` ([H, W, C] in and out)."""
+    return block_warp_planar(img_f.permute(2, 0, 1), offset_field, k, rng).permute(1, 2, 0)
+
+
 # ---------------------------------------------------------------------------
 # flow
 # ---------------------------------------------------------------------------
 
 
-def compute_flow_fast(frame_a: torch.Tensor, frame_b: torch.Tensor, base_level: int) -> torch.Tensor:
-    """Coarse-to-fine flow (x, y) A→B at pyramid level `base_level`, in that
-    level's pixel units: HS at the coarsest level, then per finer level down
-    to `base_level`, B block-warped toward A by the upsampled flow and HS on
-    the residual (8 iterations)."""
-    lums_a = build_luma_pyramid(frame_a, DEFAULT_PYRAMID_LEVELS)
-    lums_b = build_luma_pyramid(frame_b, DEFAULT_PYRAMID_LEVELS)
+def compute_flow_fast(
+    frame_a: torch.Tensor,
+    frame_b: torch.Tensor,
+    levels: int = DEFAULT_PYRAMID_LEVELS,
+    coarse_iters: int = DEFAULT_COARSE_ITERS,
+    refine_iters: int = 8,
+    lam: float = DEFAULT_LAMBDA,
+    base_level: int = 0,
+    upsample: bool = True,
+) -> torch.Tensor:
+    """Coarse-to-fine flow (x, y) A→B without per-pixel gathers: HS at the
+    coarsest luma level, then per finer level down to `base_level`, B
+    block-warped toward A by the upsampled flow and `refine_iters` HS
+    iterations on the residual. With ``base_level > 0`` the field is
+    upsampled to full resolution (vectors scaled by 2**base_level), unless
+    ``upsample=False`` returns it in base-level pixel units."""
+    full_h, full_w = frame_a.shape[-3], frame_a.shape[-2]
+    lums_a = build_luma_pyramid(frame_a, levels)
+    lums_b = build_luma_pyramid(frame_b, levels)
     levels = len(lums_a)  # tiny frames: the pyramid stops before degenerating
     base_level = min(base_level, levels - 1)
 
     flow = torch.zeros(*lums_a[-1].shape, 2, dtype=torch.float32, device=frame_a.device)
-    flow = horn_schunck(lums_a[-1], lums_b[-1], flow, DEFAULT_COARSE_ITERS)
+    flow = horn_schunck(lums_a[-1], lums_b[-1], flow, coarse_iters, lam)
     for lvl in range(levels - 2, base_level - 1, -1):
         th, tw = lums_a[lvl].shape[-2], lums_a[lvl].shape[-1]
         flow = flow_upsample(flow, th, tw) * 2.0
         b_warp = block_warp_planar(lums_b[lvl][None], flow)[0]
-        flow = flow + horn_schunck(lums_a[lvl], b_warp, torch.zeros_like(flow), 8)
+        flow = flow + horn_schunck(lums_a[lvl], b_warp, torch.zeros_like(flow), refine_iters, lam)
+    if base_level > 0 and upsample:
+        flow = flow_upsample(flow, full_h, full_w) * float(2**base_level)
+    return flow
+
+
+def compute_flow(
+    frame_a: torch.Tensor,
+    frame_b: torch.Tensor,
+    levels: int = DEFAULT_PYRAMID_LEVELS,
+    coarse_iters: int = DEFAULT_COARSE_ITERS,
+    refine_iters: int = DEFAULT_REFINE_ITERS,
+    lam: float = DEFAULT_LAMBDA,
+    alpha: float = DEFAULT_ALPHA,
+) -> torch.Tensor:
+    """Coarse-to-fine flow A→B in pixels at full resolution, the reference's
+    designed path: RGBA Gaussian pyramids, HS at the coarsest level, then
+    per finer level a bilinear 2× upsample, ×2, and `refine_iters`
+    iterations of `flow_refine`."""
+    a = frame_a.to(torch.float32) * (1.0 / 255.0)
+    b = frame_b.to(torch.float32) * (1.0 / 255.0)
+    lums_a = [luminance(p) for p in build_pyramid(a, levels)]
+    lums_b = [luminance(p) for p in build_pyramid(b, levels)]
+    levels = len(lums_a)  # tiny frames: the pyramid stops before degenerating
+
+    flow = torch.zeros(*lums_a[-1].shape, 2, dtype=torch.float32, device=a.device)
+    flow = horn_schunck(lums_a[-1], lums_b[-1], flow, coarse_iters, lam)
+    for lvl in range(levels - 2, -1, -1):
+        th, tw = lums_a[lvl].shape[-2], lums_a[lvl].shape[-1]
+        flow = flow_upsample(flow, th, tw) * 2.0
+        flow = flow_refine(lums_a[lvl], lums_b[lvl], flow, refine_iters, alpha)
     return flow
 
 
@@ -268,7 +452,25 @@ def flow_tiles_fast(frame_a: torch.Tensor, frame_b: torch.Tensor, tile: tuple = 
     th, tw = tile
     base_level = flow_base_level(frame_a.shape[-3], tile)
     s = 2**base_level
-    return _tile_mean(compute_flow_fast(frame_a, frame_b, base_level), th // s, tw // s) * float(s)
+    base = compute_flow_fast(frame_a, frame_b, base_level=base_level, upsample=False)
+    return _tile_mean(base, th // s, tw // s) * float(s)
+
+
+def warp_blend_fast(frame_a: torch.Tensor, frame_b: torch.Tensor, flow: torch.Tensor,
+                    time_t: float, tile: tuple = WARP_TILE) -> torch.Tensor:
+    """The "flow" mode's warp, `warp_blend_fast` (no overlap) of the JAX
+    package: RGB of A block-warped by −t·flow and of B by (1 − t)·flow
+    (K = `WARP_K`), mixed as va + (vb − va)·t; alpha cross-faded; rounded
+    half to even. u8 [H, W, 4] × 2 + full-resolution flow → u8."""
+    t = np.float32(time_t)
+    a4 = frame_a.to(torch.float32).permute(2, 0, 1)
+    b4 = frame_b.to(torch.float32).permute(2, 0, 1)
+    va = block_warp_planar(a4[:3], flow * float(-t), tile=tile)
+    vb = block_warp_planar(b4[:3], flow * float(np.float32(1.0) - t), tile=tile)
+    rgb = va + (vb - va) * float(t)
+    alpha = a4[3:] + (b4[3:] - a4[3:]) * float(t)
+    out = torch.clamp(torch.round(torch.cat([rgb, alpha])), 0, 255).to(torch.uint8)
+    return out.permute(1, 2, 0).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -420,6 +622,12 @@ def _interpolator(height: int, width: int, mode: str, dev: torch.device, warp_ti
     elif mode == "flow_soft":
         def step(a, b, t):
             return soft_interp_fast(a, b, t, tile=warp_tile)
+    elif mode == "flow":
+        def step(a, b, t):
+            return warp_blend_fast(a, b, compute_flow_fast(a, b), t, tile=warp_tile)
+    elif mode == "flow_exact":
+        def step(a, b, t):
+            return warp_blend(a, b, compute_flow(a, b), t)
     else:
         raise _not_ported(mode)
 
@@ -434,8 +642,11 @@ def make_interpolator(
     height: int, width: int, mode: str = "blend", device=None, warp_tile: tuple = WARP_TILE
 ):
     """``(frame_a, frame_b, t) -> mid`` u8 tensors on `device` (the card
-    unless "cpu"), for a fixed size. Modes "blend" and "flow_soft";
-    `warp_tile` is flow_soft's warp tile (the workgroup-preset knob)."""
+    unless "cpu"), for a fixed size. Modes "blend", "flow_soft", "flow"
+    (`compute_flow_fast` at 8 residual iterations, then `warp_blend_fast`)
+    and "flow_exact" (`compute_flow` at `DEFAULT_REFINE_ITERS`, then
+    `warp_blend`); `warp_tile` is the warp tile of flow_soft and flow (the
+    workgroup-preset knob)."""
     return _interpolator(height, width, mode, resolve_device(device), tuple(warp_tile))
 
 
@@ -448,8 +659,14 @@ def _multi_interpolator(height: int, width: int, ts: tuple, mode: str, dev, warp
     elif mode == "flow_soft":
         def step(a, b):
             return soft_interp_multi(a, b, ts, tile=warp_tile)
-    else:
+    elif mode == "flow":
+        def step(a, b):
+            flow = compute_flow_fast(a, b)
+            return torch.stack([warp_blend_fast(a, b, flow, t, tile=warp_tile) for t in ts])
+    elif mode in _NOT_PORTED:
         raise _not_ported(mode)
+    else:
+        raise ValueError(f"unknown multi-interpolation mode: {mode!r}")
 
     def fn(a, b):
         _check_frames(height, width, a, b)
@@ -463,7 +680,113 @@ def make_multi_interpolator(
     warp_tile: tuple = WARP_TILE,
 ):
     """``(frame_a, frame_b) -> [len(ts), H, W, 4]``: one motion solve per
-    pair shared by every time (flow_soft), or one cross-fade per time
-    (blend)."""
+    pair shared by every time (flow_soft, flow), or one cross-fade per time
+    (blend). "flow_exact" has no multi-time form, as in the JAX package."""
     ts = tuple(float(t) for t in ts)
     return _multi_interpolator(height, width, ts, mode, resolve_device(device), tuple(warp_tile))
+
+
+def interpolate_frames(frame_a, frame_b, time_t: float = 0.5, mode: str = "blend",
+                       device=None) -> torch.Tensor:
+    """One mid frame of u8 [H, W, 4] numpy or torch frames in `mode`, as a u8
+    tensor on `device` (the card unless "cpu")."""
+    dev = resolve_device(device)
+    a, b = to_device_u8(frame_a, dev), to_device_u8(frame_b, dev)
+    return make_interpolator(a.shape[-3], a.shape[-2], mode, dev)(a, b, float(time_t))
+
+
+# ---------------------------------------------------------------------------
+# device time of a step and of its stages (the reference's timestamp queries)
+# ---------------------------------------------------------------------------
+#
+# A calibration per (shape, mode, device), cached as the reference resolved
+# its query set once per pass layout: `iters` chained steps on seeded noise,
+# each step fed the last one's output, timed by `utils.tracing.device_timer`.
+
+
+def _mk_frames(height: int, width: int, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.integers(0, 256, (height, width, 4), np.uint8)).to(device)
+    b = torch.from_numpy(rng.integers(0, 256, (height, width, 4), np.uint8)).to(device)
+    return a, b
+
+
+@functools.lru_cache(maxsize=64)
+def _calibrated_step_ms(height: int, width: int, mode: str, warp_tile: tuple, iters: int,
+                        dev: torch.device) -> float:
+    fn = make_interpolator(height, width, mode, dev, warp_tile)
+    a, b = _mk_frames(height, width, dev)
+    return device_timer(lambda s: (s[1], fn(s[0], s[1], 0.5)), (a, b), iters=iters) * 1000.0
+
+
+def calibrated_step_ms(height: int, width: int, mode: str = "blend", warp_tile: tuple = WARP_TILE,
+                       iters: int = 20, device=None) -> float:
+    """Device ms of one full interpolation step at this shape and mode on
+    `device` (the card unless "cpu"); cached."""
+    return _calibrated_step_ms(height, width, mode, tuple(warp_tile), iters, resolve_device(device))
+
+
+@functools.lru_cache(maxsize=64)
+def _stage_timings_ms(height: int, width: int, mode: str, warp_tile: tuple, iters: int,
+                      dev: torch.device) -> dict:
+    total = _calibrated_step_ms(height, width, mode, warp_tile, iters, dev)
+    if mode == "blend":
+        return {"total_ms": total, "blend_ms": total}
+    a, b = _mk_frames(height, width, dev)
+    fast = mode in ("flow", "flow_soft")
+    soft = mode == "flow_soft"
+    soft_kernel = soft and soft_tiles_fit(height, width, warp_tile)
+
+    # the flow stage: the next input is perturbed by the flow, so that each
+    # step depends on the last
+    def flow_body(s):
+        fa, fb = s
+        if soft_kernel:
+            tiles = flow_tiles_fast(fa, fb, warp_tile)
+            pert = (tiles[0, 0, 0] * 8.0).to(torch.int32).to(torch.uint8)
+        else:
+            flow = compute_flow_fast(fa, fb) if fast else compute_flow(fa, fb)
+            pert = (flow[..., :1] * 8.0).to(torch.int32).to(torch.uint8)
+        return fb, fb + pert
+
+    flow_ms = device_timer(flow_body, (a, b), iters=iters) * 1000.0
+
+    if soft_kernel:
+        ty, tx = height // warp_tile[0], width // warp_tile[1]
+        tiles0 = torch.full((ty, tx, 2), 1.3, dtype=torch.float32, device=dev)
+
+        def soft_body(s):
+            fa, fb, tl = s
+            out = soft_warp_blend(fa, fb, tl, 0.5, tile=warp_tile, rng=WARP_RANGE, k=SOFT_WARP_K)
+            return fb, out, tl * 0.5 + out[:ty, :tx, :2].to(torch.float32) * 1e-6
+
+        warp_ms = device_timer(soft_body, (a, b, tiles0), iters=iters) * 1000.0
+        return {"total_ms": total, "flow_ms": flow_ms, "warp_ms": warp_ms}
+
+    if soft:
+        def warp_fn(fa, fb, fl, t):
+            return warp_blend_soft(fa, fb, fl, t, tile=warp_tile)
+    elif fast:
+        def warp_fn(fa, fb, fl, t):
+            return warp_blend_fast(fa, fb, fl, t, tile=warp_tile)
+    else:
+        warp_fn = warp_blend
+    flow0 = torch.zeros((height, width, 2), dtype=torch.float32, device=dev)
+
+    def warp_body(s):
+        fa, fb, fl = s
+        out = warp_fn(fa, fb, fl, 0.5)
+        return fb, out, fl * 0.5 + out[..., :2].to(torch.float32) * 1e-6
+
+    warp_ms = device_timer(warp_body, (a, b, flow0), iters=iters) * 1000.0
+    return {"total_ms": total, "flow_ms": flow_ms, "warp_ms": warp_ms}
+
+
+def stage_timings_ms(height: int, width: int, mode: str = "blend", warp_tile: tuple = WARP_TILE,
+                     iters: int = 20, device=None) -> dict:
+    """Per-stage device ms on `device` (the card unless "cpu"), with the JAX
+    function's keys: "blend" {total_ms, blend_ms}; the flow modes {total_ms,
+    flow_ms, warp_ms}, the stages timed apart (flow_soft's warp stage is the
+    soft warp kernel's wrapper, its front end included). Cached; do not
+    mutate the dict."""
+    return _stage_timings_ms(height, width, mode, tuple(warp_tile), iters, resolve_device(device))

@@ -5,10 +5,17 @@ PyTorch launches on the card asynchronously, so a frame's upload, its kernels
 and the previous frames' downloads overlap as long as the host does not wait
 between them; the only waits are the device-to-host fetches of finished
 outputs. `depth` frames stay in flight, as in the JAX pipelines.
+
+`LivePipeline` also takes the live link's transfer formats (`ops/color.py`):
+an `ingest_fn` that turns a planar 4:2:0 capture frame, fed as a (y, u, v)
+tuple, into RGBA on the device, and a `deliver_fn` that turns every output
+frame into its host payload on the device (4:2:0 planes and / or a preview
+size). The uploads and downloads stay pageable and on the current stream.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Iterable, Iterator, Optional
 
 import numpy as np
@@ -18,8 +25,12 @@ from nu_scaler_tpu_torch.device import resolve_device
 from nu_scaler_tpu_torch.ops.resample import to_device_u8
 
 
-def _fetch(t: torch.Tensor) -> np.ndarray:
-    return t.cpu().numpy()
+def _fetch(payload):
+    """A device payload on the host: a tensor as a numpy array, a tuple of
+    planes as a tuple of arrays."""
+    if isinstance(payload, tuple):
+        return tuple(p.cpu().numpy() for p in payload)
+    return payload.cpu().numpy()
 
 
 class FramePipeline:
@@ -67,6 +78,12 @@ class LivePipeline:
     cross-fade kernel (`ops.resample.make_fused_blend`), one launch per step.
     amortize_blend: with `interp_fn`, blend the already-upscaled frames and
     reuse the previous step's upscale.
+    ingest_fn: ``fn(y, u, v) → RGBA`` on the device, applied when `put` /
+    `put_device` get a (y, u, v) tuple; each plane is uploaded on its own,
+    then converted on the device (`ops.color.make_yuv420_to_rgba`).
+    deliver_fn: applied on the device to every output frame before it is
+    queued (`ops.color.make_delivery_fn`); its payloads may be tuples of
+    planes, which `put` / `drain` fetch as tuples of arrays.
     """
 
     def __init__(
@@ -77,6 +94,8 @@ class LivePipeline:
         depth: int = 2,
         amortize_blend: bool = False,
         fused_step_fn: Optional[Callable] = None,
+        ingest_fn: Optional[Callable] = None,
+        deliver_fn: Optional[Callable] = None,
     ) -> None:
         self.upscale_fn = upscale_fn
         self.interp_fn = interp_fn
@@ -84,6 +103,8 @@ class LivePipeline:
         self.depth = max(1, depth)
         self.amortize_blend = amortize_blend
         self.fused_step_fn = fused_step_fn
+        self.ingest_fn = ingest_fn
+        self.deliver_fn = deliver_fn
         self._prev: Optional[torch.Tensor] = None
         self._prev_up: Optional[torch.Tensor] = None
         self._inflight: list[tuple] = []
@@ -91,12 +112,16 @@ class LivePipeline:
         self.frames_out = 0
 
     def put(self, frame) -> list:
-        """Feed one captured frame; returns 0+ completed host-side frames."""
+        """Feed one captured frame (RGBA, or a (y, u, v) tuple under an
+        `ingest_fn`); returns 0+ completed host-side payloads."""
         return [_fetch(o) for o in self.put_device(frame)]
 
     def put_device(self, frame) -> list:
-        """Like put(), but returns device tensors without a host sync."""
-        cur = to_device_u8(frame, self.device)
+        """Like put(), but returns device payloads without a host sync."""
+        if self.ingest_fn is not None and isinstance(frame, tuple):
+            cur = self.ingest_fn(*(to_device_u8(p, self.device) for p in frame))
+        else:
+            cur = to_device_u8(frame, self.device)
         outs: list = []
         if self.fused_step_fn is not None:
             if self._prev_up is None:
@@ -120,6 +145,8 @@ class LivePipeline:
             outs.append(self.upscale_fn(cur))
         self._prev = cur
         self.frames_in += 1
+        if self.deliver_fn is not None:
+            outs = [self.deliver_fn(o) for o in outs]
         self._inflight.append(tuple(outs))
         ready: list = []
         if len(self._inflight) > self.depth:
@@ -136,3 +163,39 @@ class LivePipeline:
             ready.extend(self._inflight.pop(0))
         self.frames_out += len(ready)
         return ready
+
+
+def benchmark_live_pipeline(
+    upscale_fn: Callable,
+    interp_fn: Optional[Callable],
+    frames: list,
+    warmup: int = 4,
+    depth: int = 2,
+    device=None,
+) -> dict:
+    """Throughput and latency of the live pipeline over a frame sequence
+    (host frames in, every output fetched to the host), on `device` (the
+    card unless "cpu"): output frames per second and per-input-step latency
+    percentiles, with the JAX function's keys."""
+    pipe = LivePipeline(upscale_fn, interp_fn, device=device, depth=depth)
+    for f in frames[:warmup]:
+        pipe.put(f)
+    pipe.drain()
+
+    pipe.frames_out = 0
+    step_times = []
+    t0 = time.perf_counter()
+    for f in frames[warmup:]:
+        s0 = time.perf_counter()
+        pipe.put(f)
+        step_times.append((time.perf_counter() - s0) * 1000.0)
+    pipe.drain()
+    total = time.perf_counter() - t0
+    n_out = pipe.frames_out
+    return {
+        "output_frames": n_out,
+        "seconds": total,
+        "fps": n_out / total if total > 0 else float("inf"),
+        "p50_step_ms": float(np.percentile(step_times, 50)) if step_times else 0.0,
+        "p99_step_ms": float(np.percentile(step_times, 99)) if step_times else 0.0,
+    }

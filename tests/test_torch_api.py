@@ -171,13 +171,21 @@ def test_interpolator_presets():
 
 
 @pytest.mark.parametrize(
-    "mode, item", [("flow", 8), ("flow_soft_ref", 10), ("flow_exact", 8)]
+    "mode, item", [("flow", None), ("flow_soft_ref", 10), ("flow_exact", None)]
 )
 def test_interpolator_flow_modes_not_ported(mode, item):
-    """The modes not ported yet raise, naming their ROADMAP item; flow_soft
-    and blend construct; an unknown mode is a ValueError."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}\\b"):
-        pc.WgpuFrameInterpolator(mode=mode, device="cpu")
+    """flow and flow_exact construct and serve a mid frame; flow_soft_ref,
+    not ported yet, raises naming its ROADMAP item; flow_soft and blend
+    construct; an unknown mode is a ValueError."""
+    if item is None:
+        interp = pc.WgpuFrameInterpolator(mode=mode, device="cpu")
+        assert interp.mode == mode
+        a = np.random.default_rng(3).integers(0, 256, (16, 128, 4), np.uint8)
+        out = interp.interpolate_py(a.tobytes(), np.roll(a, 2, axis=1).tobytes(), 128, 16)
+        assert len(out) == 16 * 128 * 4
+    else:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}\\b"):
+            pc.WgpuFrameInterpolator(mode=mode, device="cpu")
     for ported in ("blend", "flow_soft"):
         assert pc.WgpuFrameInterpolator(mode=ported, device="cpu").mode == ported
     with pytest.raises(ValueError, match="unknown interpolation mode"):

@@ -317,10 +317,10 @@ def test_factories_dispatch_each_mode(monkeypatch):
     """A mode past `check_mode` that the factories do not serve raises; it is
     never served as flow_soft."""
     monkeypatch.setattr(P, "check_mode", lambda mode: None)
-    with pytest.raises(NotImplementedError, match="'flow'.*ROADMAP queue 1, item 8"):
-        P.make_interpolator(16, 128, "flow", device="cpu")
-    with pytest.raises(NotImplementedError, match="'flow'.*ROADMAP queue 1, item 8"):
-        P.make_multi_interpolator(16, 128, (0.5,), "flow", device="cpu")
+    with pytest.raises(NotImplementedError, match="'flow_soft_ref'.*ROADMAP queue 1, item 10"):
+        P.make_interpolator(16, 128, "flow_soft_ref", device="cpu")
+    with pytest.raises(NotImplementedError, match="'flow_soft_ref'.*ROADMAP queue 1, item 10"):
+        P.make_multi_interpolator(16, 128, (0.5,), "flow_soft_ref", device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -424,9 +424,12 @@ def test_create_interpolator():
         got = pc.create_interpolator(kind, "tall", device="cpu")
         assert got.mode == want == nsc.create_interpolator(kind, "tall").mode
         assert got.warp_tile == nsc.create_interpolator(kind, "tall").warp_tile == (32, 32)
-    for kind in ("flow", "flow_exact", "flow_soft_ref"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item"):
-            pc.create_interpolator(kind, device="cpu")
+    for kind in ("flow", "flow_exact"):
+        got = pc.create_interpolator(kind, "tall", device="cpu")
+        assert got.mode == kind == nsc.create_interpolator(kind, "tall").mode
+        assert got.warp_tile == (32, 32)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
+        pc.create_interpolator("flow_soft_ref", device="cpu")
 
 
 def test_live_pipeline_flow_soft():
