@@ -113,6 +113,22 @@ Phases, each printed on its own line with its seconds:
    interpolator (2 resample_fused launches a step, no soft warp); the timing
    API of "blend", "flow_soft", "flow" and "flow_exact" (the JAX keys, every
    value > 0, the total the calibration's);
+4h. the learned refinement tier ("flow_soft_ref") at 1080p→4K with the
+   committed interp_ref4 weights (128 features, 1 block, stride 4), each
+   call's launch counts read on its own: WgpuFrameInterpolator(mode=
+   "flow_soft_ref") interpolate_py and interpolate_multi_py at t = (1/3,
+   2/3), make_refined_mid_upscaler and make_refined_multi_upscaler, and a
+   LivePipeline of 8 frames with the lanczos3 upscale and the flow_soft_ref
+   interpolator (4 conv3x3, 1 soft_warp_blend and 0 conv3x3_q launches a
+   refined mid, 1 resample_fused a refined 4K mid). Gates: the refined mid
+   against the same graph on the conv's plain version on the card (≥ 45 dB
+   RGB, alpha equal) and against the CPU (≥ 45 dB), both on the same
+   flow_soft mid; the refined 4K mid against d2s + make_resampler of the
+   refined mid (≥ 50 dB, psnr_flow_soft_ref_db); the multi forms equal to
+   the single calls. Recorded: the mids of flow_soft and flow_soft_ref
+   against the true mid of a texture moved 8 px, the timing API (total,
+   flow, warp, refine), the live output fps on the card and fetched, the
+   device ms of the net alone and of one refined 4K mid;
 5. times: per kernel the median of 20 CUDA-event timings after 3 warm-ups,
    the plain version's time, and the bound (the larger of bytes moved over
    the memory rate and operations over the rate of their type: fp32, or
@@ -131,9 +147,12 @@ Phases, each printed on its own line with its seconds:
    tiles, 3 or 4 weight stages; each the default's bytes) with ptxas'
    registers and spill stores; the two-call resample, both
    launches and each alone, against resample_fused; phase 4g's flow_soft
-   warp stage within 2x of the soft warp wrapper's time;
+   warp stage within 2x of the soft warp wrapper's time; the refinement
+   net's four convs at their padded widths (phase 4h's operands) with their
+   bounds at the padded and the real widths, plain times, F.conv2d at the
+   real widths and ptxas' registers;
 6. torch.profiler traces of 7 fused live steps, of 7 flow_soft live steps,
-   of 7 live 4:2:0 steps, of 7 "flow" and 7 "flow_exact" calls,
+   of 7 flow_soft_ref live steps, of 7 live 4:2:0 steps, of 7 "flow" and 7 "flow_exact" calls,
    of 7 FSR + flow_soft live steps and of 7 learned x2 upscale_arr calls,
    with the layered and with the fused trunk, and of 7 calls of phase 4f's
    stride-2, 720p→4K, ESRGANLite ×2 and stride-8 graphs: the device's busy
@@ -567,10 +586,12 @@ def main() -> int:
     from nu_scaler_tpu_torch.kernels import soft_warp_cuda as swc
     from nu_scaler_tpu_torch.kernels import trunk_cuda as tc
     from nu_scaler_tpu_torch.models import esrgan_lite as pel
+    from nu_scaler_tpu_torch.models import interp_refine as pir
     from nu_scaler_tpu_torch.ops import color
     from nu_scaler_tpu_torch.ops import interpolate as interp
     from nu_scaler_tpu_torch.ops import resample
     from nu_scaler_tpu_torch.runtime.streaming import LivePipeline, benchmark_live_pipeline
+    from nu_scaler_tpu_torch.utils.tracing import device_timer
 
     # plain versions and goldens in full fp32 / fp64: no TF32 anywhere
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1799,6 +1820,159 @@ def main() -> int:
             check(ms == calibrated == detail["total_ms"], f"{mode}: {ms} ms is not the calibration's")
         say(f"timing API at 1080p (device ms, CUDA events) [{card}]: " + json.dumps(timing))
 
+    with Phase("4h flow_soft_ref path"):
+        # the learned refinement tier at 1080p → 4K with the committed
+        # interp_ref4 weights (128 features, 1 block, stride 4): its four
+        # convs on conv3x3 at the 270x480 s2d grid; each call's counts read
+        # on its own
+        torch.cuda.empty_cache()
+        ref_graph = pir.get_refine_graph(IN_H, IN_W, dev)
+        ref_meta = pir.load_model()[1]
+        check(not ref_graph.quantized and ref_graph.convs_per_frame == 4,
+              f"the refinement graph: quantized {ref_graph.quantized}, {ref_graph.convs_per_frame} convs")
+        ts3 = (1.0 / 3.0, 2.0 / 3.0)
+        ab = (frames["a"].tobytes(), frames["b"].tobytes())
+        fr = WgpuFrameInterpolator(mode="flow_soft_ref")
+        mid_up = interp.make_refined_mid_upscaler(IN_H, IN_W, OUT_H, OUT_W)
+        multi_up = interp.make_refined_multi_upscaler(IN_H, IN_W, OUT_H, OUT_W, ts3)
+        ref_interp = interp.make_interpolator(IN_H, IN_W, "flow_soft_ref")
+        check(mid_up.ph_up is not None and mid_up.ref is ref_graph, "the refined 4K path at 1080p")
+
+        def reset_all():
+            cc.reset_launches()
+            swc.reset_launches()
+            rc.reset_launches()
+
+        def read_all() -> dict:
+            torch.cuda.synchronize()
+            return {"conv3x3": cc.launches["conv3x3"], "conv3x3_q": cc.launches["conv3x3_q"],
+                    "soft_warp_blend": swc.launches["soft_warp_blend"],
+                    "resample_fused": rc.launches["resample_fused"]}
+
+        ref_counts = {}
+        reset_all()
+        mid_ref = np.frombuffer(fr.interpolate_py(*ab, IN_W, IN_H), np.uint8).reshape(IN_H, IN_W, 4)
+        ref_counts["interpolate_py"] = read_all()
+        reset_all()
+        mids_ref = fr.interpolate_multi_py(*ab, IN_W, IN_H, times=ts3)
+        ref_counts["interpolate_multi_py"] = read_all()
+        reset_all()
+        up_mid = mid_up(on_dev["a"], on_dev["b"], 0.5).cpu().numpy()
+        ref_counts["make_refined_mid_upscaler"] = read_all()
+        reset_all()
+        up_multi = multi_up(on_dev["a"], on_dev["b"]).cpu().numpy()
+        ref_counts["make_refined_multi_upscaler"] = read_all()
+        # the app's live configuration with --interp-mode flow_soft_ref: the
+        # lanczos3 upscale and the flow_soft_ref interpolator
+        reset_all()
+        rpipe = LivePipeline(up_fn, ref_interp, depth=2)
+        ref_live, ref_steps = [], []
+        for f in live_in:
+            before = read_all()
+            ref_live += rpipe.put(f)
+            after = read_all()
+            ref_steps.append(tuple(after[k] - before[k] for k in ("conv3x3", "soft_warp_blend", "resample_fused")))
+        ref_live += rpipe.drain()
+        ref_counts["live"] = read_all()
+        say(f"launches on the flow_soft_ref path, each call on its own [{card}]: {json.dumps(ref_counts)}; "
+            f"per live step (conv3x3, soft_warp_blend, resample_fused): {ref_steps}")
+        per_mid = {"conv3x3": 4, "conv3x3_q": 0, "soft_warp_blend": 1}
+        for name, n_mid, n_up in (("interpolate_py", 1, 0), ("interpolate_multi_py", 2, 0),
+                                  ("make_refined_mid_upscaler", 1, 1), ("make_refined_multi_upscaler", 2, 2)):
+            want = {k: v * n_mid for k, v in per_mid.items()} | {"resample_fused": n_up}
+            check(ref_counts[name] == want, f"{name} launches: {ref_counts[name]}, want {want}")
+        check(ref_steps[0] == (0, 0, 1) and all(c == (4, 1, 2) for c in ref_steps[1:]),
+              f"flow_soft_ref live step launches: {ref_steps}")
+        h4_counts = {k: sum(c[k] for c in ref_counts.values()) for k in ("conv3x3", "soft_warp_blend", "resample_fused")}
+
+        # the gates: the refined mid on the card against the same graph on the
+        # conv's plain version on the card, and against the CPU (the same
+        # flow_soft mid in); the refined 4K mid against d2s + make_resampler
+        # of the refined mid (the port's psnr_flow_soft_ref_db); the multi
+        # forms against the single calls
+        soft_mid = interp.soft_interp_fast(on_dev["a"], on_dev["b"], 0.5)
+        ker_mid = ref_graph(on_dev["a"], on_dev["b"], soft_mid).cpu().numpy()
+        plain_graph = pir.RefineGraph(pir.load_model()[0], IN_H, IN_W, dev, conv=cc.conv3x3_plain)
+        plain_mid = plain_graph(on_dev["a"], on_dev["b"], soft_mid).cpu().numpy()
+        cpu_mid = pir.get_refine_graph(IN_H, IN_W, "cpu")(
+            torch.from_numpy(frames["a"]), torch.from_numpy(frames["b"]), soft_mid.cpu()).numpy()
+        ref_gates = {
+            "refined_mid_vs_plain_convs_db": psnr(ker_mid, plain_mid),
+            "refined_mid_vs_plain_convs_max_lsb": lsb(ker_mid, plain_mid),
+            "refined_mid_alpha_equal": bool(np.array_equal(ker_mid[..., 3], plain_mid[..., 3])),
+            "refined_mid_vs_cpu_db": psnr(ker_mid, cpu_mid),
+            "refined_mid_vs_cpu_max_lsb": lsb(ker_mid, cpu_mid),
+            "api_mid_equals_graph": bool(np.array_equal(mid_ref, ker_mid)),
+            "refined_mid_vs_flow_soft_mid_db": psnr(ker_mid, soft_mid.cpu().numpy()),
+        }
+        d2s_up = up_fn(torch.from_numpy(mid_ref.copy())).cpu().numpy()
+        ref_gates["psnr_flow_soft_ref_db"] = psnr(up_mid, d2s_up)
+        ref_gates["refined_4k_equals_d2s_resample"] = bool(np.array_equal(up_mid, d2s_up))
+        singles = [mid_up(on_dev["a"], on_dev["b"], t).cpu().numpy() for t in ts3]
+        ref_gates["refined_multi_equals_single"] = all(np.array_equal(m, s_) for m, s_ in zip(up_multi, singles))
+        ref_gates["multi_py_equals_single"] = mids_ref == [fr.interpolate_py(*ab, IN_W, IN_H, time_t=t) for t in ts3]
+        # on a texture moved by 8 px the true mid is the texture moved by 4 px
+        w0, w8, w4 = (wave_pattern(IN_W, IN_H, s_) for s_ in (0.0, 8.0, 4.0))
+        for mode in ("flow_soft", "flow_soft_ref"):
+            wave = np.frombuffer(WgpuFrameInterpolator(mode=mode).interpolate_py(
+                w0.tobytes(), w8.tobytes(), IN_W, IN_H), np.uint8).reshape(IN_H, IN_W, 4)
+            ref_gates[f"wave_{mode}_vs_truth_db"] = psnr(wave, w4)
+        say(f"flow_soft_ref gates, {ref_meta['net']} step {ref_meta['step']} [{card}]: " + json.dumps(ref_gates))
+        check(ref_gates["refined_mid_vs_plain_convs_db"] >= LEARNED_GATE_DB and ref_gates["refined_mid_alpha_equal"],
+              f"refined mid vs plain convs: {ref_gates['refined_mid_vs_plain_convs_db']:.2f} dB")
+        check(ref_gates["refined_mid_vs_cpu_db"] >= LEARNED_GATE_DB,
+              f"refined mid vs the CPU: {ref_gates['refined_mid_vs_cpu_db']:.2f} dB")
+        check(ref_gates["psnr_flow_soft_ref_db"] >= PSNR_GATE_DB,
+              f"psnr_flow_soft_ref_db {ref_gates['psnr_flow_soft_ref_db']:.2f} < {PSNR_GATE_DB}")
+        check(ref_gates["refined_multi_equals_single"], "make_refined_multi_upscaler != the single calls")
+        check(ref_gates["multi_py_equals_single"], "flow_soft_ref interpolate_multi_py != interpolate_py")
+        check(ref_gates["api_mid_equals_graph"], "interpolate_py's refined mid != the graph on its flow_soft mid")
+        check(len(ref_live) == 2 * LIVE_FRAMES - 1 and all(o.shape == (OUT_H, OUT_W, 4) for o in ref_live),
+              f"flow_soft_ref live frames: {len(ref_live)}")
+        check(np.array_equal(ref_live[1], d2s_up), "live flow_soft_ref mid != upscale(interpolate_py)")
+
+        # recorded: the timing API, the live output fps on the card and
+        # fetched, and the device ms of the refinement graph alone and of one
+        # refined 4K mid (CUDA events, the host's launches hidden)
+        fr.interpolate_py(*ab, IN_W, IN_H)
+        ref_timing = {"gpu_duration_ms": fr.get_last_gpu_duration_ms(), **fr.get_last_gpu_duration_detail()}
+        check(set(ref_timing) == {"gpu_duration_ms", "total_ms", "flow_ms", "warp_ms", "refine_ms", "wall_ms"},
+              f"flow_soft_ref timing keys: {sorted(ref_timing)}")
+        check(ref_timing["refine_ms"] >= 0 and all(ref_timing[k] > 0 for k in ("total_ms", "flow_ms", "warp_ms")),
+              f"flow_soft_ref timing: {ref_timing}")
+        ref_e2e = {
+            "net_device_ms": 1e3 * device_timer(
+                lambda s_: (s_[0], s_[1], ref_graph(s_[0], s_[1], s_[2])), (on_dev["a"], on_dev["b"], soft_mid)),
+            "refined_4k_mid_device_ms": 1e3 * device_timer(
+                lambda s_: (s_[1], s_[0], mid_up(s_[0], s_[1], 0.5)[:1, :1]),
+                (on_dev["a"], on_dev["b"], soft_mid[:1, :1])),
+            "live_flow_soft_ref_output_fps_device": live_fps(
+                torch, lambda: LivePipeline(up_fn, ref_interp, depth=2), live_in, False),
+            "live_flow_soft_ref_output_fps_host": live_fps(
+                torch, lambda: LivePipeline(up_fn, ref_interp, depth=2), live_in, True),
+        }
+        lat = []
+        for _ in range(6):
+            t0 = time.perf_counter()
+            fr.interpolate_py(*ab, IN_W, IN_H)
+            lat.append((time.perf_counter() - t0) * 1e3)
+        ref_e2e["interpolate_py_flow_soft_ref_ms_median"] = float(np.median(lat[1:]))
+        say(f"timing API flow_soft_ref at 1080p (device ms, CUDA events) [{card}]: " + json.dumps(ref_timing))
+        say(f"e2e flow_soft_ref [{card}]: " + json.dumps(ref_e2e))
+
+        # the four convs' operands as the graph launches them, for phase 5
+        ref_convs, orig_conv = [], ref_graph.conv
+
+        def spy_ref(x, k, b, relu, round_sum):
+            ref_convs.append((x, k, b, relu))
+            return orig_conv(x, k, b, relu, round_sum)
+
+        ref_graph.conv = spy_ref
+        try:
+            ref_graph(on_dev["a"], on_dev["b"], soft_mid)
+        finally:
+            ref_graph.conv = orig_conv
+
     with Phase("5 times"):
         flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
         tables = 4 * (OUT_H * (1 + lz.kv) + OUT_W * (1 + lz.kh))
@@ -1834,7 +2008,7 @@ def main() -> int:
         }
         rows = []
         launched = {name: counts[name] + flow_counts.get(name, 0) + g4_counts.get(name, 0)
-                    for name in counts}
+                    + h4_counts.get(name, 0) for name in counts}
         for name, (kernel, plain, n, n_ts) in cases.items():
             b_ms, b_by = bound(n, n_ts)
             ms, plain_ms = time_ms(torch, kernel, flush), time_ms(torch, plain, flush)
@@ -1907,7 +2081,8 @@ def main() -> int:
         rows.append({
             "name": "soft_warp_blend", "route": "cuda", "source": SOFT_SOURCE,
             "replaces": REPLACES["soft_warp_blend"],
-            "launches": flow_counts["soft_warp_blend"],
+            "launches": flow_counts["soft_warp_blend"] + h4_counts["soft_warp_blend"],
+            "launches_flow_soft_ref": h4_counts["soft_warp_blend"],
             "max_abs_err": errs["soft_warp_blend"], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "ptxas": soft_regs,
             # no single PyTorch call computes the 4-corner candidate blend
@@ -2010,10 +2185,42 @@ def main() -> int:
                 say(f"  conv3x3 [{name}] {tag}{' (default)' if v == cc.DEFAULT_VARIANT else ''}: "
                     f"{v_ms:.4f} ms, {100 * b_ms / v_ms:.1f}% of bound, {ops / v_ms / 1e9:.1f} TFLOP/s; "
                     f"ptxas {regs.get(v, 'not in this build log')}")
+        # the refinement net's four convs (phase 4h's operands) at the kernel's
+        # padded widths, each beside F.conv2d at the graph's own widths (the
+        # head's 192 RGBA s2d lanes, the tail's 64 phases): time, bound at
+        # both widths, plain time and ptxas registers of the template it runs
+        relu_regs = {False: regs, True: variant_registers(_build.BUILD_LOGS.get("conv3x3", ""),
+                                                          r"conv3x3_kernelILi\d+ELi\d+ELi\d+ELb1ELi1E")}
+        refine_conv_ms = {}
+        for name, (x, k, b, relu), (ci, co) in zip(("head", "block0.conv1", "block0.conv2", "tail"), ref_convs,
+                                                    ((192, 128), (128, 128), (128, 128), (128, 64))):
+            n_, h_, w_ = x.shape[:3]
+            cin, cout = k.shape[2], k.shape[3]
+            moved, ops = conv_work(n_, h_, w_, cin, cout)
+            t_bytes, t_ops = moved / mem_bw * 1e3, ops / bf16_rate * 1e3
+            b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+            r_moved, r_ops = conv_work(n_, h_, w_, ci, co)
+            b_real = max(r_moved / mem_bw, r_ops / bf16_rate) * 1e3
+            xc = x[..., :ci].permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+            wc = k[:, :, :ci, :co].permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+            bc = b[:co].contiguous()
+            ms = time_ms(torch, lambda: cc.conv3x3(x, k, b, relu, True), flush)
+            plain_ms = time_ms(torch, lambda: cc.conv3x3_plain(x, k, b, relu, True), flush)
+            lib_ms = time_ms(torch, lambda: torch.nn.functional.conv2d(xc, wc, bc, padding=1), flush)
+            ptxas = relu_regs[relu].get(cc.DEFAULT_VARIANT, "not in this build log")
+            key = f"{name} 1x{h_}x{w_} {cin}->{cout}"
+            say(f"time conv3x3 refinement [{key}] (real {ci}->{co}) [{card}]: {ms:.4f} ms (plain {plain_ms:.4f} "
+                f"ms; F.conv2d at the real widths {lib_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by}, at the real "
+                f"widths {b_real:.4f} ms; {100 * b_ms / ms:.1f}% of bound; ptxas {ptxas})")
+            refine_conv_ms[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms_real_widths": lib_ms,
+                                   "bound_ms": b_ms, "bound_by": b_by, "bound_ms_real_widths": b_real,
+                                   "real": f"{ci}->{co}", "relu": relu, "ptxas": ptxas}
         main = conv_ms[main_shape]
         rows.append({
             "name": "conv3x3", "route": "cuda", "source": CONV_SOURCE, "replaces": REPLACES["conv3x3"],
-            "launches": learned_counts["conv3x3"], "max_abs_err": errs["conv3x3"], **main,
+            "launches": learned_counts["conv3x3"] + h4_counts["conv3x3"], "max_abs_err": errs["conv3x3"], **main,
+            # phase 4h: the refinement net's convs (4 a refined mid) and their times
+            "launches_flow_soft_ref": h4_counts["conv3x3"], "refinement_shapes": refine_conv_ms,
             # phase 4f's rungs (the stride-2, unfused, ESRGANLite and stride-8
             # graphs) at the kernel's padded widths, each padded shape beside
             # F.conv2d at its real widths
@@ -2181,6 +2388,9 @@ def main() -> int:
             busy = trace_calls(torch, lambda p, fn=fn: fn(p[0], p[1], 0.5), pair_dev, 7,
                                Path(_build.BUILD_DIR) / f"{mode}_trace.json")
             say(f"trace {mode} interpolate [{card}]: " + json.dumps(busy))
+        busy = trace_steps(torch, LivePipeline(up_fn, ref_interp, depth=2), live_in,
+                           Path(_build.BUILD_DIR) / "flow_soft_ref_trace.json")
+        say(f"trace flow_soft_ref [{card}]: " + json.dumps(busy))
         busy = trace_steps(torch, make_fsr_pipe(), live_in,
                            Path(_build.BUILD_DIR) / "fsr_flow_soft_trace.json")
         say("trace fsr + flow_soft: " + json.dumps(busy))

@@ -1,5 +1,6 @@
-"""Module constants the ported API needs — the port's own copy of
-`UpscalingQuality` from `nu_scaler_core/_constants.py`.
+"""Module constants of the ported API — the port's own copy of
+`nu_scaler_core/_constants.py` (the reference's pymodule registration,
+`nu_scaler_core/src/lib.rs:746-761`).
 
 Str-derived enum members both compare as tokens and remain valid constructor
 arguments (every reference constructor parses case-insensitive strings).
@@ -30,7 +31,40 @@ class UpscalingQuality(str, enum.Enum):
             return UpscalingQuality.QUALITY
 
 
+class UpscalingTechnology(str, enum.Enum):
+    FSR = "fsr"
+    DLSS = "dlss"
+    WGPU = "wgpu"
+    FALLBACK = "fallback"
+
+    @staticmethod
+    def parse(s: str) -> "UpscalingTechnology":
+        """Case-insensitive with silent fallback to Fallback."""
+        try:
+            return UpscalingTechnology(str(s).lower())
+        except ValueError:
+            return UpscalingTechnology.FALLBACK
+
+
+class GpuVendor(str, enum.Enum):
+    NVIDIA = "nvidia"
+    AMD = "amd"
+    INTEL = "intel"
+    GOOGLE = "google"
+    OTHER = "other"
+
+
 QUALITY_ULTRA = UpscalingQuality.ULTRA
 QUALITY_QUALITY = UpscalingQuality.QUALITY
 QUALITY_BALANCED = UpscalingQuality.BALANCED
 QUALITY_PERFORMANCE = UpscalingQuality.PERFORMANCE
+
+TECH_FSR = UpscalingTechnology.FSR
+TECH_DLSS = UpscalingTechnology.DLSS
+TECH_WGPU = UpscalingTechnology.WGPU
+TECH_FALLBACK = UpscalingTechnology.FALLBACK
+
+VENDOR_NVIDIA = GpuVendor.NVIDIA
+VENDOR_AMD = GpuVendor.AMD
+VENDOR_INTEL = GpuVendor.INTEL
+VENDOR_OTHER = GpuVendor.OTHER

@@ -1,11 +1,11 @@
 """`WgpuFrameInterpolator` and `create_interpolator` of the port — the
 counterparts of `nu_scaler_core/interpolator.py` in modes "blend" (the
 reference's shipped zero-flow cross-fade, the default), "flow_soft" (the
-production overlapped-tile motion-compensated mode), "flow" (the hard block
-warp) and "flow_exact" (the per-pixel warp): `interpolate_py`,
-`interpolate_multi_py`, the timing API (`get_last_gpu_duration_ms`,
-`get_last_gpu_duration_detail`) and the array methods. "flow_soft_ref"
-(ROADMAP queue 1, item 10) raises NotImplementedError.
+production overlapped-tile motion-compensated mode), "flow_soft_ref" (its
+mid refined by the learned net), "flow" (the hard block warp) and
+"flow_exact" (the per-pixel warp): `interpolate_py`, `interpolate_multi_py`,
+the timing API (`get_last_gpu_duration_ms`, `get_last_gpu_duration_detail`)
+and the array methods.
 
 `get_last_gpu_duration_ms()` returns the device time of one step of the
 last `interpolate_py` call's (shape, mode): a cached calibration
@@ -134,8 +134,9 @@ class WgpuFrameInterpolator:
     def get_last_gpu_duration_detail(self) -> Optional[dict]:
         """Per-stage device ms of the last call's (shape, mode), as
         `ops.interpolate.stage_timings_ms` gives them (total + blend, or
-        total + flow + warp), plus `wall_ms`, the last call's synchronised
-        wall time; the stages are empty if their calibration fails."""
+        total + flow + warp, and + refine for "flow_soft_ref"), plus
+        `wall_ms`, the last call's synchronised wall time; the stages are
+        empty if their calibration fails."""
         if self._last_key is None:
             return None
         try:
@@ -179,9 +180,8 @@ def create_interpolator(
     kind: str = "blend", workgroup_preset: Optional[str] = None, device=None
 ) -> WgpuFrameInterpolator:
     """Interpolator factory: kind "blend" | "flow" | "flow_soft" |
-    "flow_exact" ("flow_soft_ref", not ported yet, raises
-    NotImplementedError). Unknown kinds fall back to "blend", as in
-    `nu_scaler_core`."""
+    "flow_soft_ref" | "flow_exact". Unknown kinds fall back to "blend", as
+    in `nu_scaler_core`."""
     if kind not in _interp.MODES:
         kind = "blend"
     return WgpuFrameInterpolator(workgroup_preset, mode=kind, device=device)

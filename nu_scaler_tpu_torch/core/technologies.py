@@ -62,7 +62,7 @@ def _quality_to_algorithm(quality: str) -> str:
             "performance": "bilinear"}[q]
 
 
-def _learned_tier_available(prefer: str) -> bool:
+def learned_tier_available(prefer: str) -> bool:
     """True when the committed weights hold an arch of the `prefer` ladder
     at ×2 (the role of the reference's library probe)."""
     return any(any(_learned.WEIGHTS_DIR.glob(f"esrgan_{arch}_x2_*.json"))
@@ -88,9 +88,9 @@ def is_supported(technology: str, device=None) -> bool:
     if t in ("fsr", "fsr3", "nis", "cuda", "vulkan", "gpu", "wgpu"):
         return _device_available(device)
     if t == "dlss":
-        return _device_available(device) and _learned_tier_available("quality")
+        return _device_available(device) and learned_tier_available("quality")
     if t == "xess":
-        return _device_available(device) and _learned_tier_available("performance")
+        return _device_available(device) and learned_tier_available("performance")
     return False
 
 

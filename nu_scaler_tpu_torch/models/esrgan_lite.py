@@ -395,13 +395,47 @@ def params_from_flax(tree) -> dict:
     return out
 
 
-def _sidecar(arch: str, upscale: int) -> Optional[dict]:
-    """The JSON sidecar of the newest committed weights of `arch` at
-    `upscale`, or None."""
-    sidecars = sorted(WEIGHTS_DIR.glob(f"esrgan_{arch}_x{upscale}_*.json"))
+def newest_sidecar(directory: Path, pattern: str) -> Optional[dict]:
+    """The JSON sidecar of the newest step among the weights whose sidecars
+    match the glob `pattern` in `directory`, or None."""
+    sidecars = sorted(directory.glob(pattern))
     if not sidecars:
         return None
     return max((json.loads(p.read_text()) for p in sidecars), key=lambda m: m["step"])
+
+
+def read_weights(npz: Path, sha256: str) -> dict:
+    """The nested flax-named numpy tree of `npz`, whose sha256 must be
+    `sha256` (its sidecar's); a missing file raises FileNotFoundError."""
+    digest = hashlib.sha256(npz.read_bytes()).hexdigest()
+    if digest != sha256:
+        raise ValueError(f"{npz.name}: sha256 {digest} != its sidecar's {sha256}")
+    tree: dict = {}
+    with np.load(npz) as z:
+        for key in z.files:
+            node = tree
+            *parents, leaf = key.split("/")
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[leaf] = z[key]
+    return tree
+
+
+def sidecar_scales(meta: Optional[dict]) -> Optional[dict]:
+    """The int8 activation scales a sidecar carries (``act_scales``), or None
+    when it carries none or they were calibrated at another step than the
+    weights' (`nu_scaler_tpu/models/train.py` `load_act_scales`)."""
+    blob = meta and meta.get("act_scales")
+    if not blob or blob.get("step") != meta["step"]:
+        return None
+    scales = blob.get("scales")
+    return dict(scales) if isinstance(scales, dict) and scales else None
+
+
+def _sidecar(arch: str, upscale: int) -> Optional[dict]:
+    """The JSON sidecar of the newest committed weights of `arch` at
+    `upscale`, or None."""
+    return newest_sidecar(WEIGHTS_DIR, f"esrgan_{arch}_x{upscale}_*.json")
 
 
 def load_weights(arch: str, upscale: int) -> Optional[tuple[dict, dict]]:
@@ -411,32 +445,13 @@ def load_weights(arch: str, upscale: int) -> Optional[tuple[dict, dict]]:
     meta = _sidecar(arch, upscale)
     if meta is None:
         return None
-    npz = WEIGHTS_DIR / f"esrgan_{arch}_x{upscale}_{meta['step']}.npz"
-    digest = hashlib.sha256(npz.read_bytes()).hexdigest()
-    if digest != meta["sha256"]:
-        raise ValueError(f"{npz.name}: sha256 {digest} != its sidecar's {meta['sha256']}")
-    tree: dict = {}
-    with np.load(npz) as z:
-        for key in z.files:
-            node = tree
-            *parents, leaf = key.split("/")
-            for p in parents:
-                node = node.setdefault(p, {})
-            node[leaf] = z[key]
-    return tree, meta
+    return read_weights(WEIGHTS_DIR / f"esrgan_{arch}_x{upscale}_{meta['step']}.npz", meta["sha256"]), meta
 
 
 def load_act_scales(arch: str, upscale: int) -> Optional[dict]:
     """The int8 activation scales of the committed weights of `arch` at
-    `upscale` (their sidecar's ``act_scales``), or None when the port carries
-    none or they were calibrated at another step than the weights'
-    (`nu_scaler_tpu/models/train.py` `load_act_scales`)."""
-    meta = _sidecar(arch, upscale)
-    blob = meta and meta.get("act_scales")
-    if not blob or blob.get("step") != meta["step"]:
-        return None
-    scales = blob.get("scales")
-    return dict(scales) if isinstance(scales, dict) and scales else None
+    `upscale` (`sidecar_scales`), or None."""
+    return sidecar_scales(_sidecar(arch, upscale))
 
 
 def load_model(arch: str, upscale: int) -> Optional[tuple[nn.Module, dict]]:

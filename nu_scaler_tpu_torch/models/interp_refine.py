@@ -1,0 +1,334 @@
+"""The learned MC-interpolation refinement — the port of
+`nu_scaler_tpu/models/interp_refine.py` (its serving paths): a small
+phase-domain conv net that reads (A, B, the flow_soft mid) and predicts a
+residual correction to the mid, the net of interpolation mode
+"flow_soft_ref".
+
+`InterpRefine` is the network as an `nn.Module` in the [0, 1] domain
+(`InterpRefineTPU`, `:37-61`): a space-to-depth(4) front end, a head conv,
+residual blocks (the learned tier's `ResBlock`) and a tail conv that emits
+every phase's RGB residual, then depth-to-space. The mid-add lives in the
+caller. `make_apply` is its fp32 twin (`:669`), `make_quant_apply` the fp32
+twin of the int8 graph (`:686`).
+
+`RefineGraph` is the raw-domain u8 serving graph of `get_refine_phase_graph`
+and `get_refine_graph` (`:466-645`), with JAX's roundings in this order:
+
+1. the head kernel is f32(kernel) / 255 in fp32, RGBA-expanded (zero alpha
+   rows), then bf16; the tail kernel f32(kernel) · 255, then bf16; the tail
+   bias ×255 stays fp32;
+2. every conv rounds twice: its bf16 sum, then + the bf16 bias in bf16
+   (`conv3x3(..., round_sum=True)`); the tail has no bias, so one rounding;
+3. the residual h + bf16(0.2) · conv2(relu(conv1(h))) in bf16, the product
+   and the sum each rounded;
+4. the s2d channel of (row phase q, column phase p, frame f, RGBA c) is
+   q·st·12 + p·12 + f·4 + c, the mid's own phases (q, p, c);
+5. clip(round_half_even((f32(tail) + tail_b) + f32(mid phases)), 0, 255),
+   then d2s, which is exact. Alpha comes through: the tail's alpha rows and
+   bias are zero.
+
+Its four convs run on the conv kernel (`kernels.conv_cuda.conv3x3`, the port
+of the Pallas `make_conv3x3`; JAX runs them as XLA convs) at the kernel's
+widths: the head's 192 s2d lanes zero-padded to 256, the tail's 64 outputs
+to 128, which is exact. With int8 scales (a sidecar's ``act_scales`` at the
+weights' step, or ``quant_scales``) the convs the scales name run on the int8
+grid (`conv_cuda.conv3x3_q`, the counterpart of `_conv_i8`), as `mk_conv`
+does (`:548-568`). The committed step has no calibration, so the bf16 graph
+serves.
+
+The weights are `nu_scaler_tpu_torch/weights/interp_ref4_{step}.npz` and its
+JSON sidecar, written from the orbax checkpoint at the step its latest.txt
+names by `tools/export_torch_weights.py`. A missing npz, or one whose sha256
+differs from its sidecar's, raises: the port carries the weights, so their
+absence is a fault, not JAX's fallback to plain flow_soft.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from nu_scaler_tpu_torch.device import resolve_device
+from nu_scaler_tpu_torch.kernels import conv_cuda
+from nu_scaler_tpu_torch.models.esrgan_lite import (
+    WEIGHTS_DIR,
+    Conv3x3,
+    ResBlock,
+    _d2s,
+    _quant_kernel_i8,
+    _s2d,
+    newest_sidecar,
+    params_from_flax,
+    read_weights,
+    sidecar_scales,
+)
+
+NET = "interp_ref4"  # the serving net; its wide teacher is not carried
+FRAMES = 3  # a, b and the mid, concatenated on the channels
+STRIDE = 4  # the serving net's s2d stride (InterpRefineTPU.stride)
+
+
+class InterpRefine(nn.Module):
+    """[N, H, W, 9] (A, B, mid RGB in [0, 1]) → residual [N, H, W, 3], in
+    the parameters' dtype. Parameter names follow the flax module's
+    (``head.kernel``, ``block0.conv1.bias``, ``tail.bias``)."""
+
+    def __init__(self, features: int = 128, blocks: int = 1, stride: int = STRIDE) -> None:
+        super().__init__()
+        self.features, self.blocks, self.stride = features, blocks, stride
+        self.head = Conv3x3(stride * stride * 3 * FRAMES, features)
+        for i in range(blocks):
+            self.add_module(f"block{i}", ResBlock(features))
+        self.tail = Conv3x3(features, stride * stride * 3)
+
+    def res_blocks(self) -> list[ResBlock]:
+        return [getattr(self, f"block{i}") for i in range(self.blocks)]
+
+    def forward(self, x01: torch.Tensor) -> torch.Tensor:
+        h = self.head(_s2d(x01.to(self.head.kernel.dtype), self.stride))
+        for blk in self.res_blocks():
+            h = blk(h)
+        return _d2s(self.tail(h), self.stride)
+
+
+# ---------------------------------------------------------------------------
+# weights
+# ---------------------------------------------------------------------------
+
+
+def _sidecar() -> Optional[dict]:
+    return newest_sidecar(WEIGHTS_DIR, f"{NET}_*.json")
+
+
+def refine_available() -> bool:
+    """True when the port carries the refinement net's weights (a sidecar)."""
+    return _sidecar() is not None
+
+
+def load_weights() -> tuple[dict, dict]:
+    """(nested flax-named numpy tree, sidecar metadata) of the committed
+    refinement net. Raises FileNotFoundError without a sidecar or its npz,
+    ValueError when the npz's sha256 is not its sidecar's."""
+    meta = _sidecar()
+    if meta is None:
+        raise FileNotFoundError(f"no {NET}_*.json sidecar under {WEIGHTS_DIR}")
+    return read_weights(WEIGHTS_DIR / f"{NET}_{meta['step']}.npz", meta["sha256"]), meta
+
+
+def load_act_scales() -> Optional[dict]:
+    """The int8 activation scales of the committed net (its sidecar's
+    ``act_scales`` at the weights' step), or None."""
+    return sidecar_scales(_sidecar())
+
+
+@functools.lru_cache(maxsize=1)
+def load_model() -> tuple[InterpRefine, dict]:
+    """The fp32 `InterpRefine` with the committed weights, and its metadata.
+    Cached: do not modify the module."""
+    tree, meta = load_weights()
+    model = InterpRefine(**meta["model"])
+    model.load_state_dict(params_from_flax(tree))
+    return model, meta
+
+
+def make_apply(model: Optional[InterpRefine] = None) -> Callable[..., torch.Tensor]:
+    """The fp32 float-domain forward (`make_apply`): (a, b, mid) f32 RGB
+    [N, h, w, 3] in [0, 1] → mid + the residual, on the inputs' device."""
+    model = model if model is not None else load_model()[0]
+
+    def fn(a: torch.Tensor, b: torch.Tensor, mid: torch.Tensor) -> torch.Tensor:
+        m = model.to(mid.device)
+        return mid + m(torch.cat([a, b, mid], dim=-1).float())
+
+    return fn
+
+
+def make_quant_apply(model: InterpRefine, scales: dict) -> Callable[..., torch.Tensor]:
+    """The fp32 twin of the int8 graph (`make_quant_apply`): the same
+    integer weight grid and activation scales in the [0, 1] domain, every
+    conv a scale names run as `_conv_i8` kept in fp32, the others in fp32.
+    (a, b, mid) f32 RGB [N, h, w, 3] → mid + the residual."""
+
+    def mk(conv: Conv3x3, ax: Optional[float]):
+        k, b = conv.kernel.detach().float(), conv.bias.detach().float()
+        if ax is None:
+            return lambda x: conv_cuda.conv3x3_f32(x, k.to(x.device)) + b.to(x.device)
+        kq, dq = _quant_kernel_i8(k.numpy())
+        kq_t, scale = torch.from_numpy(kq.astype(np.float32)), conv_cuda.qgrid_scale(dq, float(ax))
+
+        def conv_i8(x: torch.Tensor) -> torch.Tensor:
+            xq = conv_cuda.quantize_act(x, float(ax), torch.float32)
+            return conv_cuda.conv3x3_f32(xq, kq_t.to(x.device)) * scale.to(x.device) + b.to(x.device)
+
+        return conv_i8
+
+    head = mk(model.head, scales.get("head"))
+    blocks = [(mk(blk.conv1, scales.get(f"block{i}/conv1")), mk(blk.conv2, scales.get(f"block{i}/conv2")))
+              for i, blk in enumerate(model.res_blocks())]
+    tail = mk(model.tail, scales.get("tail"))
+    st = model.stride
+
+    def fn(a: torch.Tensor, b: torch.Tensor, mid: torch.Tensor) -> torch.Tensor:
+        h = head(_s2d(torch.cat([a, b, mid], dim=-1).float(), st))
+        for c1, c2 in blocks:
+            h = h + 0.2 * c2(torch.relu(c1(h)))
+        return mid + _d2s(tail(h), st)
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# the raw-domain serving graph
+# ---------------------------------------------------------------------------
+
+
+def _expand_head(k: np.ndarray, st: int) -> np.ndarray:
+    """HWIO head [3, 3, st²·9, F] (per pixel phase q: frame f, RGB) → [3, 3,
+    st²·12, F] (per q: frame f, RGBA), alpha rows zero, each weight
+    f32(k) / 255 in fp32 (`:494-504`)."""
+    out = np.zeros(k.shape[:2] + (st * st * 4 * FRAMES, k.shape[3]), np.float32)
+    for q in range(st * st):
+        for f in range(FRAMES):
+            out[:, :, q * 12 + f * 4: q * 12 + f * 4 + 3, :] = k[:, :, q * 9 + f * 3: q * 9 + f * 3 + 3, :] / 255.0
+    return out
+
+
+def _expand_tail(k: np.ndarray, b: np.ndarray, st: int) -> tuple[np.ndarray, np.ndarray]:
+    """HWIO tail [3, 3, F, st²·3] and bias, each ×255 in fp32, → RGBA phases
+    [3, 3, F, st²·4] and [st²·4] with zero alpha columns (`:518-528`)."""
+    k, b = k * np.float32(255.0), b * np.float32(255.0)
+    k4 = np.zeros(k.shape[:3] + (st * st * 4,), np.float32)
+    b4 = np.zeros((st * st * 4,), np.float32)
+    for q in range(st * st):
+        k4[..., q * 4: q * 4 + 3] = k[..., q * 3: q * 3 + 3]
+        b4[q * 4: q * 4 + 3] = b[q * 3: q * 3 + 3]
+    return k4, b4
+
+
+class RefineGraph:
+    """The serving graph: u8 RGBA (a, b, mid) [H, W, 4] each → the refined
+    mid, u8 RGBA [H, W, 4] (`__call__`), or its phases f32 [H/st, W/st,
+    st²·4], integer-valued 0..255 (`phases_of`, `get_refine_phase_graph`).
+
+    bf16 (no int8 scales): every conv through `conv` (`conv_cuda.conv3x3` by
+    default; `conv_cuda.conv3x3_plain` runs the graph on its plain version).
+    int8 (`quant_scales`): the convs the scales name ("head", "block{i}/conv1",
+    "block{i}/conv2", "tail") on the int8 grid through `conv_q`
+    (`conv_cuda.conv3x3_q` by default), the head's scale ×255 for the raw u8
+    input; the others stay bf16."""
+
+    def __init__(self, model: InterpRefine, in_h: int, in_w: int, device,
+                 conv: Optional[Callable] = None, quant_scales: Optional[dict] = None,
+                 conv_q: Optional[Callable] = None) -> None:
+        st = model.stride
+        if in_h % st or in_w % st:
+            raise ValueError(f"{in_w}x{in_h} is not a multiple of the stride {st}")
+        self.device = resolve_device(device)
+        self.in_hw, self.stride = (in_h, in_w), st
+        self.conv = conv or conv_cuda.conv3x3
+        self.conv_q = conv_q or conv_cuda.conv3x3_q
+        self.phases = st * st * 4
+
+        def np32(t: torch.Tensor) -> np.ndarray:
+            return t.detach().cpu().float().numpy()
+
+        tail_k, tail_b = _expand_tail(np32(model.tail.kernel), np32(model.tail.bias), st)
+        # every conv at the kernel's widths: (padded HWIO kernel, padded bias,
+        # the int8 scale's name); the tail's bias is zero: it is added in fp32
+        layers = [(*conv_cuda.pad_weights(_expand_head(np32(model.head.kernel), st), np32(model.head.bias)),
+                   "head")]
+        for i, blk in enumerate(model.res_blocks()):
+            layers += [(*conv_cuda.pad_weights(np32(c.kernel), np32(c.bias)), f"block{i}/{name}")
+                       for name, c in (("conv1", blk.conv1), ("conv2", blk.conv2))]
+        layers.append((*conv_cuda.pad_weights(tail_k, np.zeros_like(tail_b)), "tail"))
+        self.head_lanes = layers[0][0].shape[2]
+        self.tail_b = torch.from_numpy(tail_b).to(self.device)
+        self.quant_scales = quant_scales
+        q = quant_scales or {}
+
+        def bf16(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device).to(torch.bfloat16)
+
+        def bias(b: np.ndarray, name: str):
+            # the int8 grid's fp32 bias; the tail has none in JAX's graph
+            return None if name == "tail" else torch.from_numpy(b).to(self.device)
+
+        # per layer: ("bf16", k, b) or ("int8", kq, scale, fp32 bias or None, ax)
+        self.layers = []
+        for k, b, name in layers:
+            if name not in q:
+                self.layers.append(("bf16", bf16(k), bf16(b)))
+                continue
+            ax = (255.0 if name == "head" else 1.0) * float(q[name])
+            kq, dq = _quant_kernel_i8(k)  # a padded row or column is zero: kq 0
+            self.layers.append(("int8", bf16(kq.astype(np.float32)),
+                                conv_cuda.qgrid_scale(dq, ax).to(self.device), bias(b, name), ax))
+
+    @property
+    def quantized(self) -> bool:
+        return bool(self.quant_scales)
+
+    @property
+    def convs_per_frame(self) -> int:
+        """Conv launches per refined mid (either mode)."""
+        return len(self.layers)
+
+    def _conv(self, layer: tuple, x: torch.Tensor, relu: bool = False) -> torch.Tensor:
+        if layer[0] == "bf16":
+            return self.conv(x, layer[1], layer[2], relu, True)
+        _, kq, scale, b, ax = layer
+        return self.conv_q(conv_cuda.quantize_act(x, ax), kq, scale, b, relu)
+
+    def _check(self, *frames: torch.Tensor) -> None:
+        for x in frames:
+            if tuple(x.shape) != (*self.in_hw, 4) or x.dtype != torch.uint8:
+                raise ValueError(f"expected u8 [{self.in_hw[0]}, {self.in_hw[1]}, 4], "
+                                 f"got {x.dtype} {tuple(x.shape)}")
+
+    def phases_of(self, a: torch.Tensor, b: torch.Tensor, mid: torch.Tensor) -> torch.Tensor:
+        """The refined mid's phases: f32 [H/st, W/st, st²·4], integer-valued
+        0..255, channel (row phase, column phase, RGBA)."""
+        self._check(a, b, mid)
+        st = self.stride
+        a, b, mid = (x.to(self.device) for x in (a, b, mid))
+        # raw 0..255 values, exact in bf16; channel q·st·12 + p·12 + f·4 + c
+        s2d = _s2d(torch.cat([a, b, mid], dim=-1)[None], st).to(torch.bfloat16)
+        head, *blocks, tail = self.layers
+        h = self._conv(head, conv_cuda.pad_lanes(s2d, self.head_lanes))
+        c02 = torch.tensor(0.2, dtype=torch.bfloat16, device=h.device)  # bf16(0.2), as JAX's
+        for c1, c2 in zip(blocks[::2], blocks[1::2]):
+            h = h + c02 * self._conv(c2, self._conv(c1, h, relu=True))
+        res = self._conv(tail, h)[0, ..., : self.phases].float()
+        mid_ph = _s2d(mid[None], st)[0].float()
+        return torch.clamp(torch.round(res + self.tail_b + mid_ph), 0, 255)
+
+    def __call__(self, a: torch.Tensor, b: torch.Tensor, mid: torch.Tensor) -> torch.Tensor:
+        """The refined mid, u8 RGBA [H, W, 4]: the phases, then d2s."""
+        return _d2s(self.phases_of(a, b, mid).to(torch.uint8)[None], self.stride)[0]
+
+
+@functools.lru_cache(maxsize=16)
+def _refine_graph(in_h: int, in_w: int, dev: torch.device) -> RefineGraph:
+    return RefineGraph(load_model()[0], in_h, in_w, dev, quant_scales=load_act_scales())
+
+
+def get_refine_graph(in_h: int, in_w: int, device=None) -> RefineGraph:
+    """The serving graph of the committed net at this frame size on `device`
+    (the card unless "cpu"), int8 where its sidecar carries scales at its
+    step; cached. Raises when the weights are missing or corrupt, or the
+    size is not a multiple of the stride."""
+    return _refine_graph(in_h, in_w, resolve_device(device))
+
+
+def refine_mid(a_u8: torch.Tensor, b_u8: torch.Tensor, mid_u8: torch.Tensor, device=None) -> torch.Tensor:
+    """Refine a soft-warp mid (u8 RGBA [H, W, 4]) on `device`; a frame whose
+    sides the stride does not divide returns the mid unchanged, as JAX's
+    `refine_mid` does."""
+    h, w = int(mid_u8.shape[0]), int(mid_u8.shape[1])
+    if h % STRIDE or w % STRIDE:
+        return mid_u8
+    return get_refine_graph(h, w, device)(a_u8, b_u8, mid_u8)

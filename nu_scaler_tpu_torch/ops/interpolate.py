@@ -1,7 +1,8 @@
 """Frame interpolation ops of the port: the counterpart of
 `nu_scaler_tpu/ops/interpolate.py` for the zero-flow cross-fade ("blend"),
-the production motion-compensated mode ("flow_soft"), the hard block warp
-("flow") and the per-pixel warp ("flow_exact").
+the production motion-compensated mode ("flow_soft"), its learned
+refinement ("flow_soft_ref"), the hard block warp ("flow") and the
+per-pixel warp ("flow_exact").
 
 flow_soft, per frame pair (u8 [H, W, 4] × 2):
 
@@ -30,8 +31,14 @@ The flow stages and both warps of "flow" and "flow_exact" were plain XLA in
 the JAX package and are plain PyTorch here: elementwise ops, gathers and
 small sums, all fp32 and none a matmul or a convolution, so the caller's
 TF32 settings cannot reach them. The soft warp is the one CUDA kernel of
-these modes. "flow_soft_ref" (ROADMAP queue 1, item 10) raises
-NotImplementedError.
+these modes.
+
+flow_soft_ref: the flow_soft mid, then the learned refinement net
+(`models/interp_refine.py`, its four convs on the conv kernel) on (A, B,
+mid), where `refine_serves` (both sides multiples of 4); elsewhere the plain
+flow_soft mid, as in the JAX package. `make_refined_mid_upscaler` and
+`make_refined_multi_upscaler` resample the refined mid(s) to the output size
+in the same call (`ops/resample.py` `make_phase_resampler`).
 
 `calibrated_step_ms` and `stage_timings_ms` time a mode's step and its
 stages on the device (`utils/tracing.device_timer`), for the API's
@@ -48,12 +55,18 @@ import torch
 
 from nu_scaler_tpu_torch.device import resolve_device
 from nu_scaler_tpu_torch.kernels.soft_warp_cuda import candidates, soft_warp_blend
-from nu_scaler_tpu_torch.ops.resample import apply_taps, device_taps, resize_f32, to_device_u8
+from nu_scaler_tpu_torch.models import interp_refine
+from nu_scaler_tpu_torch.ops.resample import (
+    apply_taps,
+    device_taps,
+    make_phase_resampler,
+    make_resampler,
+    resize_f32,
+    to_device_u8,
+)
 from nu_scaler_tpu_torch.utils.tracing import device_timer
 
 MODES = ("blend", "flow", "flow_soft", "flow_soft_ref", "flow_exact")
-PORTED_MODES = ("blend", "flow", "flow_soft", "flow_exact")
-_NOT_PORTED = {"flow_soft_ref": "ROADMAP queue 1, item 10"}
 
 # The JAX package's constants (nu_scaler_tpu/ops/interpolate.py:40-44, 389-398).
 DEFAULT_LAMBDA = 0.1
@@ -79,15 +92,9 @@ def blend_only(frame_a: torch.Tensor, frame_b: torch.Tensor, time_t: float) -> t
     return torch.clamp(torch.round(out * 255.0), 0, 255).to(torch.uint8)
 
 
-def _not_ported(mode: str) -> NotImplementedError:
-    return NotImplementedError(f"interpolation mode {mode!r} is not ported yet ({_NOT_PORTED[mode]})")
-
-
 def check_mode(mode: str) -> None:
     if mode not in MODES:
         raise ValueError(f"unknown interpolation mode: {mode!r}")
-    if mode not in PORTED_MODES:
-        raise _not_ported(mode)
 
 
 # ---------------------------------------------------------------------------
@@ -603,6 +610,30 @@ def soft_interp_multi(
 
 
 # ---------------------------------------------------------------------------
+# flow_soft_ref
+# ---------------------------------------------------------------------------
+
+# The JAX package's serving floor of the refinement net (its
+# `REFINE_MIN_ROWS`, 0 for the adopted checkpoints: the net gains at every
+# measured height); below it the production modes serve plain flow_soft.
+REFINE_MIN_ROWS = 0
+
+
+def refine_serves(height: int, width: int) -> bool:
+    """True when the learned refinement serves at this frame size: both
+    sides multiples of the net's stride (4) and the height at least
+    `REFINE_MIN_ROWS` (`nu_scaler_tpu/ops/interpolate.py:945-950`)."""
+    st = interp_refine.STRIDE
+    return height % st == 0 and width % st == 0 and height >= REFINE_MIN_ROWS
+
+
+def _refine_graph(height: int, width: int, dev: torch.device):
+    """The refinement graph at this size, or None where it does not serve.
+    Missing or corrupt weights raise."""
+    return interp_refine.get_refine_graph(height, width, dev) if refine_serves(height, width) else None
+
+
+# ---------------------------------------------------------------------------
 # factories
 # ---------------------------------------------------------------------------
 
@@ -622,6 +653,12 @@ def _interpolator(height: int, width: int, mode: str, dev: torch.device, warp_ti
     elif mode == "flow_soft":
         def step(a, b, t):
             return soft_interp_fast(a, b, t, tile=warp_tile)
+    elif mode == "flow_soft_ref":
+        ref = _refine_graph(height, width, dev)
+
+        def step(a, b, t):
+            mid = soft_interp_fast(a, b, t, tile=warp_tile)
+            return mid if ref is None else ref(a, b, mid)
     elif mode == "flow":
         def step(a, b, t):
             return warp_blend_fast(a, b, compute_flow_fast(a, b), t, tile=warp_tile)
@@ -629,7 +666,7 @@ def _interpolator(height: int, width: int, mode: str, dev: torch.device, warp_ti
         def step(a, b, t):
             return warp_blend(a, b, compute_flow(a, b), t)
     else:
-        raise _not_ported(mode)
+        raise ValueError(f"unknown interpolation mode: {mode!r}")
 
     def fn(a, b, t):
         _check_frames(height, width, a, b)
@@ -642,11 +679,12 @@ def make_interpolator(
     height: int, width: int, mode: str = "blend", device=None, warp_tile: tuple = WARP_TILE
 ):
     """``(frame_a, frame_b, t) -> mid`` u8 tensors on `device` (the card
-    unless "cpu"), for a fixed size. Modes "blend", "flow_soft", "flow"
-    (`compute_flow_fast` at 8 residual iterations, then `warp_blend_fast`)
-    and "flow_exact" (`compute_flow` at `DEFAULT_REFINE_ITERS`, then
-    `warp_blend`); `warp_tile` is the warp tile of flow_soft and flow (the
-    workgroup-preset knob)."""
+    unless "cpu"), for a fixed size. Modes "blend", "flow_soft",
+    "flow_soft_ref" (the flow_soft mid refined by the learned net where
+    `refine_serves`), "flow" (`compute_flow_fast` at 8 residual iterations,
+    then `warp_blend_fast`) and "flow_exact" (`compute_flow` at
+    `DEFAULT_REFINE_ITERS`, then `warp_blend`); `warp_tile` is the warp tile
+    of the flow_soft modes and flow (the workgroup-preset knob)."""
     return _interpolator(height, width, mode, resolve_device(device), tuple(warp_tile))
 
 
@@ -659,12 +697,16 @@ def _multi_interpolator(height: int, width: int, ts: tuple, mode: str, dev, warp
     elif mode == "flow_soft":
         def step(a, b):
             return soft_interp_multi(a, b, ts, tile=warp_tile)
+    elif mode == "flow_soft_ref":
+        ref = _refine_graph(height, width, dev)
+
+        def step(a, b):
+            mids = soft_interp_multi(a, b, ts, tile=warp_tile)
+            return mids if ref is None else torch.stack([ref(a, b, m) for m in mids])
     elif mode == "flow":
         def step(a, b):
             flow = compute_flow_fast(a, b)
             return torch.stack([warp_blend_fast(a, b, flow, t, tile=warp_tile) for t in ts])
-    elif mode in _NOT_PORTED:
-        raise _not_ported(mode)
     else:
         raise ValueError(f"unknown multi-interpolation mode: {mode!r}")
 
@@ -680,10 +722,89 @@ def make_multi_interpolator(
     warp_tile: tuple = WARP_TILE,
 ):
     """``(frame_a, frame_b) -> [len(ts), H, W, 4]``: one motion solve per
-    pair shared by every time (flow_soft, flow), or one cross-fade per time
-    (blend). "flow_exact" has no multi-time form, as in the JAX package."""
+    pair shared by every time (flow_soft, flow_soft_ref, flow), or one
+    cross-fade per time (blend). "flow_exact" has no multi-time form, as in
+    the JAX package."""
     ts = tuple(float(t) for t in ts)
     return _multi_interpolator(height, width, ts, mode, resolve_device(device), tuple(warp_tile))
+
+
+class RefinedUpscaler:
+    """flow_soft → the learned refinement → the resample, in one call
+    (`make_refined_mid_upscaler`, `make_refined_multi_upscaler`): u8 frames
+    a, b [H, W, 4] → the refined mid at each time, resampled to
+    [OH, OW, 4]. Where the refinement serves and `make_phase_resampler`
+    exists, the net's phases go to the phase resampler; elsewhere the u8
+    mid (refined where it serves) goes to `make_resampler`, as in the JAX
+    package."""
+
+    def __init__(self, in_h: int, in_w: int, out_h: int, out_w: int, algorithm: str,
+                 warp_tile: tuple, dev: torch.device) -> None:
+        self.in_hw, self.warp_tile, self.device = (in_h, in_w), tuple(warp_tile), dev
+        self.ref = _refine_graph(in_h, in_w, dev)
+        self.ph_up = None if self.ref is None else make_phase_resampler(
+            in_h, in_w, out_h, out_w, self.ref.stride, algorithm, dev)
+        self.up = make_resampler(in_h, in_w, out_h, out_w, algorithm, dev)
+
+    def frames(self, a, b) -> tuple[torch.Tensor, torch.Tensor]:
+        a, b = to_device_u8(a, self.device), to_device_u8(b, self.device)
+        _check_frames(*self.in_hw, a, b)
+        return a, b
+
+    def refine_up(self, a: torch.Tensor, b: torch.Tensor, mid: torch.Tensor) -> torch.Tensor:
+        """One mid of the pair (a, b), refined and resampled."""
+        if self.ref is None:
+            return self.up(mid)
+        if self.ph_up is None:
+            return self.up(self.ref(a, b, mid))
+        return self.ph_up(self.ref.phases_of(a, b, mid))
+
+
+class RefinedMidUpscaler(RefinedUpscaler):
+    def __call__(self, a, b, t: float) -> torch.Tensor:
+        a, b = self.frames(a, b)
+        return self.refine_up(a, b, soft_interp_fast(a, b, t, tile=self.warp_tile))
+
+
+class RefinedMultiUpscaler(RefinedUpscaler):
+    def __init__(self, in_h: int, in_w: int, out_h: int, out_w: int, ts: tuple, algorithm: str,
+                 warp_tile: tuple, dev: torch.device) -> None:
+        super().__init__(in_h, in_w, out_h, out_w, algorithm, warp_tile, dev)
+        self.ts = ts
+
+    def __call__(self, a, b) -> torch.Tensor:
+        a, b = self.frames(a, b)
+        mids = soft_interp_multi(a, b, self.ts, tile=self.warp_tile)
+        return torch.stack([self.refine_up(a, b, m) for m in mids])
+
+
+@functools.lru_cache(maxsize=16)
+def _refined_mid_upscaler(in_h, in_w, out_h, out_w, algorithm, warp_tile, dev) -> RefinedMidUpscaler:
+    return RefinedMidUpscaler(in_h, in_w, out_h, out_w, algorithm, warp_tile, dev)
+
+
+def make_refined_mid_upscaler(in_h: int, in_w: int, out_h: int, out_w: int, algorithm: str = "lanczos3",
+                              warp_tile: tuple = WARP_TILE, device=None) -> RefinedMidUpscaler:
+    """``(a_u8, b_u8, t) -> u8 [out_h, out_w, 4]`` on `device` (the card
+    unless "cpu"): the soft warp, the learned refinement and the resample
+    (`nu_scaler_tpu/ops/interpolate.py:1018-1063`); cached."""
+    return _refined_mid_upscaler(in_h, in_w, out_h, out_w, algorithm, tuple(warp_tile), resolve_device(device))
+
+
+@functools.lru_cache(maxsize=16)
+def _refined_multi_upscaler(in_h, in_w, out_h, out_w, ts, algorithm, warp_tile, dev) -> RefinedMultiUpscaler:
+    return RefinedMultiUpscaler(in_h, in_w, out_h, out_w, ts, algorithm, warp_tile, dev)
+
+
+def make_refined_multi_upscaler(in_h: int, in_w: int, out_h: int, out_w: int, ts: Sequence[float],
+                                algorithm: str = "lanczos3", warp_tile: tuple = WARP_TILE,
+                                device=None) -> RefinedMultiUpscaler:
+    """``(a_u8, b_u8) -> u8 [len(ts), out_h, out_w, 4]``: one motion solve
+    per pair, each mid refined and resampled
+    (`nu_scaler_tpu/ops/interpolate.py:1066-1118`); cached."""
+    ts = tuple(float(t) for t in ts)
+    return _refined_multi_upscaler(in_h, in_w, out_h, out_w, ts, algorithm, tuple(warp_tile),
+                                   resolve_device(device))
 
 
 def interpolate_frames(frame_a, frame_b, time_t: float = 0.5, mode: str = "blend",
@@ -733,8 +854,8 @@ def _stage_timings_ms(height: int, width: int, mode: str, warp_tile: tuple, iter
     if mode == "blend":
         return {"total_ms": total, "blend_ms": total}
     a, b = _mk_frames(height, width, dev)
-    fast = mode in ("flow", "flow_soft")
-    soft = mode == "flow_soft"
+    fast = mode in ("flow", "flow_soft", "flow_soft_ref")
+    soft = mode in ("flow_soft", "flow_soft_ref")
     soft_kernel = soft and soft_tiles_fit(height, width, warp_tile)
 
     # the flow stage: the next input is perturbed by the flow, so that each
@@ -761,7 +882,12 @@ def _stage_timings_ms(height: int, width: int, mode: str, warp_tile: tuple, iter
             return fb, out, tl * 0.5 + out[:ty, :tx, :2].to(torch.float32) * 1e-6
 
         warp_ms = device_timer(soft_body, (a, b, tiles0), iters=iters) * 1000.0
-        return {"total_ms": total, "flow_ms": flow_ms, "warp_ms": warp_ms}
+        out = {"total_ms": total, "flow_ms": flow_ms, "warp_ms": warp_ms}
+        if mode == "flow_soft_ref":
+            # the refinement rides the same step: its share is the step's
+            # total less the flow and warp stages, floored at 0
+            out["refine_ms"] = max(total - flow_ms - warp_ms, 0.0)
+        return out
 
     if soft:
         def warp_fn(fa, fb, fl, t):
@@ -787,6 +913,7 @@ def stage_timings_ms(height: int, width: int, mode: str = "blend", warp_tile: tu
     """Per-stage device ms on `device` (the card unless "cpu"), with the JAX
     function's keys: "blend" {total_ms, blend_ms}; the flow modes {total_ms,
     flow_ms, warp_ms}, the stages timed apart (flow_soft's warp stage is the
-    soft warp kernel's wrapper, its front end included). Cached; do not
-    mutate the dict."""
+    soft warp kernel's wrapper, its front end included); "flow_soft_ref" on
+    a frame the warp tile divides also refine_ms, the total less flow and
+    warp, floored at 0. Cached; do not mutate the dict."""
     return _stage_timings_ms(height, width, mode, tuple(warp_tile), iters, resolve_device(device))

@@ -4,18 +4,19 @@ reference's `gpu/detector.rs:89-262`), over PyTorch's CUDA device queries.
 
 The "adapters" are the CUDA devices PyTorch sees (from
 `torch.cuda.get_device_properties`), then the host CPU. The primary device is
-the first card, else the CPU.
+the first card, else the CPU. `detect()` is the process's cached detector.
+Vendors and technologies are the API's constants (`core/_constants.py`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
 
-VENDOR_NVIDIA = "Nvidia"
-VENDOR_OTHER = "Other"
+from nu_scaler_tpu_torch.core._constants import TECH_FALLBACK, TECH_WGPU, VENDOR_NVIDIA, VENDOR_OTHER, GpuVendor
 
 
 @dataclasses.dataclass
@@ -24,7 +25,7 @@ class DeviceInfo:
     dict keys (lib.rs:667-704)."""
 
     name: str
-    vendor: str
+    vendor: GpuVendor
     device_type: str  # "Gpu" | "Cpu" — format!("{:?}") style
     backend: str  # "CUDA" | "CPU"
     vendor_id: int
@@ -37,7 +38,7 @@ class DeviceInfo:
     def as_dict(self) -> dict:
         return {
             "name": self.name,
-            "vendor": self.vendor,
+            "vendor": self.vendor.name.capitalize(),  # the debug format, e.g. "Nvidia"
             "device_type": self.device_type,
             "backend": self.backend,
             "vendor_id": f"0x{self.vendor_id:X}",
@@ -96,4 +97,30 @@ class DeviceDetector:
     def determine_best_upscaling_technology(self) -> str:
         """A card → "wgpu" (the port's CUDA kernels); CPU only → "fallback"."""
         primary = self.get_primary_gpu()
-        return "fallback" if primary is None or primary.platform == "cpu" else "wgpu"
+        return (TECH_FALLBACK if primary is None or primary.platform == "cpu" else TECH_WGPU).value
+
+    def detect_technologies(self) -> dict:
+        """Availability per technology string, with the JAX package's keys
+        (`nu_scaler_tpu/runtime/detector.py:124-152`): "wgpu" (the resample
+        kernel) and "fsr" (the FSR kernel) on any device; "dlss" (the learned
+        tier) when the port's committed weights of the "quality" ladder are
+        present (`core.technologies.learned_tier_available`, the sidecar
+        probe); no Intel SDK ("xess") and no Vulkan; "fallback" always."""
+        from nu_scaler_tpu_torch.core.technologies import learned_tier_available
+
+        return {
+            "wgpu": True,
+            "fsr": True,
+            "dlss": learned_tier_available("quality"),
+            "xess": False,
+            "vulkan": False,
+            "fallback": True,
+        }
+
+
+@functools.lru_cache(maxsize=1)
+def detect() -> DeviceDetector:
+    """The process's detector, its devices detected once."""
+    d = DeviceDetector()
+    d.detect_gpus()
+    return d

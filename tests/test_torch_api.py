@@ -174,18 +174,23 @@ def test_interpolator_presets():
     "mode, item", [("flow", None), ("flow_soft_ref", 10), ("flow_exact", None)]
 )
 def test_interpolator_flow_modes_not_ported(mode, item):
-    """flow and flow_exact construct and serve a mid frame; flow_soft_ref,
-    not ported yet, raises naming its ROADMAP item; flow_soft and blend
-    construct; an unknown mode is a ValueError."""
-    if item is None:
-        interp = pc.WgpuFrameInterpolator(mode=mode, device="cpu")
-        assert interp.mode == mode
-        a = np.random.default_rng(3).integers(0, 256, (16, 128, 4), np.uint8)
-        out = interp.interpolate_py(a.tobytes(), np.roll(a, 2, axis=1).tobytes(), 128, 16)
-        assert len(out) == 16 * 128 * 4
-    else:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, item {item}\\b"):
-            pc.WgpuFrameInterpolator(mode=mode, device="cpu")
+    """Every motion mode constructs and serves a mid frame (none is left
+    unported: flow_soft_ref, ROADMAP queue 1 item 10, serves the flow_soft
+    mid refined by the learned net); flow_soft and blend construct; an
+    unknown mode is a ValueError."""
+    from nu_scaler_tpu_torch.models import interp_refine as pir
+    from nu_scaler_tpu_torch.ops import interpolate as pint
+
+    interp = pc.WgpuFrameInterpolator(mode=mode, device="cpu")
+    assert interp.mode == mode
+    a = np.random.default_rng(3).integers(0, 256, (16, 128, 4), np.uint8)
+    b = np.roll(a, 2, axis=1)
+    out = interp.interpolate_py(a.tobytes(), b.tobytes(), 128, 16)
+    assert len(out) == 16 * 128 * 4
+    if item is not None:
+        ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+        soft = pint.make_interpolator(16, 128, "flow_soft", "cpu")(ta, tb, 0.5)
+        assert out == pir.refine_mid(ta, tb, soft, device="cpu").numpy().tobytes()
     for ported in ("blend", "flow_soft"):
         assert pc.WgpuFrameInterpolator(mode=ported, device="cpu").mode == ported
     with pytest.raises(ValueError, match="unknown interpolation mode"):
@@ -325,6 +330,27 @@ def test_advanced_int8_ladders_serve(rng, prefer, sizes, arch):
     want = pel.make_pretrained_upscaler(h, w, oh, ow, prefer=up.learned_prefer, device="cpu")(img)
     assert up.upscale(img.tobytes()) == want.numpy().tobytes()
     assert up.upscale_batch([img.tobytes()] * 2) == [want.numpy().tobytes()] * 2
+
+
+def test_advanced_failed_learned_build_raises(monkeypatch):
+    """A failed learned build raises from initialize and leaves the upscaler
+    uninitialised: no classical stand-in (nu_scaler_core's class warns and
+    keeps its classical kernel instead)."""
+    from nu_scaler_tpu_torch.models import esrgan_lite as pel
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("learned build failed")
+
+    for name in ("make_pretrained_upscaler", "make_fast_upscaler"):
+        monkeypatch.setattr(pel, name, broken)
+    for prefer in ("quality", "performance"):
+        up = pc.create_advanced_upscaler("ultra", device="cpu")
+        up.learned_prefer = prefer
+        with pytest.raises(RuntimeError, match="learned build failed"):
+            up.initialize(64, 32, 128, 64)
+        assert up._serving_tier == "classical" and not up._initialized
+        with pytest.raises(RuntimeError, match="not initialized"):
+            up.upscale(bytes(64 * 32 * 4))
 
 
 def test_advanced_classical_tier_matches_core(rng):

@@ -314,13 +314,20 @@ def test_flow_soft_takes_rgba_only():
 
 
 def test_factories_dispatch_each_mode(monkeypatch):
-    """A mode past `check_mode` that the factories do not serve raises; it is
-    never served as flow_soft."""
+    """A mode past `check_mode` that the factories do not serve raises; no
+    mode is served as another: "flow_soft_ref" (ROADMAP queue 1, item 10)
+    is the flow_soft mid refined, not the flow_soft mid."""
     monkeypatch.setattr(P, "check_mode", lambda mode: None)
-    with pytest.raises(NotImplementedError, match="'flow_soft_ref'.*ROADMAP queue 1, item 10"):
-        P.make_interpolator(16, 128, "flow_soft_ref", device="cpu")
-    with pytest.raises(NotImplementedError, match="'flow_soft_ref'.*ROADMAP queue 1, item 10"):
-        P.make_multi_interpolator(16, 128, (0.5,), "flow_soft_ref", device="cpu")
+    with pytest.raises(ValueError, match="unknown interpolation mode: 'bogus'"):
+        P.make_interpolator(16, 128, "bogus", device="cpu")
+    with pytest.raises(ValueError, match="unknown multi-interpolation mode: 'bogus'"):
+        P.make_multi_interpolator(16, 128, (0.5,), "bogus", device="cpu")
+    a, b = _t(_scene(16, 128, 0.0)), _t(_scene(16, 128, 4.0))
+    for t in (0.5,):
+        soft = P.make_interpolator(16, 128, "flow_soft", device="cpu")(a, b, t)
+        ref = P.make_interpolator(16, 128, "flow_soft_ref", device="cpu")(a, b, t)
+        multi = P.make_multi_interpolator(16, 128, (t,), "flow_soft_ref", device="cpu")(a, b)
+        assert not torch.equal(ref, soft) and torch.equal(multi[0], ref)
 
 
 # ---------------------------------------------------------------------------
@@ -428,8 +435,9 @@ def test_create_interpolator():
         got = pc.create_interpolator(kind, "tall", device="cpu")
         assert got.mode == kind == nsc.create_interpolator(kind, "tall").mode
         assert got.warp_tile == (32, 32)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
-        pc.create_interpolator("flow_soft_ref", device="cpu")
+    got = pc.create_interpolator("flow_soft_ref", "tall", device="cpu")
+    assert got.mode == "flow_soft_ref" == nsc.create_interpolator("flow_soft_ref", "tall").mode
+    assert got.warp_tile == (32, 32)
 
 
 def test_live_pipeline_flow_soft():

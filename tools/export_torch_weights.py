@@ -12,7 +12,12 @@ checkpoint,
     nu_scaler_tpu_torch/weights/esrgan_{arch}_x{upscale}_{step}.json
 
 (arch "lite" for ESRGANLite; step 0 and ``"init": "flax seed 0"`` in the
-sidecar for an initialisation).
+sidecar for an initialisation), and the learned interpolation refinement net
+that mode "flow_soft_ref" serves (`nu_scaler_tpu.models.interp_refine`
+`load_checkpoint`: the step `checkpoints/interp_ref4/latest.txt` names) as
+
+    nu_scaler_tpu_torch/weights/interp_ref4_{step}.npz
+    nu_scaler_tpu_torch/weights/interp_ref4_{step}.json
 
 The npz holds every parameter as float32 under its flax path joined by "/"
 (``head/kernel``, ``block0/conv1/bias``, ...), exactly as restored. The JSON
@@ -20,7 +25,9 @@ sidecar records the arch, the stage count, the upscale, the model's keyword
 arguments, the step and the npz's sha256, which the port checks on load, and,
 under ``act_scales``, the checkpoint's int8 calibration (its
 ``act_scales.json``: ``{"step", "scales"}``) when that file's step equals the
-exported step, as `nu_scaler_tpu.models.train.load_act_scales` requires. An
+exported step, as `nu_scaler_tpu.models.train.load_act_scales` requires
+(for the refinement net `interp_refine.load_act_scales`, which reads
+`checkpoints/interp_ref4/act_scales.json`). An
 npz already on disk whose arrays equal the restore is kept as it is (its
 bytes and sha256 do not move); only the sidecar is rewritten.
 
@@ -59,6 +66,11 @@ EXPORTS = (
     ("lite", 3, 0, dict(features=32, blocks=4)),
 )
 INIT = "flax seed 0"  # the sidecar's note on a step-0 export
+# (net, step the JAX package serves, model kwargs): the refinement net of mode
+# "flow_soft_ref". Its serving step is the one latest.txt names; the wide
+# distillation teacher "interp_ref4w" is not exported (no serving graph reads
+# it).
+REFINE_EXPORTS = (("interp_ref4", 112000, dict(features=128, blocks=1, stride=4)),)
 
 
 def flatten(tree, prefix: str = "") -> dict:
@@ -102,6 +114,29 @@ def restore(arch: str, stages: int, step: int):
     return restored
 
 
+def write(stem: Path, params, meta: dict, scales, init: bool = False) -> Path:
+    """`stem`.npz (the flattened params; an equal npz on disk is kept) and
+    `stem`.json (`meta`, the parameter count, the npz's sha256, with `init`
+    the note on an initialisation and, when given, the int8 calibration of
+    step meta["step"])."""
+    flat = flatten(params)
+    stem.parent.mkdir(parents=True, exist_ok=True)
+    npz = stem.with_suffix(".npz")
+    if not (npz.exists() and same_arrays(npz, flat)):
+        np.savez(npz, **flat)
+    meta = {
+        **meta,
+        "parameters": int(sum(a.size for a in flat.values())),
+        "sha256": hashlib.sha256(npz.read_bytes()).hexdigest(),
+    }
+    if init:
+        meta["init"] = INIT
+    if scales is not None:
+        meta["act_scales"] = {"step": meta["step"], "scales": scales}
+    stem.with_suffix(".json").write_text(json.dumps(meta, indent=1) + "\n")
+    return npz
+
+
 def export(arch: str, stages: int, step: int, kwargs: dict, out_dir: Path = OUT_DIR) -> Path:
     sys.path.insert(0, str(ROOT))
     from nu_scaler_tpu.models.train import load_act_scales
@@ -109,33 +144,31 @@ def export(arch: str, stages: int, step: int, kwargs: dict, out_dir: Path = OUT_
     params, got_step = restore(arch, stages, step)
     if got_step != step:
         raise ValueError(f"{arch} x{2 ** stages}: latest step is {got_step}, expected {step}")
-    flat = flatten(params)
-    out_dir.mkdir(parents=True, exist_ok=True)
-    stem = out_dir / f"esrgan_{arch}_x{2 ** stages}_{step}"
-    npz = stem.with_suffix(".npz")
-    if not (npz.exists() and same_arrays(npz, flat)):
-        np.savez(npz, **flat)
-    meta = {
-        "arch": arch,
-        "stages": stages,
-        "upscale": 2 ** stages,
-        "model": kwargs,
-        "step": step,
-        "parameters": int(sum(a.size for a in flat.values())),
-        "sha256": hashlib.sha256(npz.read_bytes()).hexdigest(),
-    }
-    if step == 0:
-        meta["init"] = INIT
-    scales = load_act_scales(stages, arch, step)  # None unless its step is `step`
-    if scales is not None:
-        meta["act_scales"] = {"step": step, "scales": scales}
-    stem.with_suffix(".json").write_text(json.dumps(meta, indent=1) + "\n")
-    return npz
+    meta = {"arch": arch, "stages": stages, "upscale": 2 ** stages, "model": kwargs, "step": step}
+    # the scales are None unless their step is `step`
+    return write(out_dir / f"esrgan_{arch}_x{2 ** stages}_{step}", params, meta,
+                 load_act_scales(stages, arch, step), init=step == 0)
+
+
+def export_refine(net: str, step: int, kwargs: dict, out_dir: Path = OUT_DIR) -> Path:
+    """The refinement net `net` at the step its latest.txt names, which must
+    be `step`; its int8 calibration when act_scales.json has that step."""
+    sys.path.insert(0, str(ROOT))
+    from nu_scaler_tpu.models import interp_refine
+
+    restored = interp_refine.load_checkpoint(net)
+    if restored is None:
+        raise FileNotFoundError(f"no checkpoint for {net}")
+    params, got_step = restored
+    if got_step != step:
+        raise ValueError(f"{net}: latest step is {got_step}, expected {step}")
+    meta = {"net": net, "model": kwargs, "step": step}
+    return write(out_dir / f"{net}_{step}", params, meta, interp_refine.load_act_scales(step))
 
 
 def main() -> int:
-    for arch, stages, step, kwargs in EXPORTS:
-        npz = export(arch, stages, step, kwargs)
+    npzs = [export(*e) for e in EXPORTS] + [export_refine(*e) for e in REFINE_EXPORTS]
+    for npz in npzs:
         print(f"{npz.relative_to(ROOT)}: {npz.stat().st_size} bytes")
     return 0
 
