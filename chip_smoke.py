@@ -122,13 +122,21 @@ Phases, each printed on its own line with its seconds:
    interpolator (4 conv3x3, 1 soft_warp_blend and 0 conv3x3_q launches a
    refined mid, 1 resample_fused a refined 4K mid). Gates: the refined mid
    against the same graph on the conv's plain version on the card (≥ 45 dB
-   RGB, alpha equal) and against the CPU (≥ 45 dB), both on the same
-   flow_soft mid; the refined 4K mid against d2s + make_resampler of the
-   refined mid (≥ 50 dB, psnr_flow_soft_ref_db); the multi forms equal to
-   the single calls. Recorded: the mids of flow_soft and flow_soft_ref
-   against the true mid of a texture moved 8 px, the timing API (total,
-   flow, warp, refine), the live output fps on the card and fetched, the
-   device ms of the net alone and of one refined 4K mid;
+   RGB, alpha equal, ≤ 2 LSB) and against the CPU (≥ 45 dB, ≤ 2 LSB), both
+   on the same flow_soft mid, while the net moves that mid by more than 2
+   LSB; each of the four convs on its operands of that call against its
+   plain version (within conv_cuda.ulp_tolerance); the refined 4K mid in
+   one call against make_resampler of interpolate_py's refined mid (≥ 50
+   dB, psnr_flow_soft_ref_db); the multi forms equal to the single calls.
+   Recorded: the mids of flow_soft and flow_soft_ref against the true mid
+   of a texture moved 8 px, the timing API (total, flow, warp, refine), the
+   live output fps on the card and fetched, the device ms of the net alone
+   and of one refined 4K mid;
+4i. the benchmark API at 1080p x2 on the card: py_benchmark_upscaler for
+   "wgpu", "fsr" and "dlss" at quality "quality" (fps > 0; the JAX
+   harness's names and sizes; each call's launches: 1 resample_fused, 1 fsr,
+   8 conv3x3_q a frame for the warm-up and every timed frame), then
+   py_run_comparison_benchmark's 16 cells (each fps > 0);
 5. times: per kernel the median of 20 CUDA-event timings after 3 warm-ups,
    the plain version's time, and the bound (the larger of bytes moved over
    the memory rate and operations over the rate of their type: fp32, or
@@ -230,6 +238,11 @@ INT8_LEARNED = (("quality", 2, IN_H, IN_W, "tpu4b2", 76000, 42.0, 8, 0),
                 ("quality", 4, *SIZES["540p"], "tpu4", 52000, 40.0, 8, 1),
                 ("performance", 2, IN_H, IN_W, "tpu4b1", 40000, 42.0, 6, 0))
 LEARNED_GATE_DB = 45.0  # kernel path against the plain path, RGB
+BENCH_FRAMES = 20  # timed frames per call of the benchmark API (phase 4i)
+# the refined mid against the plain convs and the CPU: at most this many LSB
+# (measured 1 on the H100), less than the net's own change of the mid
+REFINE_MAX_LSB = 2
+REFINE_CONVS = ("head", "block0.conv1", "block0.conv2", "tail")
 # phase 4f, every rung of the learned ladder: (tag, learned_prefer, input h,
 # w, output h, w, the arch JAX's ladder serves, the graph)
 RUNGS = (
@@ -576,6 +589,8 @@ def main() -> int:
         WgpuFrameInterpolator,
         create_advanced_upscaler,
         create_fsr_upscaler,
+        py_benchmark_upscaler,
+        py_run_comparison_benchmark,
     )
     from nu_scaler_tpu_torch.capture.video import _rgba_to_yuv420, _yuv420_to_rgba
     from nu_scaler_tpu_torch.kernels import _build
@@ -1836,7 +1851,7 @@ def main() -> int:
         mid_up = interp.make_refined_mid_upscaler(IN_H, IN_W, OUT_H, OUT_W)
         multi_up = interp.make_refined_multi_upscaler(IN_H, IN_W, OUT_H, OUT_W, ts3)
         ref_interp = interp.make_interpolator(IN_H, IN_W, "flow_soft_ref")
-        check(mid_up.ph_up is not None and mid_up.ref is ref_graph, "the refined 4K path at 1080p")
+        check(mid_up.ref is ref_graph and multi_up.ref is ref_graph, "the refined 4K path at 1080p")
 
         def reset_all():
             cc.reset_launches()
@@ -1887,9 +1902,10 @@ def main() -> int:
 
         # the gates: the refined mid on the card against the same graph on the
         # conv's plain version on the card, and against the CPU (the same
-        # flow_soft mid in); the refined 4K mid against d2s + make_resampler
-        # of the refined mid (the port's psnr_flow_soft_ref_db); the multi
-        # forms against the single calls
+        # flow_soft mid in), each within REFINE_MAX_LSB, which the net's own
+        # change of the mid must exceed; the refined 4K mid in one call
+        # against make_resampler of interpolate_py's refined mid (the port's
+        # psnr_flow_soft_ref_db); the multi forms against the single calls
         soft_mid = interp.soft_interp_fast(on_dev["a"], on_dev["b"], 0.5)
         ker_mid = ref_graph(on_dev["a"], on_dev["b"], soft_mid).cpu().numpy()
         plain_graph = pir.RefineGraph(pir.load_model()[0], IN_H, IN_W, dev, conv=cc.conv3x3_plain)
@@ -1904,6 +1920,7 @@ def main() -> int:
             "refined_mid_vs_cpu_max_lsb": lsb(ker_mid, cpu_mid),
             "api_mid_equals_graph": bool(np.array_equal(mid_ref, ker_mid)),
             "refined_mid_vs_flow_soft_mid_db": psnr(ker_mid, soft_mid.cpu().numpy()),
+            "refined_mid_vs_flow_soft_mid_max_lsb": lsb(ker_mid, soft_mid.cpu().numpy()),
         }
         d2s_up = up_fn(torch.from_numpy(mid_ref.copy())).cpu().numpy()
         ref_gates["psnr_flow_soft_ref_db"] = psnr(up_mid, d2s_up)
@@ -1918,10 +1935,17 @@ def main() -> int:
                 w0.tobytes(), w8.tobytes(), IN_W, IN_H), np.uint8).reshape(IN_H, IN_W, 4)
             ref_gates[f"wave_{mode}_vs_truth_db"] = psnr(wave, w4)
         say(f"flow_soft_ref gates, {ref_meta['net']} step {ref_meta['step']} [{card}]: " + json.dumps(ref_gates))
-        check(ref_gates["refined_mid_vs_plain_convs_db"] >= LEARNED_GATE_DB and ref_gates["refined_mid_alpha_equal"],
-              f"refined mid vs plain convs: {ref_gates['refined_mid_vs_plain_convs_db']:.2f} dB")
-        check(ref_gates["refined_mid_vs_cpu_db"] >= LEARNED_GATE_DB,
-              f"refined mid vs the CPU: {ref_gates['refined_mid_vs_cpu_db']:.2f} dB")
+        check(ref_gates["refined_mid_vs_plain_convs_db"] >= LEARNED_GATE_DB and ref_gates["refined_mid_alpha_equal"]
+              and ref_gates["refined_mid_vs_plain_convs_max_lsb"] <= REFINE_MAX_LSB,
+              f"refined mid vs plain convs: {ref_gates['refined_mid_vs_plain_convs_db']:.2f} dB, "
+              f"max {ref_gates['refined_mid_vs_plain_convs_max_lsb']} LSB")
+        check(ref_gates["refined_mid_vs_cpu_db"] >= LEARNED_GATE_DB
+              and ref_gates["refined_mid_vs_cpu_max_lsb"] <= REFINE_MAX_LSB,
+              f"refined mid vs the CPU: {ref_gates['refined_mid_vs_cpu_db']:.2f} dB, "
+              f"max {ref_gates['refined_mid_vs_cpu_max_lsb']} LSB")
+        check(ref_gates["refined_mid_vs_flow_soft_mid_max_lsb"] > REFINE_MAX_LSB,
+              f"the net moves the mid by {ref_gates['refined_mid_vs_flow_soft_mid_max_lsb']} LSB at most: "
+              f"the {REFINE_MAX_LSB} LSB gate would not tell a wrong conv from the net")
         check(ref_gates["psnr_flow_soft_ref_db"] >= PSNR_GATE_DB,
               f"psnr_flow_soft_ref_db {ref_gates['psnr_flow_soft_ref_db']:.2f} < {PSNR_GATE_DB}")
         check(ref_gates["refined_multi_equals_single"], "make_refined_multi_upscaler != the single calls")
@@ -1972,6 +1996,53 @@ def main() -> int:
             ref_graph(on_dev["a"], on_dev["b"], soft_mid)
         finally:
             ref_graph.conv = orig_conv
+        # each of them on the kernel against its plain version, within the
+        # conv's bound (conv_cuda.ulp_tolerance, the sum rounded as served)
+        check(len(ref_convs) == ref_graph.convs_per_frame, f"{len(ref_convs)} refinement convs captured")
+        for name, (x, k, b, relu) in zip(REFINE_CONVS, ref_convs):
+            kout, pout = cc.conv3x3(x, k, b, relu, True), cc.conv3x3_plain(x, k, b, relu, True)
+            torch.cuda.synchronize()
+            d = (kout.float() - pout.float()).abs()
+            tol = cc.ulp_tolerance(x, k, pout, True)
+            over, max_d = int((d > tol).sum().item()), float(d.max().item())
+            say(f"conv3x3 refinement [{name} 1x{x.shape[1]}x{x.shape[2]} {k.shape[2]}->{k.shape[3]}] "
+                f"relu={relu}: {int((d > 0).sum().item())} of {d.numel()} values differ, max {max_d:.6g}, "
+                f"max |d|/tol {float((d / tol.clamp_min(1e-30)).max().item()):.3f}, over the bound {over}")
+            check(kout.shape == pout.shape and over == 0 and bool(torch.isfinite(kout.float()).all()),
+                  f"conv3x3 refinement {name}: {over} over the bound")
+            errs["conv3x3"] = max(errs["conv3x3"], max_d)
+
+    with Phase("4i benchmark API"):
+        # the API's benchmark on the card at 1080p x2 through the entry points
+        # a user calls: wgpu, fsr and dlss (the "quality" ladder: tpu4b2, int8)
+        # one call each, its counts on their own (a warm-up frame and
+        # BENCH_FRAMES timed frames, each its tier's launches); then the grid
+        # of 4 technologies x 4 qualities
+        torch.cuda.empty_cache()
+        per_frame = {"wgpu": {"resample_fused": 1}, "fsr": {"fsr": 1}, "dlss": {"conv3x3_q": 8, "conv3x3": 0}}
+        names = {"wgpu": ("WgpuUpscaler", "Wgpu"), "fsr": ("FsrUpscaler", "FSR"), "dlss": ("LearnedUpscaler", "DLSS")}
+        bench_api = {}
+        for tech, want in per_frame.items():
+            cc.reset_launches()
+            fc.reset_launches()
+            rc.reset_launches()
+            r = py_benchmark_upscaler(tech, "quality", IN_W, IN_H, 2.0, BENCH_FRAMES)
+            torch.cuda.synchronize()
+            got = {k: {**cc.launches, **fc.launches, **rc.launches}[k] for k in want}
+            bench_api[tech] = {"fps": r.fps, "avg_frame_time_ms": r.avg_frame_time_ms,
+                               "p50_frame_time_ms": r.p50_frame_time_ms, "p99_frame_time_ms": r.p99_frame_time_ms,
+                               "total_duration_ms": r.total_duration_ms, "launches": got}
+            check((r.upscaler_name, r.technology, r.quality) == (*names[tech], "Quality"),
+                  f"benchmark {tech}: {r!r}")
+            check((r.output_width, r.output_height, r.frames_processed) == (OUT_W, OUT_H, BENCH_FRAMES),
+                  f"benchmark {tech}: {r.output_width}x{r.output_height}, {r.frames_processed} frames")
+            check(r.fps > 0 and 0 < r.p50_frame_time_ms <= r.p99_frame_time_ms, f"benchmark {tech}: {r!r}")
+            check(got == {k: v * (BENCH_FRAMES + 1) for k, v in want.items()},
+                  f"benchmark {tech}: launches {got}, want {want} a frame for {BENCH_FRAMES + 1} frames")
+        grid = py_run_comparison_benchmark(IN_W, IN_H, 2.0, 2)
+        check(len(grid) == 16 and all(r.fps > 0 for r in grid), f"the comparison grid: {len(grid)} cells")
+        bench_api["grid_fps"] = {f"{r.technology}/{r.quality}": r.fps for r in grid}
+        say(f"benchmark API at 1080p x2 (host clock to torch.cuda.synchronize) [{card}]: " + json.dumps(bench_api))
 
     with Phase("5 times"):
         flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -2192,7 +2263,7 @@ def main() -> int:
         relu_regs = {False: regs, True: variant_registers(_build.BUILD_LOGS.get("conv3x3", ""),
                                                           r"conv3x3_kernelILi\d+ELi\d+ELi\d+ELb1ELi1E")}
         refine_conv_ms = {}
-        for name, (x, k, b, relu), (ci, co) in zip(("head", "block0.conv1", "block0.conv2", "tail"), ref_convs,
+        for name, (x, k, b, relu), (ci, co) in zip(REFINE_CONVS, ref_convs,
                                                     ((192, 128), (128, 128), (128, 128), (128, 64))):
             n_, h_, w_ = x.shape[:3]
             cin, cout = k.shape[2], k.shape[3]

@@ -1,6 +1,7 @@
 """Module constants of the ported API — the port's own copy of
 `nu_scaler_core/_constants.py` (the reference's pymodule registration,
-`nu_scaler_core/src/lib.rs:746-761`).
+`nu_scaler_core/src/lib.rs:746-761`). A leaf module: the API layer (`core`)
+re-exports it and the runtime layer (`runtime/detector.py`) reads it.
 
 Str-derived enum members both compare as tokens and remain valid constructor
 arguments (every reference constructor parses case-insensitive strings).

@@ -2,7 +2,7 @@
 `__all__` but the capture classes (`PyScreenCapture`, `PyCaptureTarget`,
 `PyWindowByTitle`, `PyRegion`) and the `NuScaler` facade."""
 
-from nu_scaler_tpu_torch.core._constants import (
+from nu_scaler_tpu_torch.constants import (
     QUALITY_BALANCED,
     QUALITY_PERFORMANCE,
     QUALITY_QUALITY,

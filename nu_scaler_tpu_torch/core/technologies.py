@@ -29,7 +29,7 @@ from typing import Optional
 
 import numpy as np
 
-from nu_scaler_tpu_torch.core._constants import UpscalingQuality
+from nu_scaler_tpu_torch.constants import UpscalingQuality
 from nu_scaler_tpu_torch.core.upscaler import (
     PyAdvancedWgpuUpscaler,
     PyFsrUpscaler,
@@ -62,13 +62,6 @@ def _quality_to_algorithm(quality: str) -> str:
             "performance": "bilinear"}[q]
 
 
-def learned_tier_available(prefer: str) -> bool:
-    """True when the committed weights hold an arch of the `prefer` ladder
-    at ×2 (the role of the reference's library probe)."""
-    return any(any(_learned.WEIGHTS_DIR.glob(f"esrgan_{arch}_x2_*.json"))
-               for arch, _, _ in _learned.ARCH_LADDER.get(prefer, ()))
-
-
 def _device_available(device=None) -> bool:
     """True when `device` resolves: the card is present, or "cpu" was asked
     for."""
@@ -88,9 +81,9 @@ def is_supported(technology: str, device=None) -> bool:
     if t in ("fsr", "fsr3", "nis", "cuda", "vulkan", "gpu", "wgpu"):
         return _device_available(device)
     if t == "dlss":
-        return _device_available(device) and learned_tier_available("quality")
+        return _device_available(device) and _learned.learned_tier_available("quality")
     if t == "xess":
-        return _device_available(device) and learned_tier_available("performance")
+        return _device_available(device) and _learned.learned_tier_available("performance")
     return False
 
 

@@ -17,12 +17,12 @@ from typing import Iterable
 import numpy as np
 import torch
 
-from nu_scaler_tpu_torch.core._constants import UpscalingQuality
+from nu_scaler_tpu_torch.constants import UpscalingQuality
 from nu_scaler_tpu_torch.device import resolve_device
 from nu_scaler_tpu_torch.models import esrgan_lite as _learned
 from nu_scaler_tpu_torch.ops import fsr as _fsr
 from nu_scaler_tpu_torch.ops import resample as _resample
-from nu_scaler_tpu_torch.runtime import detector
+from nu_scaler_tpu_torch.runtime.detector import device_info
 from nu_scaler_tpu_torch.runtime.memory import AllocationStrategy, MemoryPool, MemoryPressure
 
 
@@ -379,7 +379,7 @@ class PyAdvancedWgpuUpscaler(PyWgpuUpscaler):
     def get_gpu_info(self) -> dict:
         """Dict-key parity with lib.rs:667-704, for the device this instance
         runs on."""
-        d = detector.device_info(self.device).as_dict()
+        d = device_info(self.device).as_dict()
         d["allocated_buffers"] = self._pool.get_allocated_buffers_count()
         d["allocated_bytes"] = self._pool.get_allocated_bytes()
         s = self._pool.get_vram_stats()

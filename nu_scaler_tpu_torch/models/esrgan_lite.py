@@ -395,6 +395,12 @@ def params_from_flax(tree) -> dict:
     return out
 
 
+def learned_tier_available(prefer: str) -> bool:
+    """True when the committed weights hold an arch of the `prefer` ladder
+    at ×2 (the role of the reference's library probe)."""
+    return any(any(WEIGHTS_DIR.glob(f"esrgan_{arch}_x2_*.json")) for arch, _, _ in ARCH_LADDER.get(prefer, ()))
+
+
 def newest_sidecar(directory: Path, pattern: str) -> Optional[dict]:
     """The JSON sidecar of the newest step among the weights whose sidecars
     match the glob `pattern` in `directory`, or None."""

@@ -38,7 +38,9 @@ flow_soft_ref: the flow_soft mid, then the learned refinement net
 mid), where `refine_serves` (both sides multiples of 4); elsewhere the plain
 flow_soft mid, as in the JAX package. `make_refined_mid_upscaler` and
 `make_refined_multi_upscaler` resample the refined mid(s) to the output size
-in the same call (`ops/resample.py` `make_phase_resampler`).
+in the same call (`make_resampler`). The JAX package folds the net's phases
+into its banded resample matmuls there, to spare the TPU a relayout; the
+port resamples the refined mid itself, so it has one path.
 
 `calibrated_step_ms` and `stage_timings_ms` time a mode's step and its
 stages on the device (`utils/tracing.device_timer`), for the API's
@@ -59,7 +61,6 @@ from nu_scaler_tpu_torch.models import interp_refine
 from nu_scaler_tpu_torch.ops.resample import (
     apply_taps,
     device_taps,
-    make_phase_resampler,
     make_resampler,
     resize_f32,
     to_device_u8,
@@ -733,17 +734,13 @@ class RefinedUpscaler:
     """flow_soft → the learned refinement → the resample, in one call
     (`make_refined_mid_upscaler`, `make_refined_multi_upscaler`): u8 frames
     a, b [H, W, 4] → the refined mid at each time, resampled to
-    [OH, OW, 4]. Where the refinement serves and `make_phase_resampler`
-    exists, the net's phases go to the phase resampler; elsewhere the u8
-    mid (refined where it serves) goes to `make_resampler`, as in the JAX
-    package."""
+    [OH, OW, 4]: the u8 mid, refined where the refinement serves, through
+    `make_resampler`."""
 
     def __init__(self, in_h: int, in_w: int, out_h: int, out_w: int, algorithm: str,
                  warp_tile: tuple, dev: torch.device) -> None:
         self.in_hw, self.warp_tile, self.device = (in_h, in_w), tuple(warp_tile), dev
         self.ref = _refine_graph(in_h, in_w, dev)
-        self.ph_up = None if self.ref is None else make_phase_resampler(
-            in_h, in_w, out_h, out_w, self.ref.stride, algorithm, dev)
         self.up = make_resampler(in_h, in_w, out_h, out_w, algorithm, dev)
 
     def frames(self, a, b) -> tuple[torch.Tensor, torch.Tensor]:
@@ -753,11 +750,7 @@ class RefinedUpscaler:
 
     def refine_up(self, a: torch.Tensor, b: torch.Tensor, mid: torch.Tensor) -> torch.Tensor:
         """One mid of the pair (a, b), refined and resampled."""
-        if self.ref is None:
-            return self.up(mid)
-        if self.ph_up is None:
-            return self.up(self.ref(a, b, mid))
-        return self.ph_up(self.ref.phases_of(a, b, mid))
+        return self.up(mid if self.ref is None else self.ref(a, b, mid))
 
 
 class RefinedMidUpscaler(RefinedUpscaler):

@@ -10,15 +10,11 @@ counterpart here.
 The u8 functions take and return RGBA uint8 ``[H, W, 4]`` (batch variants
 ``[N, H, W, 4]``) tensors, the byte contract of the reference API.
 `resize_f32` resamples float planes (flow fields) in plain PyTorch.
-`make_phase_resampler` takes a stride-st net's phase tensor: the
-depth-to-space as an indexed read, then the same kernel. It exists on the
-shapes where the JAX package's exists.
 """
 
 from __future__ import annotations
 
 import functools
-import math
 from typing import Sequence, Union
 
 import numpy as np
@@ -219,66 +215,6 @@ def make_fused_blend(
 ) -> FusedBlendStep:
     """Counterpart of `make_pallas_fused_blend` with plain [OH,OW,4] outputs."""
     return FusedBlendStep(in_h, in_w, out_h, out_w, algorithm, time_t, device)
-
-
-def phase_banded_fits(w: np.ndarray, st: int, target_tc: int = 128) -> bool:
-    """True when the JAX package's `_banded_from_matrix(w, target_tc,
-    halo_align=st)` (`nu_scaler_tpu/ops/resample.py:119-163`) returns a
-    block-banded form of the axis matrix `w` [O, I]: its tests of existence,
-    copied."""
-    out_size, in_size = w.shape
-    g = math.gcd(in_size, out_size)
-    p, q = out_size // g, in_size // g
-    tc = max(p, ((target_tc + p - 1) // p) * p)  # the tile of output rows
-    if tc >= out_size:
-        return False
-    stride = tc * q // p
-    if stride % st:
-        return False
-    lo = np.full(out_size, in_size, np.int64)
-    hi = np.full(out_size, -1, np.int64)
-    rows, cols = np.nonzero(w)
-    np.minimum.at(lo, rows, cols)
-    np.maximum.at(hi, rows, cols)
-    tiles = np.arange(out_size) // tc
-    halo = int(max(0, (tiles * stride - lo).max()))
-    halo = -(-halo // st) * st
-    tail = int(max(0, (hi - (tiles + 1) * stride + 1).max()))
-    return halo + tail <= stride
-
-
-class PhaseResampler:
-    """``f32 [H/st, W/st, st²·C]`` phases (channel (row phase, column phase,
-    c), integer values 0..255) → ``u8 [OH, OW, C]``: the depth-to-space as
-    an indexed read, then the resampler's kernel launch; the bytes of
-    ``resampler(d2s(phases))``."""
-
-    def __init__(self, st: int, resampler: Resampler) -> None:
-        self.st, self.resampler = st, resampler
-
-    def __call__(self, ph: torch.Tensor) -> torch.Tensor:
-        st = self.st
-        nh, nw, c = ph.shape[0], ph.shape[1], ph.shape[2] // (st * st)
-        img = ph.to(torch.uint8).reshape(nh, nw, st, st, c).permute(0, 2, 1, 3, 4)
-        return self.resampler(img.reshape(nh * st, nw * st, c))
-
-
-def make_phase_resampler(
-    in_h: int, in_w: int, out_h: int, out_w: int, st: int, algorithm: str = "lanczos3", device=None
-):
-    """Counterpart of the JAX package's `make_phase_resampler` on `device`
-    (the card unless "cpu"): a `PhaseResampler`, or None exactly where the
-    JAX function returns None (a side st does not divide, or an axis with no
-    st-aligned banded form). The JAX function folds the phases into its
-    banded matmuls to spare the TPU a lane-to-sublane relayout; on the card
-    the kernel reads any layout, so the phases are put back in place first."""
-    algorithm = normalize_algorithm(algorithm)
-    if in_h % st or in_w % st:
-        return None
-    if not (phase_banded_fits(axis_weights(in_h, out_h, algorithm), st)
-            and phase_banded_fits(axis_weights(in_w, out_w, algorithm), st)):
-        return None
-    return PhaseResampler(st, make_resampler(in_h, in_w, out_h, out_w, algorithm, device))
 
 
 def upscale_frame(img_u8, out_h: int, out_w: int, algorithm: str = "bilinear", device=None):

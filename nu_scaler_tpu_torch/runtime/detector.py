@@ -5,7 +5,7 @@ reference's `gpu/detector.rs:89-262`), over PyTorch's CUDA device queries.
 The "adapters" are the CUDA devices PyTorch sees (from
 `torch.cuda.get_device_properties`), then the host CPU. The primary device is
 the first card, else the CPU. `detect()` is the process's cached detector.
-Vendors and technologies are the API's constants (`core/_constants.py`).
+Vendors and technologies are the API's constants (`constants.py`).
 """
 
 from __future__ import annotations
@@ -16,7 +16,8 @@ from typing import Optional
 
 import torch
 
-from nu_scaler_tpu_torch.core._constants import TECH_FALLBACK, TECH_WGPU, VENDOR_NVIDIA, VENDOR_OTHER, GpuVendor
+from nu_scaler_tpu_torch.constants import TECH_FALLBACK, TECH_WGPU, VENDOR_NVIDIA, VENDOR_OTHER, GpuVendor
+from nu_scaler_tpu_torch.models import esrgan_lite
 
 
 @dataclasses.dataclass
@@ -104,14 +105,12 @@ class DeviceDetector:
         (`nu_scaler_tpu/runtime/detector.py:124-152`): "wgpu" (the resample
         kernel) and "fsr" (the FSR kernel) on any device; "dlss" (the learned
         tier) when the port's committed weights of the "quality" ladder are
-        present (`core.technologies.learned_tier_available`, the sidecar
+        present (`models.esrgan_lite.learned_tier_available`, the sidecar
         probe); no Intel SDK ("xess") and no Vulkan; "fallback" always."""
-        from nu_scaler_tpu_torch.core.technologies import learned_tier_available
-
         return {
             "wgpu": True,
             "fsr": True,
-            "dlss": learned_tier_available("quality"),
+            "dlss": esrgan_lite.learned_tier_available("quality"),
             "xess": False,
             "vulkan": False,
             "fallback": True,

@@ -1,5 +1,5 @@
 """The port's module constants, device detection and benchmark API
-(nu_scaler_tpu_torch.core._constants, runtime/detector.py, bench/harness.py,
+(nu_scaler_tpu_torch.constants, runtime/detector.py, bench/harness.py,
 core/benchmark.py) against the JAX package's (`nu_scaler_core`,
 `nu_scaler_tpu/runtime/detector.py`, `nu_scaler_tpu/bench/harness.py`), on
 the CPU: the same values, keys, fields and result names. Times are the
@@ -14,7 +14,7 @@ from nu_scaler_tpu.bench import harness as jharness
 from nu_scaler_tpu.runtime import detector as jdetector
 from nu_scaler_tpu_torch import core as pc
 from nu_scaler_tpu_torch.bench import harness as pharness
-from nu_scaler_tpu_torch.core import _constants as pconst
+from nu_scaler_tpu_torch import constants as pconst
 from nu_scaler_tpu_torch.runtime import detector as pdetector
 
 CAPTURE_AND_FACADE = {"PyScreenCapture", "PyCaptureTarget", "PyWindowByTitle", "PyRegion", "NuScaler"}
@@ -64,9 +64,11 @@ def test_detect_is_cached_with_jax_keys():
 
 def test_dlss_follows_the_committed_weights(monkeypatch):
     from nu_scaler_tpu_torch.core import technologies
+    from nu_scaler_tpu_torch.models import esrgan_lite
 
-    monkeypatch.setattr(technologies, "learned_tier_available", lambda prefer: False)
+    monkeypatch.setattr(esrgan_lite, "learned_tier_available", lambda prefer: False)
     assert pdetector.DeviceDetector().detect_technologies()["dlss"] is False
+    assert not technologies.is_supported("dlss", "cpu") and not technologies.is_supported("xess", "cpu")
 
 
 def test_test_pattern_equals_jax():

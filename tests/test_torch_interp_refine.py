@@ -1,6 +1,6 @@
 """The port's learned interpolation refinement (mode "flow_soft_ref",
 nu_scaler_tpu_torch/models/interp_refine.py and its users in
-ops/interpolate.py and ops/resample.py) against the JAX package's, on the
+ops/interpolate.py) against the JAX package's, on the
 CPU, with the committed interp_ref4 weights at full width (128 features, 1
 block, stride 4) on small frames.
 
@@ -15,10 +15,11 @@ serve the same step without orbax. Tolerances:
   fusions);
 * the whole mode, 2× and the 3× multi form (soft warp in interpret mode on
   the JAX side): ≥ 50 dB RGB, alpha equal;
-* the refined 4K upscalers against JAX's phase-domain resampler: ≤ 2 LSB and
-  ≥ 50 dB RGB (the phase resampler rounds its intermediate to bf16; the
-  port keeps fp32; alpha too may differ by that LSB), and equal byte for
-  byte to d2s + `make_resampler`;
+* the refined 4K upscalers against JAX's, which takes its phase-domain
+  resampler where it exists: ≤ 2 LSB and ≥ 50 dB RGB (the phase resampler
+  rounds its intermediate to bf16; the port keeps fp32; alpha too may
+  differ by that LSB); the port's equal byte for byte to `make_resampler`
+  of the refined mid;
 * the fp32 twins: ≤ 1e-5.
 """
 
@@ -32,7 +33,6 @@ import torch
 
 from nu_scaler_tpu.models import interp_refine as ir
 from nu_scaler_tpu.ops import interpolate as J
-from nu_scaler_tpu.ops import resample as jresample
 from nu_scaler_tpu.ops.metrics import psnr
 from nu_scaler_tpu_torch import core as pc
 from nu_scaler_tpu_torch.kernels import conv_cuda as cc
@@ -335,44 +335,49 @@ def test_timing_api_reports_refine_ms():
 
 
 # ---------------------------------------------------------------------------
-# the phase resampler and the refined 4K upscalers
+# the refined 4K upscalers
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("sizes, exists", [
-    ((136, 256, 272, 512), True), ((64, 128, 91, 131), False), ((1080, 1920, 2160, 3840), True),
-    ((540, 960, 2160, 3840), True), ((720, 1280, 2160, 3840), False), ((32, 64, 64, 128), False),
-    ((272, 512, 544, 1024), True), ((134, 256, 272, 512), False),
-])
+@pytest.mark.parametrize("sizes", [(32, 64, 64, 128), (32, 64, 45, 91), (64, 128, 32, 64), (30, 62, 60, 124)])
 @pytest.mark.parametrize("algorithm", ["lanczos3", "bilinear", "nearest"])
-def test_phase_resampler_exists_where_jax_does(sizes, exists, algorithm):
-    got = presample.make_phase_resampler(*sizes, 4, algorithm, device="cpu")
-    want = jresample.make_phase_resampler(*sizes, 4, algorithm)
-    assert (got is not None) == (want is not None)
-    if algorithm == "lanczos3":
-        assert (got is not None) == exists
+def test_refined_upscaler_is_the_resample_of_the_mode(sizes, algorithm):
+    """make_refined_mid_upscaler is `make_resampler` of the mode's mid,
+    byte for byte, at every algorithm, at integer, non-integer and
+    downscaling ratios, and where the refinement does not serve (30×62:
+    the plain flow_soft mid)."""
+    h, w, oh, ow = sizes
+    a, b = _texture(h, w, 0.0), _texture(h, w, 3.0)
+    up = P.make_refined_mid_upscaler(h, w, oh, ow, algorithm, device="cpu")
+    assert (up.ref is not None) == P.refine_serves(h, w)
+    mid = P.make_interpolator(h, w, "flow_soft_ref", "cpu")(_t(a), _t(b), 0.25)
+    got = up(a, b, 0.25).numpy()
+    assert got.shape == (oh, ow, 4)
+    assert np.array_equal(got, presample.make_resampler(h, w, oh, ow, algorithm, "cpu")(mid).numpy())
 
 
-def test_phase_resampler_is_d2s_then_resampler(rng):
-    """The phase resampler's bytes are `make_resampler` of the d2s, and
-    within the bf16-intermediate bound of JAX's phase resampler."""
-    st, ih, iw, oh, ow = 4, 136, 256, 272, 512
-    img = rng.integers(0, 256, (ih, iw, 4), np.uint8)
-    ph = img.reshape(ih // st, st, iw // st, st, 4).transpose(0, 2, 1, 3, 4).reshape(ih // st, iw // st, -1)
-    got = presample.make_phase_resampler(ih, iw, oh, ow, st, device="cpu")(_t(ph.astype(np.float32))).numpy()
-    assert np.array_equal(got, presample.make_resampler(ih, iw, oh, ow, "lanczos3", "cpu")(img).numpy())
-    want = np.asarray(jresample.make_phase_resampler(ih, iw, oh, ow, st)(jnp.asarray(ph, jnp.float32)))
-    assert np.abs(got.astype(int) - want).max() <= 2 and psnr(got, want) >= GATE_DB
+@pytest.mark.parametrize("algorithm", ["lanczos3", "bilinear", "nearest"])
+def test_refined_multi_upscaler_is_the_single_calls(algorithm):
+    """make_refined_multi_upscaler at t = (1/4, 1/2, 3/4): each mid the
+    bytes of make_refined_mid_upscaler at that t."""
+    h, w, oh, ow = 32, 64, 48, 96
+    a, b = _texture(h, w, 0.0), _texture(h, w, 4.0)
+    ts = (0.25, 0.5, 0.75)
+    got = P.make_refined_multi_upscaler(h, w, oh, ow, ts, algorithm, device="cpu")(a, b).numpy()
+    single = P.make_refined_mid_upscaler(h, w, oh, ow, algorithm, device="cpu")
+    assert got.shape == (len(ts), oh, ow, 4)
+    for t, g in zip(ts, got):
+        assert np.array_equal(g, single(a, b, t).numpy())
 
 
 def test_refined_upscalers_match_jax(jax_on_port_weights):
     """make_refined_mid_upscaler and make_refined_multi_upscaler at 136×256 →
-    272×512 (the phase resampler exists): ≤ 2 LSB and ≥ 50 dB of JAX's, and
-    the port's bytes those of d2s + make_resampler of the refined mid."""
+    272×512 (where JAX's takes its phase resampler): ≤ 2 LSB and ≥ 50 dB of
+    JAX's, and the port's bytes those of make_resampler of the refined mid."""
     h, w, oh, ow = 136, 256, 272, 512
     a, b = _texture(h, w, 0.0), _texture(h, w, 5.0)
     up = P.make_refined_mid_upscaler(h, w, oh, ow, device="cpu")
-    assert up.ph_up is not None
+    assert up.ref is not None
     got = up(a, b, 0.5).numpy()
     want = np.asarray(J.make_refined_mid_upscaler(h, w, oh, ow)(jnp.asarray(a), jnp.asarray(b), 0.5))
     assert np.abs(got.astype(int) - want).max() <= 2
@@ -392,13 +397,13 @@ def test_refined_upscalers_match_jax(jax_on_port_weights):
 @pytest.mark.parametrize("sizes, refined", [((30, 62, 60, 124), False), ((32, 64, 64, 128), True)])
 def test_refined_upscaler_fallbacks(jax_on_port_weights, sizes, refined):
     """Where the refinement does not serve, the plain flow_soft mid is
-    resampled; where it serves but no phase resampler exists, the u8
-    refined mid is (`make_resampler`), as in the JAX package; against JAX's
-    ≤ 2 LSB."""
+    resampled; where it serves but JAX's phase resampler does not exist,
+    the u8 refined mid is (`make_resampler`), as in the JAX package; against
+    JAX's ≤ 2 LSB."""
     h, w, oh, ow = sizes
     a, b = _texture(h, w, 0.0), _texture(h, w, 3.0)
     up = P.make_refined_mid_upscaler(h, w, oh, ow, device="cpu")
-    assert up.ph_up is None and (up.ref is not None) == refined
+    assert (up.ref is not None) == refined
     mid = P.make_interpolator(h, w, "flow_soft_ref" if refined else "flow_soft", "cpu")(_t(a), _t(b), 0.5)
     got = up(a, b, 0.5).numpy()
     assert np.array_equal(got, presample.make_resampler(h, w, oh, ow, "lanczos3", "cpu")(mid).numpy())

@@ -211,3 +211,53 @@ def test_kernel_source_is_plain_c():
         assert not any("wmma::" in path.read_text() for path in _build.source_files(name))
     fsr = _build.source_path("fsr").read_text()
     assert np.all([s in fsr for s in ("__fsub_rn", "__fdiv_rn", "__fsqrt_rn")])
+
+
+def _pyproject() -> dict:
+    import tomllib
+
+    return tomllib.loads((PKG.parent / "pyproject.toml").read_text())["tool"]["setuptools"]
+
+
+@pytest.mark.parametrize("sub", sorted(p.parent.relative_to(PKG.parent).as_posix().replace("/", ".")
+                                       for p in PKG.rglob("__init__.py")))
+def test_pyproject_names_every_subpackage(sub):
+    """A non-editable install carries every package of the port: `packages`
+    names each directory that holds an `__init__.py`."""
+    assert sub in _pyproject()["packages"]
+
+
+def test_pyproject_ships_kernel_sources_and_weights():
+    """The package data carries every kernel source and header the build
+    reads and every committed weight file."""
+    from fnmatch import fnmatch
+
+    data = _pyproject()["package-data"]
+    shipped = [(p, data.get(pkg, [])) for pkg, root in (("nu_scaler_tpu_torch.kernels", PKG / "kernels"),
+                                                       ("nu_scaler_tpu_torch", PKG))
+               for p in root.rglob("*") if p.is_file() and p.suffix in (".cu", ".cuh", ".npz", ".json")
+               and (root == PKG) == (p.suffix in (".npz", ".json"))]
+    assert len(shipped) >= 9
+    for path, globs in shipped:
+        rel = path.relative_to(PKG / "kernels" if path.suffix in (".cu", ".cuh") else PKG).as_posix()
+        assert any(fnmatch(rel, g) for g in globs), f"{rel} is not in the package data"
+
+
+@pytest.mark.parametrize("layer", ["constants.py", "device.py", "kernels", "ops", "models", "runtime", "utils",
+                                   "capture", "bench"])
+def test_layers_below_the_api_do_not_import_it(layer):
+    """The API layer (`core`) imports the layers below it and none of them
+    imports `core`: no cycle through `core/__init__`."""
+    root = PKG / layer
+    paths = [root] if root.is_file() else sorted(root.rglob("*.py"))
+    assert paths
+    for path in paths:
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] + [f"{node.module}.{a.name}" for a in node.names]
+            else:
+                continue
+            assert not any(n == "nu_scaler_tpu_torch.core" or n.startswith("nu_scaler_tpu_torch.core.")
+                           for n in names), f"{path}:{node.lineno} imports the API layer"
