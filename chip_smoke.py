@@ -10,7 +10,9 @@ Phases, each printed on its own line with its seconds:
 1. the card: its name, and its power limit as nvidia-smi reports it;
 2. the build: one nvcc call per source under nu_scaler_tpu_torch/kernels/csrc/
    (resample_fused.cu, soft_warp.cu, fsr.cu, conv3x3.cu, trunk_fused.cu,
-   resample_twopass.cu), all started together, into build/nu_scaler_tpu_torch/;
+   resample_twopass.cu) and one g++ call per host library under
+   nu_scaler_tpu_torch/runtime/native/ (framering.cpp, y4m.cpp), all started
+   together, into build/nu_scaler_tpu_torch/;
 3. each kernel wrapper against its plain PyTorch version on the card, at
    1080p→4K: lanczos3, bilinear and nearest single frames (nearest bit-exact,
    the others ≤1 LSB), a batch of 4, and the blend epilogue with t = 0.5 and
@@ -137,6 +139,28 @@ Phases, each printed on its own line with its seconds:
    harness's names and sizes; each call's launches: 1 resample_fused, 1 fsr,
    8 conv3x3_q a frame for the warm-up and every timed frame), then
    py_run_comparison_benchmark's 16 cells (each fps > 0);
+4j. the app (nu_scaler/), unmodified, on the port through the launcher's
+   import finder (nu_scaler_tpu_torch.run.serve_port) in this process, each
+   run's launch counts read on its own: nu_scaler.transcode of an 8-frame
+   1080p C420 clip (the bench frame rolled 16 columns a frame, written by
+   the port's Y4MWriter into a temporary directory) at --scale 2 with
+   --tech wgpu --algorithm lanczos3 --factor 2 --interp-mode flow_soft
+   (resample_fused, soft_warp_blend; 15 frames), --tech fsr --quality
+   quality (fsr) and --tech dlss --quality quality --batch 4 (conv3x3_q,
+   int8 tpu4b2 x2): each output file (its header and N*(n-1)+1 frames)
+   byte-equal to the port's API called directly on the decoded input and
+   written by Y4MWriter, the wgpu run's input frames >= 50 dB against the
+   float64 golden through the same 4:2:0 round trip, open_reader on the clip
+   the native demuxer; nu_scaler.headless --seconds 3 --scale 2 --algorithm
+   lanczos3 --interpolate --interp-mode blend (FullScreen: the synthetic
+   1920x1080 desktop, on the native ring), its printed stats with 0 errors,
+   frames out and the 1920x1080 input, and its output frames/s;
+   NuScaler("wgpu", "quality") and NuScaler("dlss", "quality")
+   capture_and_upscale(1920, 1080, 3840, 2160), the captured frame the
+   synthetic scene at the tick its square's column gives and the output
+   byte-equal to the port's upscaler on it; nu_scaler.benchmark_app single
+   --tech auto at 1080p x2 (through the aliased detector), a result with
+   fps > 0. No module of the JAX side may be loaded;
 5. times: per kernel the median of 20 CUDA-event timings after 3 warm-ups,
    the plain version's time, and the bound (the larger of bytes moved over
    the memory rate and operations over the rate of their type: fp32, or
@@ -576,6 +600,252 @@ def fsr_work(torch, fc, src, s: int, sharp: float) -> tuple[int, int]:
     return px_in * 4 * (1 + s * s), ops
 
 
+def app_on_the_port(torch, clip_frames, wv, wh, card) -> dict:
+    """Phase 4j: the app (nu_scaler/), unmodified, on the port through the
+    launcher's finder (`nu_scaler_tpu_torch.run.serve_port`), in this
+    process, on the card:
+
+    - nu_scaler.transcode of an 8-frame 1080p C420 clip (`clip_frames`,
+      written by the port's Y4MWriter into a temporary directory) at --scale
+      2 on three paths: wgpu lanczos3 with flow_soft at --factor 2
+      (resample_fused, soft_warp_blend), fsr "quality" (fsr), and dlss
+      "quality" in batches of 4 (the int8 tpu4b2 x2 graph, conv3x3_q). Each
+      output file is byte-equal to the port's API called directly on the
+      decoded input and written by Y4MWriter (its header and N*(n-1)+1
+      frames), and the first path's frames of the input frames are >= 50 dB
+      against the float64 golden through the same 4:2:0 round trip;
+      open_reader on the clip is the native demuxer;
+    - nu_scaler.headless --seconds 3 --scale 2 --algorithm lanczos3
+      --interpolate --interp-mode blend: FullScreen capture (the synthetic
+      1920x1080 desktop: no display) -> the native ring -> interpolate_py ->
+      upscale; the app swallows pipeline errors, so its printed stats must
+      show 0 errors, frames out and the 1920x1080 input;
+    - NuScaler("wgpu", "quality") and NuScaler("dlss", "quality")
+      capture_and_upscale(1920, 1080, 3840, 2160): the captured frame is the
+      synthetic scene at the tick its square's column gives, and the output
+      the port's upscaler's bytes on it;
+    - nu_scaler.benchmark_app single --tech auto at 1080p x2, 20 frames,
+      through the aliased detector: a result with fps > 0.
+
+    Each run's launches are read on their own and must include its kernels.
+    No module of the JAX side may be loaded. Returns the launches of the
+    phase by kernel."""
+    import ast
+    import contextlib
+    import io
+    import os
+    import re
+    import tempfile
+    from pathlib import Path
+
+    from nu_scaler_tpu_torch import run as launcher
+    from nu_scaler_tpu_torch.capture import screen as cap_screen
+    from nu_scaler_tpu_torch.capture import video as cap_video
+    from nu_scaler_tpu_torch.capture.sources import SyntheticSource
+    from nu_scaler_tpu_torch.capture.video import _rgba_to_yuv420, _yuv420_to_rgba
+    from nu_scaler_tpu_torch.core import (
+        NuScaler,
+        PyAdvancedWgpuUpscaler,
+        PyWgpuUpscaler,
+        WgpuFrameInterpolator,
+        create_advanced_upscaler,
+        create_fsr_upscaler,
+    )
+    from nu_scaler_tpu_torch.kernels import conv_cuda as cc
+    from nu_scaler_tpu_torch.kernels import fsr_cuda as fc
+    from nu_scaler_tpu_torch.kernels import resample_cuda as rc
+    from nu_scaler_tpu_torch.kernels import soft_warp_cuda as swc
+    from nu_scaler_tpu_torch.kernels import trunk_cuda as tc
+
+    counters = (rc, swc, fc, cc, tc)
+    total: dict = {}
+
+    def launches_of(fn):
+        """(fn's result, the launches it made, by kernel)."""
+        for c in counters:
+            c.reset_launches()
+        result = fn()
+        torch.cuda.synchronize()
+        got = {k: v for c in counters for k, v in c.launches.items()}
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        return result, got
+
+    def app(module: str, *args: str) -> tuple[int, str]:
+        """Run one module of the app; (its exit code, what it printed)."""
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            code = launcher.run_app(module, [str(a) for a in args])
+        say(f"  {module}: " + " | ".join(text.getvalue().strip().splitlines()[-2:]))
+        return code, text.getvalue()
+
+    root = Path(__file__).resolve().parent
+    jax_dirs = (str(root / "nu_scaler_tpu") + os.sep, str(root / "nu_scaler_core") + os.sep)
+    tmp = tempfile.TemporaryDirectory(prefix="nu_scaler_4j_")
+    xdg = os.environ.get("XDG_DATA_HOME")
+    os.environ["XDG_DATA_HOME"] = tmp.name  # the app's log file
+    try:
+        clip = os.path.join(tmp.name, "clip.y4m")
+        writer = cap_video.Y4MWriter(clip, IN_W, IN_H, fps=30.0)
+        for f in clip_frames:
+            writer.write(f)
+        writer.close()
+        decoded = list(cap_video.Y4MReader(clip))
+        n_in = len(decoded)
+        reader = cap_video.open_reader(clip)
+        check(isinstance(reader, cap_video.NativeY4MReader), f"open_reader served {type(reader).__name__}")
+        check(lsb(next(reader), decoded[0]) <= 1, "the native demuxer is more than 1 LSB from Y4MReader")
+        reader.close()
+
+        def expected(path: str, factor: int, frames_out) -> None:
+            out = cap_video.Y4MWriter(path, OUT_W, OUT_H, fps=30.0 * factor)
+            for data in frames_out:
+                out.write(np.frombuffer(data, np.uint8).reshape(OUT_H, OUT_W, 4))
+            out.close()
+
+        def direct_wgpu():
+            up = PyWgpuUpscaler("quality", "lanczos3")
+            up.initialize(IN_W, IN_H, OUT_W, OUT_H)
+            it = WgpuFrameInterpolator(mode="flow_soft")
+            outs, prev = [], None
+            for f in decoded:
+                data = f.tobytes()
+                if prev is not None:
+                    outs += [up.upscale(m) for m in it.interpolate_multi_py(prev, data, IN_W, IN_H, times=(0.5,))]
+                outs.append(up.upscale(data))
+                prev = data
+            return outs
+
+        def direct_fsr():
+            up = create_fsr_upscaler("quality")
+            up.initialize(IN_W, IN_H, OUT_W, OUT_H)
+            return [up.upscale(f.tobytes()) for f in decoded]
+
+        def direct_dlss():
+            up = PyAdvancedWgpuUpscaler("ultra", "lanczos3", True)
+            up.initialize(IN_W, IN_H, OUT_W, OUT_H)
+            return [o for i in range(0, n_in, BATCH) for o in up.upscale_batch([f.tobytes() for f in decoded[i:i + BATCH]])]
+
+        transcodes = {  # tag: (the app's arguments, factor, its kernels, the API called directly)
+            "wgpu lanczos3 flow_soft x2": (("--tech", "wgpu", "--algorithm", "lanczos3", "--factor", "2",
+                                            "--interp-mode", "flow_soft"), 2,
+                                           ("resample_fused", "soft_warp_blend"), direct_wgpu),
+            "fsr quality": (("--tech", "fsr", "--quality", "quality"), 1, ("fsr",), direct_fsr),
+            "dlss quality batch 4": (("--tech", "dlss", "--quality", "quality", "--batch", str(BATCH)), 1,
+                                     ("conv3x3_q",), direct_dlss),
+        }
+        frame_bytes = OUT_W * OUT_H * 3 // 2
+        report = {}
+        with launcher.serve_port():
+            for tag, (args, factor, kernels, direct) in transcodes.items():
+                out_path = os.path.join(tmp.name, f"{tag.split()[0]}.y4m")
+                t0 = time.perf_counter()
+                (code, printed), got = launches_of(
+                    lambda: app("nu_scaler.transcode", clip, out_path, "--scale", "2", *args))
+                seconds = time.perf_counter() - t0
+                check(code == 0, f"transcode {tag}: exit code {code}")
+                check(all(got[k] > 0 for k in kernels), f"transcode {tag}: launches {got}")
+                with open(out_path, "rb") as fh:
+                    header = fh.readline()
+                    size = os.fstat(fh.fileno()).st_size
+                n_out = factor * (n_in - 1) + 1
+                want_header = f"YUV4MPEG2 W{OUT_W} H{OUT_H} F{30000 * factor}:1000 Ip A1:1 C420jpeg\n".encode()
+                check(header == want_header, f"transcode {tag}: header {header!r}")
+                check(size == len(header) + n_out * (6 + frame_bytes), f"transcode {tag}: {size} bytes, "
+                      f"not {n_out} frames")
+                want_path = out_path + ".direct.y4m"
+                expected(want_path, factor, direct())
+                with open(out_path, "rb") as fa, open(want_path, "rb") as fb:
+                    check(fa.read() == fb.read(), f"transcode {tag}: not byte-equal to the API called directly")
+                report[tag] = {"seconds": seconds, "frames_out": n_out,
+                               "launches": {k: got[k] for k in kernels}}
+                if factor == 2:  # the input frames' outputs against the golden, through 4:2:0
+                    worst = float("inf")
+                    for i, f in enumerate(cap_video.Y4MReader(out_path)):
+                        if i % 2 == 0:
+                            g = golden(torch, decoded[i // 2], wv, wh).cpu().numpy()
+                            worst = min(worst, psnr(f, _yuv420_to_rgba(*_rgba_to_yuv420(g))))
+                    check(worst >= PSNR_GATE_DB, f"transcode {tag}: {worst:.2f} dB against the golden")
+                    report[tag]["min_psnr_db_vs_golden_420"] = worst
+
+            made = []
+            new_ring = cap_screen.ScreenCapture._new_ring
+
+            def recording_ring():
+                ring = new_ring()
+                made.append(type(ring).__name__)
+                return ring
+
+            cap_screen.ScreenCapture._new_ring = staticmethod(recording_ring)
+            try:
+                (code, printed), got = launches_of(lambda: app(
+                    "nu_scaler.headless", "--seconds", "3", "--scale", "2", "--algorithm", "lanczos3",
+                    "--interpolate", "--interp-mode", "blend"))
+            finally:
+                cap_screen.ScreenCapture._new_ring = staticmethod(new_ring)
+            stats = ast.literal_eval([ln for ln in printed.splitlines() if ln.startswith("{'frames_in'")][-1])
+            check(stats["errors"] == 0 and stats["frames_out"] > 0 and stats["input_size"] == (IN_W, IN_H),
+                  f"headless: {stats}")
+            check(made == ["NativeFrameRing"], f"headless rings: {made}")
+            check(got["resample_fused"] > 0, f"headless: launches {got}")
+            report["headless"] = {"stats": stats, "output_fps": stats["frames_out"] / 3.0, "exit_code": code,
+                                  "launches": {"resample_fused": got["resample_fused"]}, "card": card}
+
+            for tech, kernel in (("wgpu", "resample_fused"), ("dlss", "conv3x3_q")):
+                captured = []
+
+                def facade(tech=tech):
+                    ns = NuScaler(tech, "quality")
+                    grab = ns.capture.get_frame
+
+                    def spy():
+                        got_ = grab()
+                        if got_ is not None:
+                            captured.append(got_)
+                        return got_
+
+                    ns.capture.get_frame = spy
+                    try:
+                        return ns.capture_and_upscale(IN_W, IN_H, OUT_W, OUT_H)
+                    finally:
+                        ns.close()
+
+                out, got = launches_of(facade)
+                check(got[kernel] > 0, f"NuScaler {tech}: launches {got}")
+                data, w, h = captured[-1]
+                frame = np.frombuffer(data, np.uint8).reshape(h, w, 4)
+                scene = SyntheticSource(w, h)
+                side = max(8, min(w, h) // 8)
+                px = int(np.flatnonzero((frame[(h - side) // 2, :, :3] == 255).all(axis=1))[0])
+                scene._t = next(t for t in range(w) if int(t * scene.speed) % (w - side) == px)
+                check(np.array_equal(frame, scene.next_frame()), f"NuScaler {tech}: not the synthetic frame")
+                up = PyAdvancedWgpuUpscaler("quality", "bilinear") if tech == "wgpu" else create_advanced_upscaler("ultra")
+                up.initialize(IN_W, IN_H, OUT_W, OUT_H)
+                check(up.upscale(data) == out, f"NuScaler {tech}: not the upscaler's bytes")
+                report[f"NuScaler {tech}"] = {"tick": scene._t - 1, "launches": {kernel: got[kernel]}}
+
+            (code, printed), got = launches_of(lambda: app(
+                "nu_scaler.benchmark_app", "single", "--tech", "auto", "--width", IN_W, "--height", IN_H,
+                "--scale", "2", "--frames", str(BENCH_FRAMES)))
+            fps = re.findall(r"\] \d+x\d+→\d+x\d+: ([0-9.]+) fps", printed)
+            check(code == 0 and fps and float(fps[-1]) > 0, f"benchmark_app: exit code {code}, {printed!r}")
+            report["benchmark_app"] = {"fps": float(fps[-1]), "launches": {"resample_fused": got["resample_fused"]}}
+
+            loaded = {n: getattr(m, "__file__", None) for n, m in list(sys.modules.items())}
+        jax_side = [n for n, f in loaded.items()
+                    if n.split(".")[0] in ("jax", "jaxlib", "flax", "orbax") or (f and f.startswith(jax_dirs))]
+        jax_side += [n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "orbax")]
+        check(not jax_side, f"modules of the JAX side loaded: {jax_side}")
+        say(f"app on the port [{card}]: " + json.dumps(report, default=str))
+    finally:
+        if xdg is None:
+            os.environ.pop("XDG_DATA_HOME", None)
+        else:
+            os.environ["XDG_DATA_HOME"] = xdg
+        tmp.cleanup()
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -628,10 +898,13 @@ def main() -> int:
             f"{bf16_rate:.3g} bf16 FLOP/s")
 
     with Phase("2 build"):
-        built = _build.build()  # one nvcc per source, all started together
-        for name in _build.SIGNATURES:
+        # one nvcc per kernel source and one g++ per host library (the frame
+        # ring and the Y4M demuxer of phase 4j), all started together
+        built = _build.build((*_build.SIGNATURES, *_build.HOST_SIGNATURES))
+        for name in (*_build.SIGNATURES, *_build.HOST_SIGNATURES):
             _build.load_library(name)
-            say(f"kernel library {_build.library_path(name).name} "
+            kind_ = "host library" if name in _build.HOST_SIGNATURES else "kernel library"
+            say(f"{kind_} {_build.library_path(name).name} "
                 f"({'built in %.2f s' % built[name] if name in built else 'cached'})")
 
     rng = np.random.default_rng(SEED)
@@ -2044,6 +2317,13 @@ def main() -> int:
         bench_api["grid_fps"] = {f"{r.technology}/{r.quality}": r.fps for r in grid}
         say(f"benchmark API at 1080p x2 (host clock to torch.cuda.synchronize) [{card}]: " + json.dumps(bench_api))
 
+    with Phase("4j the app on the port"):
+        # the app (nu_scaler/), unmodified, through the launcher's finder in
+        # this process, at 1080p -> 4K: its transcode, its headless live loop,
+        # the NuScaler facade and its benchmark CLI; each run's launch counts
+        # read on its own
+        j4_counts = app_on_the_port(torch, live_in, wv, wh, card)
+
     with Phase("5 times"):
         flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
         tables = 4 * (OUT_H * (1 + lz.kv) + OUT_W * (1 + lz.kh))
@@ -2079,7 +2359,7 @@ def main() -> int:
         }
         rows = []
         launched = {name: counts[name] + flow_counts.get(name, 0) + g4_counts.get(name, 0)
-                    + h4_counts.get(name, 0) for name in counts}
+                    + h4_counts.get(name, 0) + j4_counts.get(name, 0) for name in counts}
         for name, (kernel, plain, n, n_ts) in cases.items():
             b_ms, b_by = bound(n, n_ts)
             ms, plain_ms = time_ms(torch, kernel, flush), time_ms(torch, plain, flush)
@@ -2152,8 +2432,9 @@ def main() -> int:
         rows.append({
             "name": "soft_warp_blend", "route": "cuda", "source": SOFT_SOURCE,
             "replaces": REPLACES["soft_warp_blend"],
-            "launches": flow_counts["soft_warp_blend"] + h4_counts["soft_warp_blend"],
-            "launches_flow_soft_ref": h4_counts["soft_warp_blend"],
+            "launches": flow_counts["soft_warp_blend"] + h4_counts["soft_warp_blend"]
+            + j4_counts["soft_warp_blend"],
+            "launches_flow_soft_ref": h4_counts["soft_warp_blend"], "launches_app": j4_counts["soft_warp_blend"],
             "max_abs_err": errs["soft_warp_blend"], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "ptxas": soft_regs,
             # no single PyTorch call computes the 4-corner candidate blend
@@ -2199,7 +2480,7 @@ def main() -> int:
             ms, plain_ms, b_ms, b_by = fsr_ms[key]
             rows.append({
                 "name": row, "route": "cuda", "source": FSR_SOURCE, "replaces": REPLACES[row],
-                "launches": fsr_counts[row], "max_abs_err": errs[row], "ms": ms,
+                "launches": fsr_counts[row] + j4_counts[row], "max_abs_err": errs[row], "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
                 # no single PyTorch call computes EASU + RCAS
                 "library_ms": None, "inputs": inputs, "ptxas_by_scale": fsr_regs,
@@ -2289,7 +2570,8 @@ def main() -> int:
         main = conv_ms[main_shape]
         rows.append({
             "name": "conv3x3", "route": "cuda", "source": CONV_SOURCE, "replaces": REPLACES["conv3x3"],
-            "launches": learned_counts["conv3x3"] + h4_counts["conv3x3"], "max_abs_err": errs["conv3x3"], **main,
+            "launches": learned_counts["conv3x3"] + h4_counts["conv3x3"] + j4_counts["conv3x3"],
+            "max_abs_err": errs["conv3x3"], **main,
             # phase 4h: the refinement net's convs (4 a refined mid) and their times
             "launches_flow_soft_ref": h4_counts["conv3x3"], "refinement_shapes": refine_conv_ms,
             # phase 4f's rungs (the stride-2, unfused, ESRGANLite and stride-8
@@ -2338,7 +2620,8 @@ def main() -> int:
                           "bound_by": b_by}
         rows.append({
             "name": "conv3x3_q", "route": "cuda", "source": CONV_SOURCE, "replaces": REPLACES["conv3x3_q"],
-            "launches": int8_launches, "max_abs_err": errs["conv3x3_q"],
+            "launches": int8_launches + j4_counts["conv3x3_q"], "max_abs_err": errs["conv3x3_q"],
+            "launches_app": j4_counts["conv3x3_q"],
             **q_ms[f"x2 block 1x{th2}x{tw2} 128->128"],
             "inputs": f"the committed tpu4b2 block0.conv2 int8 weights on quantised activations, "
                       f"1x{th2}x{tw2}x128 -> 128 (the quality x2 trunk grid)",

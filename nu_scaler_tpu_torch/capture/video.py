@@ -1,15 +1,22 @@
-"""Dependency-free video I/O of the port: the copy of the numpy parts of
+"""Dependency-free video I/O of the port: the counterpart of
 `nu_scaler_tpu/capture/video.py`. The BT.601 full-swing 4:2:0 goldens
 (`_yuv420_to_rgba`, `_rgba_to_yuv420`), which `ops/color.py`'s converters
-are held against, and a YUV4MPEG2 (C420) reader and writer:
+are held against, a YUV4MPEG2 (C420) reader and writer, `VideoSource` (a
+clip as a capture source), and the native demuxer (`runtime/native/y4m.cpp`,
+built by g++ at the first use into ``build/nu_scaler_tpu_torch/``) behind
+`open_reader`:
 
     ffmpeg -i clip.mp4 -pix_fmt yuv420p clip.y4m
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
-from typing import Iterator
+import threading
+from typing import Iterator, Optional
+
+from nu_scaler_tpu_torch.kernels import _build
 
 import numpy as np
 
@@ -111,3 +118,106 @@ class Y4MWriter:
 
     def close(self) -> None:
         self._f.close()
+
+
+class VideoSource:
+    """FrameSource over a Y4M file (loops at EOF)."""
+
+    def __init__(self, path: str):
+        self._path = path
+        self._reader = Y4MReader(path)
+        self.width = self._reader.width
+        self.height = self._reader.height
+        self.fps = self._reader.fps
+
+    def next_frame(self) -> np.ndarray:
+        try:
+            return next(self._reader)
+        except StopIteration:
+            self._reader.close()
+            self._reader = Y4MReader(self._path)
+            return next(self._reader)
+
+    def close(self) -> None:
+        self._reader.close()
+
+
+# ---------------------------------------------------------------------------
+# Native demuxer (host C++ — the data-loader role of the reference's native
+# capture plumbing; runtime/native/y4m.cpp)
+# ---------------------------------------------------------------------------
+
+_Y4M_LIB = None
+# why the demuxer could not be built or loaded, once a first use failed
+y4m_build_error: Optional[str] = None
+_Y4M_LOCK = threading.Lock()
+
+
+def _load_y4m_lib():
+    global _Y4M_LIB, y4m_build_error
+    with _Y4M_LOCK:
+        if _Y4M_LIB is None and y4m_build_error is None:
+            try:
+                _Y4M_LIB = _build.load_library("y4m")
+            except _build.HOST_BUILD_ERRORS as e:  # no compiler: the Python reader
+                y4m_build_error = f"{type(e).__name__}: {e}"
+        return _Y4M_LIB
+
+
+def native_y4m_available() -> bool:
+    return _load_y4m_lib() is not None
+
+
+class NativeY4MReader:
+    """C++ demuxer with the same iterator contract as Y4MReader (YUV420 →
+    RGBA conversion in native code, in float64 where `_yuv420_to_rgba`
+    computes in float32: within 1 LSB of it)."""
+
+    def __init__(self, path: str):
+        lib = _load_y4m_lib()
+        if lib is None:
+            raise RuntimeError(f"native y4m demuxer unavailable: {y4m_build_error}")
+        self._lib = lib
+        w = ctypes.c_uint32()
+        h = ctypes.c_uint32()
+        fps = ctypes.c_double()
+        self._ctx = lib.nu_y4m_open(path.encode(), w, h, fps)
+        if not self._ctx:
+            raise ValueError(f"not a supported Y4M file: {path}")
+        self.width, self.height, self.fps = w.value, h.value, fps.value
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> np.ndarray:
+        out = np.empty((self.height, self.width, 4), np.uint8)
+        rc = self._lib.nu_y4m_next(self._ctx, out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)))
+        if rc == 0:
+            raise StopIteration
+        if rc < 0:
+            raise ValueError("corrupt Y4M stream")
+        return out
+
+    def rewind(self) -> None:
+        self._lib.nu_y4m_rewind(self._ctx)
+
+    def close(self) -> None:
+        if self._ctx:
+            self._lib.nu_y4m_close(self._ctx)
+            self._ctx = None
+
+    def __del__(self):  # noqa: D105
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001 — interpreter teardown
+            pass
+
+
+def open_reader(path: str, native: str = "auto"):
+    """Y4M reader factory: the native demuxer when built ("auto"), forced
+    ("native"), or the pure-Python one ("python")."""
+    if native == "python":
+        return Y4MReader(path)
+    if native == "native" or native_y4m_available():
+        return NativeY4MReader(path)
+    return Y4MReader(path)

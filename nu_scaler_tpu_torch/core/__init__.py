@@ -1,6 +1,6 @@
-"""The ported part of the `nu_scaler_core` API surface: every name of its
-`__all__` but the capture classes (`PyScreenCapture`, `PyCaptureTarget`,
-`PyWindowByTitle`, `PyRegion`) and the `NuScaler` facade."""
+"""The port's `nu_scaler_core` API surface: every name of its `__all__`, in
+its order. The launcher (`nu_scaler_tpu_torch.run`) serves this package to
+the app under the name `nu_scaler_core`."""
 
 from nu_scaler_tpu_torch.constants import (
     QUALITY_BALANCED,
@@ -24,6 +24,13 @@ from nu_scaler_tpu_torch.core.benchmark import (
     py_benchmark_upscaler,
     py_run_comparison_benchmark,
 )
+from nu_scaler_tpu_torch.core.capture import (
+    PyCaptureTarget,
+    PyRegion,
+    PyScreenCapture,
+    PyWindowByTitle,
+)
+from nu_scaler_tpu_torch.core.facade import NuScaler
 from nu_scaler_tpu_torch.core.interpolator import WgpuFrameInterpolator, create_interpolator
 from nu_scaler_tpu_torch.core.technologies import (
     NISUpscaler,
@@ -42,22 +49,29 @@ from nu_scaler_tpu_torch.core.upscaler import (
     create_fsr_upscaler,
 )
 
+__version__ = "0.1.0"
+
 __all__ = [
     "PyWgpuUpscaler",
-    "PyFsrUpscaler",
     "PyAdvancedWgpuUpscaler",
+    "PyFsrUpscaler",
+    "PyScreenCapture",
+    "PyCaptureTarget",
+    "PyWindowByTitle",
+    "PyRegion",
     "PyVramStats",
     "PyBenchmarkResult",
-    "create_fsr_upscaler",
+    "NuScaler",
+    "WgpuFrameInterpolator",
+    "create_interpolator",
     "create_advanced_upscaler",
+    "create_fsr_upscaler",
     "create_best_upscaler",
     "create_upscaler",
     "is_supported",
     "upscale_image_file",
-    "NISUpscaler",
     "PassThroughUpscaler",
-    "WgpuFrameInterpolator",
-    "create_interpolator",
+    "NISUpscaler",
     "py_benchmark_upscaler",
     "py_run_comparison_benchmark",
     "UpscalingQuality",

@@ -8,10 +8,15 @@ library's name carries a hash of its source, of every header the source
 includes with quotes (`conv3x3_core.cuh`), and of the flags, so a changed
 source or header is rebuilt and an unchanged one is reused.
 
-Nothing here runs at import time: the first CUDA launch of a kernel calls
-`load_library(name)`. `build()` starts one `nvcc` per source at once, for a
-caller that wants every kernel ready before its first launch. The CPU paths
-never reach this module.
+The runtime's two host libraries (`runtime/native/framering.cpp`, the frame
+ring, and `y4m.cpp`, the Y4M demuxer; no device code) are built the same way
+by one `g++` call each (`HOST_SIGNATURES`, `GXX_FLAGS`), under the same key
+and into the same directory.
+
+Nothing here runs at import time: the first CUDA launch of a kernel, or the
+first use of a host library, calls `load_library(name)`. `build()` starts one
+compiler per source at once, for a caller that wants every library ready
+before its first use. The CPU paths of the kernels never reach this module.
 """
 
 from __future__ import annotations
@@ -30,11 +35,14 @@ from pathlib import Path
 from typing import Iterable, Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+NATIVE = Path(__file__).resolve().parents[1] / "runtime" / "native"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nu_scaler_tpu_torch"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+# no -march=native: a library built on one host may run on another
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 NVCC_TIMEOUT_S = 300
 # nvcc's messages (-Xptxas=-v: registers, spills, shared memory per kernel) of
 # each library built by this process
@@ -114,10 +122,52 @@ SIGNATURES = {
 }
 
 
+_U8P = ctypes.POINTER(ctypes.c_uint8)
+_U32 = ctypes.c_uint32
+_U64 = ctypes.c_uint64
+
+# The host libraries: each C entry point's (restype, argtypes).
+HOST_SIGNATURES = {
+    "framering": {
+        "nu_ring_create": (_VP, [_U32]),  # capacity
+        "nu_ring_destroy": (None, [_VP]),
+        "nu_ring_push": (None, [_VP, _U8P, _U32, _U32]),  # ring, rgba, width, height
+        # ring, out, max bytes; width, height, truncated (out)
+        "nu_ring_latest": (_INT, [_VP, _U8P, _U64, ctypes.POINTER(_U32), ctypes.POINTER(_U32),
+                                  ctypes.POINTER(_INT)]),
+        "nu_ring_pushed": (_U64, [_VP]),
+        "nu_ring_dropped": (_U64, [_VP]),
+        "nu_bgra_to_rgba": (None, [_U8P, _U8P, _U64]),  # src, dst, pixels
+        "nu_test_pattern": (None, [_U8P, _U32, _U32, _U32]),  # dst, width, height, tick
+    },
+    "y4m": {
+        # path; width, height, fps (out)
+        "nu_y4m_open": (_VP, [ctypes.c_char_p, ctypes.POINTER(_U32), ctypes.POINTER(_U32),
+                              ctypes.POINTER(ctypes.c_double)]),
+        "nu_y4m_next": (_INT, [_VP, _U8P]),  # 1 a frame, 0 the end, -1 a broken stream
+        "nu_y4m_rewind": (None, [_VP]),
+        "nu_y4m_close": (None, [_VP]),
+    },
+}
+
+
+# What building or loading a host library raises: no compiler, a failed or
+# timed-out compile, a library the loader refuses. The runtime records it and
+# serves its pure-Python stand-in.
+HOST_BUILD_ERRORS = (OSError, RuntimeError, subprocess.SubprocessError)
+
+
 def source_path(name: str) -> Path:
+    if name in HOST_SIGNATURES:
+        return NATIVE / f"{name}.cpp"
     if name not in SIGNATURES:
-        raise ValueError(f"unknown kernel library {name!r}; known: {sorted(SIGNATURES)}")
+        raise ValueError(f"unknown kernel library {name!r}; known: "
+                         f"{sorted(SIGNATURES)} and the host libraries {sorted(HOST_SIGNATURES)}")
     return CSRC / f"{name}.cu"
+
+
+def _flags(name: str) -> tuple:
+    return GXX_FLAGS if name in HOST_SIGNATURES else NVCC_FLAGS
 
 
 def find_nvcc() -> Optional[str]:
@@ -129,6 +179,23 @@ def find_nvcc() -> Optional[str]:
         if root and (Path(root) / "bin" / "nvcc").is_file():
             return str(Path(root) / "bin" / "nvcc")
     return None
+
+
+def _compiler(name: str) -> str:
+    """The compiler of a library: g++ for a host library, else nvcc; raises
+    when it is missing."""
+    if name in HOST_SIGNATURES:
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError(f"g++ not found on PATH: the host library {name!r} cannot be built")
+        return gxx
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found on PATH, under $CUDA_HOME or /usr/local/cuda: "
+            "the CUDA kernels cannot be built"
+        )
+    return nvcc
 
 
 _INCLUDE = re.compile(r'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
@@ -152,55 +219,57 @@ def library_path(name: str) -> Path:
     digest = hashlib.sha256()
     for path in source_files(name):
         digest.update(path.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
-def _compile(nvcc: str, name: str) -> float:
-    """One `nvcc` call for one source; returns its seconds. Raises with
-    nvcc's errors if it fails."""
+def _compile(compiler: str, name: str) -> float:
+    """One compiler call for one source; returns its seconds. Raises with
+    the compiler's errors if it fails."""
     out = library_path(name)
     tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
+    cmd = [compiler, *_flags(name), "-o", str(tmp), str(source_path(name))]
+    tool = Path(compiler).name
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=NVCC_TIMEOUT_S)
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (rc {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+        raise RuntimeError(f"{tool} failed (rc {proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
     seconds = time.perf_counter() - t0
     BUILD_LOGS[name] = proc.stderr
-    print(f"nvcc built {out.name} in {seconds:.2f} s", flush=True)
+    print(f"{tool} built {out.name} in {seconds:.2f} s", flush=True)
     if proc.stderr.strip():
         print(proc.stderr.strip(), flush=True)  # -Xptxas=-v: registers, spills, smem
     return seconds
 
 
 def build(names: Iterable[str] = tuple(SIGNATURES)) -> dict:
-    """Compile every named library that is not built yet, one `nvcc` process
-    per source, all started together. Returns {name: seconds} for the ones
-    built; raises with nvcc's errors if any build fails."""
+    """Compile every named library that is not built yet, one compiler
+    process per source, all started together. Returns {name: seconds} for
+    the ones built; raises with the compiler's errors if any build fails."""
     todo = [n for n in names if not library_path(n).is_file()]
     if not todo:
         return {}
-    nvcc = find_nvcc()
-    if nvcc is None:
-        raise RuntimeError(
-            "nvcc not found on PATH, under $CUDA_HOME or /usr/local/cuda: "
-            "the CUDA kernels cannot be built"
-        )
+    compilers = {name: _compiler(name) for name in todo}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with ThreadPoolExecutor(max_workers=len(todo)) as pool:
-        jobs = {name: pool.submit(_compile, nvcc, name) for name in todo}
+        jobs = {name: pool.submit(_compile, compilers[name], name) for name in todo}
     return {name: job.result() for name, job in jobs.items()}
 
 
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load one kernel library, with every function's
-    argtypes and restype declared."""
+    """Build (if needed) and load one kernel or host library, with every
+    function's argtypes and restype declared."""
     build([name])
     lib = ctypes.CDLL(str(library_path(name)))
+    if name in HOST_SIGNATURES:
+        for fn_name, (restype, argtypes) in HOST_SIGNATURES[name].items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        return lib
     for fn_name, argtypes in SIGNATURES[name].items():
         fn = getattr(lib, fn_name)
         fn.argtypes = argtypes

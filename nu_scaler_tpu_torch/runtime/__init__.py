@@ -1,1 +1,2 @@
-"""Frame pipelines of the port."""
+"""Runtime services of the port: frame pipelines, device memory and detection,
+and the native frame ring of the capture stack."""

@@ -17,17 +17,15 @@ from nu_scaler_tpu_torch.bench import harness as pharness
 from nu_scaler_tpu_torch import constants as pconst
 from nu_scaler_tpu_torch.runtime import detector as pdetector
 
-CAPTURE_AND_FACADE = {"PyScreenCapture", "PyCaptureTarget", "PyWindowByTitle", "PyRegion", "NuScaler"}
-
-
-def test_core_exports_all_but_capture_and_facade():
-    """32 of nu_scaler_core's 37 names; the 5 left are item 4's capture
-    classes and the facade."""
-    assert len(pc.__all__) == len(set(pc.__all__)) == 32
-    assert set(pc.__all__) <= set(nsc.__all__)
-    assert set(nsc.__all__) - set(pc.__all__) == CAPTURE_AND_FACADE
+def test_core_exports_all_of_nu_scaler_core():
+    """All 37 of nu_scaler_core's names, in its order, the capture classes
+    and the facade among them, each a class or function of the same name."""
+    assert pc.__all__ == nsc.__all__ and len(set(pc.__all__)) == 37
+    for name in ("PyScreenCapture", "PyCaptureTarget", "PyWindowByTitle", "PyRegion", "NuScaler"):
+        assert getattr(pc, name).__name__ == getattr(nsc, name).__name__ == name
     for name in pc.__all__:
         assert getattr(pc, name) is not None
+    assert pc.__version__ == nsc.__version__
 
 
 @pytest.mark.parametrize("enum_name", ["UpscalingQuality", "UpscalingTechnology", "GpuVendor"])

@@ -30,7 +30,9 @@ def test_import_leaves_jax_side_out():
         "nu_scaler_tpu_torch.runtime.streaming, nu_scaler_tpu_torch.kernels._build, "
         "nu_scaler_tpu_torch.models.esrgan_lite, nu_scaler_tpu_torch.kernels.conv_cuda, "
         "nu_scaler_tpu_torch.kernels.trunk_cuda, "
-        "nu_scaler_tpu_torch.runtime.detector, nu_scaler_tpu_torch.runtime.memory; "
+        "nu_scaler_tpu_torch.runtime.detector, nu_scaler_tpu_torch.runtime.memory, "
+        "nu_scaler_tpu_torch.runtime.framering, nu_scaler_tpu_torch.capture.video, "
+        "nu_scaler_tpu_torch.run; "
         "print('\\n'.join(sys.modules))"
     )
     proc = subprocess.run(
@@ -229,17 +231,19 @@ def test_pyproject_names_every_subpackage(sub):
 
 def test_pyproject_ships_kernel_sources_and_weights():
     """The package data carries every kernel source and header the build
-    reads and every committed weight file."""
+    reads, the host libraries' C++ sources and every committed weight file."""
     from fnmatch import fnmatch
 
     data = _pyproject()["package-data"]
-    shipped = [(p, data.get(pkg, [])) for pkg, root in (("nu_scaler_tpu_torch.kernels", PKG / "kernels"),
-                                                       ("nu_scaler_tpu_torch", PKG))
-               for p in root.rglob("*") if p.is_file() and p.suffix in (".cu", ".cuh", ".npz", ".json")
-               and (root == PKG) == (p.suffix in (".npz", ".json"))]
+    owners = (("nu_scaler_tpu_torch.kernels", PKG / "kernels", (".cu", ".cuh")),
+              ("nu_scaler_tpu_torch.runtime.native", PKG / "runtime" / "native", (".cpp",)),
+              ("nu_scaler_tpu_torch", PKG, (".npz", ".json")))
+    shipped = [(p.relative_to(root).as_posix(), data.get(pkg, []))
+               for pkg, root, suffixes in owners for p in root.rglob("*")
+               if p.is_file() and p.suffix in suffixes]
     assert len(shipped) >= 9
-    for path, globs in shipped:
-        rel = path.relative_to(PKG / "kernels" if path.suffix in (".cu", ".cuh") else PKG).as_posix()
+    assert {rel for rel, _ in shipped} >= {"framering.cpp", "y4m.cpp"}
+    for rel, globs in shipped:
         assert any(fnmatch(rel, g) for g in globs), f"{rel} is not in the package data"
 
 
