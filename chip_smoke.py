@@ -161,6 +161,24 @@ Phases, each printed on its own line with its seconds:
    byte-equal to the port's upscaler on it; nu_scaler.benchmark_app single
    --tech auto at 1080p x2 (through the aliased detector), a result with
    fps > 0. No module of the JAX side may be loaded;
+4k. training (models/train.py, models/data.py, the training half of
+   models/interp_refine.py), at full width, depths cut as TRAIN and
+   REFINE_TRAIN print them, the checkpoints in a temporary CKPT_ROOT: one
+   tpu4b2 x2 train step from the committed 76000 on the card (TF32 switched
+   on around it) against the same step on the CPU (losses within a
+   relative 1e-5, parameters 99.9% within 1e-6 and all within 6·lr); 100
+   steps from a seeded init, the loss falling; the step's device ms and
+   crops/s; eval_vs_lanczos3 of 76000 on the card (6 resample_fused
+   launches) against the CPU (0.05 dB, 1e-3 SSIM); the CLI's 50 steps
+   resumed from the export and its --calibrate --io, the checkpoint served
+   1080p -> 4K by make_serving_fn on 8 conv3x3_q launches, bit-equal to its
+   plain path and >= 42 dB against make_quant_apply; interp_ref4 from
+   112000: a 1080p TripletPool (its mids on soft_warp_blend, its A, B and
+   targets equal to a CPU render), 20 steps, calibrate_scales, and
+   RefineGraph on the trained module, bf16 (4 conv3x3) and int8 (4
+   conv3x3_q), within 2 LSB of the plain convs. No module of the JAX side
+   loaded; nothing written under checkpoints/, the committed weights or
+   checkpoints_torch/;
 5. times: per kernel the median of 20 CUDA-event timings after 3 warm-ups,
    the plain version's time, and the bound (the larger of bytes moved over
    the memory rate and operations over the rate of their type: fp32, or
@@ -186,8 +204,9 @@ Phases, each printed on its own line with its seconds:
 6. torch.profiler traces of 7 fused live steps, of 7 flow_soft live steps,
    of 7 flow_soft_ref live steps, of 7 live 4:2:0 steps, of 7 "flow" and 7 "flow_exact" calls,
    of 7 FSR + flow_soft live steps and of 7 learned x2 upscale_arr calls,
-   with the layered and with the fused trunk, and of 7 calls of phase 4f's
-   stride-2, 720p→4K, ESRGANLite ×2 and stride-8 graphs: the device's busy
+   with the layered and with the fused trunk, of 7 calls of phase 4f's
+   stride-2, 720p→4K, ESRGANLite ×2 and stride-8 graphs, and of 7 train
+   steps each of phase 4k's tpu4b2 and interp_ref4: the device's busy
    share, kernel launches per step and device time by kernel and copy.
 
 The line before the last is the card's name and power limit; the one before
@@ -198,8 +217,10 @@ prints no result.
 
 from __future__ import annotations
 
+import copy
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -280,6 +301,15 @@ RUNGS = (
 )
 RUNG_TWIN_GATE_DB = 40.0  # every rung against its fp32 twin, on the bench frame
 FUSED_TRUNK_GATE_DB = 50.0  # trunk_impl="fused" against "layers", RGB
+# phase 4k, training: the SR trainer's arch, resume step and depths (the
+# widths full; n_clips 12 and pool_size 4096 cut), and the refinement net's
+TRAIN = dict(arch="tpu4b2", step=76000, batch=8, crop=96, n_clips=2, pool_size=512, lr=2e-4)
+LEARN_STEPS = 100  # from a seeded init: the loss must fall
+SERVE_STEPS = 50  # the CLI's leg from the export, then calibrated and served
+TRAIN_TIMED = 20  # CUDA-event timings of one step, after 3 warm-ups
+REFINE_STEP = 112000
+REFINE_TRAIN = dict(n_clips=1, frames_per_clip=4, pool_size=256, steps=20)
+EVAL_GATE = (0.05, 1e-3)  # eval_vs_lanczos3 card vs CPU: dB, SSIM
 T_START = time.perf_counter()
 
 
@@ -600,6 +630,26 @@ def fsr_work(torch, fc, src, s: int, sharp: float) -> tuple[int, int]:
     return px_in * 4 * (1 + s * s), ops
 
 
+class Launches:
+    """Reads the kernels' launches one call at a time: each call sets the
+    wrappers' counts to 0 just before `fn` and reads them just after it;
+    `total` sums them over the calls."""
+
+    def __init__(self, torch, counters) -> None:
+        self.torch, self.counters, self.total = torch, counters, {}
+
+    def __call__(self, fn):
+        """(fn's result, the launches it made, by kernel)."""
+        for c in self.counters:
+            c.reset_launches()
+        result = fn()
+        self.torch.cuda.synchronize()
+        got = {k: v for c in self.counters for k, v in c.launches.items()}
+        for k, v in got.items():
+            self.total[k] = self.total.get(k, 0) + v
+        return result, got
+
+
 def app_on_the_port(torch, clip_frames, wv, wh, card) -> dict:
     """Phase 4j: the app (nu_scaler/), unmodified, on the port through the
     launcher's finder (`nu_scaler_tpu_torch.run.serve_port`), in this
@@ -657,19 +707,7 @@ def app_on_the_port(torch, clip_frames, wv, wh, card) -> dict:
     from nu_scaler_tpu_torch.kernels import soft_warp_cuda as swc
     from nu_scaler_tpu_torch.kernels import trunk_cuda as tc
 
-    counters = (rc, swc, fc, cc, tc)
-    total: dict = {}
-
-    def launches_of(fn):
-        """(fn's result, the launches it made, by kernel)."""
-        for c in counters:
-            c.reset_launches()
-        result = fn()
-        torch.cuda.synchronize()
-        got = {k: v for c in counters for k, v in c.launches.items()}
-        for k, v in got.items():
-            total[k] = total.get(k, 0) + v
-        return result, got
+    launches_of = Launches(torch, (rc, swc, fc, cc, tc))
 
     def app(module: str, *args: str) -> tuple[int, str]:
         """Run one module of the app; (its exit code, what it printed)."""
@@ -843,7 +881,272 @@ def app_on_the_port(torch, clip_frames, wv, wh, card) -> dict:
         else:
             os.environ["XDG_DATA_HOME"] = xdg
         tmp.cleanup()
-    return total
+    return launches_of.total
+
+
+def training_on_the_card(torch, card, dev, frame, pair) -> tuple[dict, dict]:
+    """Phase 4k: the port's training on the card, at full width, with the
+    depths TRAIN and REFINE_TRAIN state, its checkpoints written into a
+    temporary CKPT_ROOT and served through the port's kernels:
+
+    - (a) the SR trainer, tpu4b2 x2 (128 features, 2 blocks, stride 4) on a
+      `PairPool` of video-path crops: one step from the committed 76000 on
+      the card (with TF32 switched on around it, as a user's process may
+      have it: the step keeps fp32 itself) and on the CPU on the same batch,
+      the losses within a relative 1e-5 and every parameter within the CPU
+      tests' bound (99.9% within 1e-6, all within 6·lr); 100 steps from a
+      seeded init, the mean loss of the last 10 below the first 10's; the
+      step's device ms (median of TRAIN_TIMED CUDA-event timings after 3
+      warm-ups) and crops/s; `evaluate` (eval_vs_lanczos3) of the committed
+      76000 on the card and on the CPU within EVAL_GATE; the CLI's training
+      (resumed from the export, saved at 76050 with Adam's state) and its
+      --calibrate --io; the checkpoint through `load_model(...,
+      directory=)` and `make_serving_fn(..., quant_scales=)` at 1080p -> 4K:
+      8 conv3x3_q launches, bit-equal to the same graph on the plain
+      versions and >= 42 dB against `make_quant_apply` (phase 4d's
+      "quality" x2 gates);
+    - (b) the refinement net, interp_ref4 (128 features, 1 block) from the
+      committed 112000: a `TripletPool` at 1080p, its mids on the soft warp
+      kernel, its A, B and target crops equal to a CPU render of the same
+      seed; 20 steps into CKPT_ROOT/interp_ref4, `calibrate_scales` into its
+      sidecar; `RefineGraph` on the trained module at 1080p, bf16 (4 conv3x3)
+      and int8 (4 conv3x3_q), each within REFINE_MAX_LSB of the same graph
+      on the plain versions; the step's device ms;
+    - (c) no module of the JAX side loaded; nothing written under
+      checkpoints/, nu_scaler_tpu_torch/weights/ or checkpoints_torch/.
+
+    Returns (the launches of the phase by kernel, {tag: (fn, arg)}: the SR
+    and refinement train steps for phase 6's traces)."""
+    import tempfile
+    from pathlib import Path
+
+    from nu_scaler_tpu_torch.kernels import conv_cuda as cc
+    from nu_scaler_tpu_torch.kernels import resample_cuda as rc
+    from nu_scaler_tpu_torch.kernels import soft_warp_cuda as swc
+    from nu_scaler_tpu_torch.models import data as pdata
+    from nu_scaler_tpu_torch.models import esrgan_lite as pel
+    from nu_scaler_tpu_torch.models import interp_refine as pir
+    from nu_scaler_tpu_torch.models import train as ptrain
+    from nu_scaler_tpu_torch.ops import interpolate as interp
+
+    launches_of = Launches(torch, (rc, swc, cc))
+
+    def step_ms(step, batch) -> float:
+        """The median of TRAIN_TIMED CUDA-event timings of one step after 3
+        warm-ups, in ms."""
+        for _ in range(3):
+            step(*batch)
+        times = []
+        for _ in range(TRAIN_TIMED):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            step(*batch)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        return float(np.median(times))
+
+    def param_diffs(a, b) -> tuple[float, float]:
+        d = torch.cat([(p.detach().cpu() - q.detach().cpu()).abs().flatten()
+                       for p, q in zip(a.parameters(), b.parameters())])
+        return float((d <= 1e-6).float().mean()), float(d.max())
+
+    root = Path(__file__).resolve().parent
+    guarded = (root / "checkpoints", pel.WEIGHTS_DIR, root / "checkpoints_torch")
+
+    def listing() -> dict:
+        return {str(d): sorted((p.relative_to(d).as_posix(), p.stat().st_mtime_ns) for p in d.rglob("*"))
+                if d.exists() else None for d in guarded}
+
+    before = listing()
+    t = TRAIN
+    lr = t["lr"]
+    report = {"reduced": {"sr": {"n_clips": f"{t['n_clips']} of 12", "pool_size": f"{t['pool_size']} of 4096",
+                                 "learn_steps": LEARN_STEPS, "serve_steps": SERVE_STEPS},
+                          "refine": {"n_clips": f"{REFINE_TRAIN['n_clips']} of 12",
+                                     "frames_per_clip": f"{REFINE_TRAIN['frames_per_clip']} of 8",
+                                     "pool_size": f"{REFINE_TRAIN['pool_size']} of 4096",
+                                     "steps": REFINE_TRAIN["steps"]}}, "card": card}
+    say("training depths cut (widths full): " + json.dumps(report["reduced"]))
+    tmp = tempfile.TemporaryDirectory(prefix="nu_scaler_4k_")
+    ckpt_root = ptrain.CKPT_ROOT
+    ptrain.CKPT_ROOT = Path(tmp.name)
+    try:
+        # (a) the SR trainer: the pool, then one step on the card and the CPU
+        rng = np.random.default_rng(SEED)
+        pool = pdata.PairPool(rng, scale=2, crop=t["crop"], n_clips=t["n_clips"], pool_size=t["pool_size"])
+        lrs, hrs = torch.from_numpy(pool.lrs).to(dev), torch.from_numpy(pool.hrs).to(dev)
+
+        def draw():
+            idx = torch.from_numpy(rng.integers(0, t["pool_size"], size=t["batch"])).to(dev)
+            return lrs[idx], hrs[idx]
+
+        batch = draw()
+        steps, losses = {}, {}
+        for where in ("card", "cpu"):
+            model, step0, own = ptrain.load_latest(t["arch"], 1)
+            check(step0 == t["step"] and not own, f"{t['arch']} resumes from step {step0}")
+            d = dev if where == "card" else torch.device("cpu")
+            model.to(d)
+            steps[where] = (model, pel.make_train_step(model, pel.adam(model, lr), "l1"))
+        # TF32 on around the card's step, as a user's process may have it
+        # (PyTorch's own defaults allow it for cuDNN): the step keeps fp32
+        tf32 = (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32)
+        torch.set_float32_matmul_precision("high")
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            (_, _, losses["card"]), got = launches_of(lambda: steps["card"][1](*batch))
+        finally:
+            torch.set_float32_matmul_precision(tf32[0])
+            torch.backends.cudnn.allow_tf32 = tf32[1]
+        _, _, losses["cpu"] = steps["cpu"][1](*(x.cpu() for x in batch))
+        rel = abs(float(losses["card"]) - float(losses["cpu"])) / float(losses["cpu"])
+        within, max_d = param_diffs(steps["card"][0], steps["cpu"][0])
+        report["parity"] = {"loss_card": float(losses["card"]), "loss_cpu": float(losses["cpu"]),
+                            "loss_rel": rel, "params_within_1e-6": within, "params_max_abs_diff": max_d,
+                            "launches": got}
+        say(f"4k parity, one tpu4b2 x2 step from {t['step']}, card (TF32 on outside the step) vs CPU [{card}]: "
+            + json.dumps(report["parity"]))
+        check(rel <= 1e-5, f"train step loss: card vs CPU relative {rel:.3g}")
+        check(within >= 0.999 and max_d <= 6 * lr, f"train step params: {within:.6f} within 1e-6, max {max_d:.3g}")
+        check(sum(got.values()) == 0, f"the train step launched a kernel: {got}")
+
+        # it learns: 100 steps from a seeded init
+        fresh = ptrain.make_model(t["arch"], 1, seed=SEED).to(dev)
+        learn = pel.make_train_step(fresh, pel.adam(fresh, lr), "l1")
+        seen = []
+        t0 = time.perf_counter()
+        for _ in range(LEARN_STEPS):
+            seen.append(learn(*draw())[2])
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / LEARN_STEPS
+        seen = [float(v) for v in seen]
+        first, last = float(np.mean(seen[:10])), float(np.mean(seen[-10:]))
+        ms = step_ms(learn, draw())
+        report["learn"] = {"first10_mean_loss": first, "last10_mean_loss": last, "host_ms_per_step": host_ms,
+                           "step_device_ms": ms, "crops_per_s": t["batch"] / ms * 1e3}
+        say(f"4k tpu4b2 x2 from a seeded init, {LEARN_STEPS} steps, batch {t['batch']} x {t['crop']}^2 "
+            f"[{card}]: " + json.dumps(report["learn"]))
+        check(last < first, f"the loss did not fall: {first:.5f} -> {last:.5f}")
+
+        # the held-out eval of the committed checkpoint, card vs CPU
+        scores, got = launches_of(lambda: ptrain.evaluate(1, t["arch"]))
+        cpu_scores = ptrain.evaluate(1, t["arch"], device="cpu")
+        report["eval"] = {"card": scores, "cpu": cpu_scores, "launches": got}
+        say(f"4k eval_vs_lanczos3 {t['arch']}@{t['step']} [{card}]: psnr_delta_db {scores['psnr_delta_db']:.4f} "
+            f"(CPU {cpu_scores['psnr_delta_db']:.4f}); " + json.dumps(report["eval"]))
+        check(got["resample_fused"] == 6, f"eval launches {got}")
+        for k in scores:
+            bound = EVAL_GATE[0] if k.endswith("_db") else EVAL_GATE[1]
+            check(abs(scores[k] - cpu_scores[k]) <= bound, f"eval {k}: card {scores[k]} vs CPU {cpu_scores[k]}")
+
+        # the CLI: train (resumed from the export), calibrate, then serve
+        args = ["--arch", t["arch"], "--steps", str(SERVE_STEPS), "--clips", str(t["n_clips"]),
+                "--pool", str(t["pool_size"])]
+        code, got = launches_of(lambda: ptrain.main(args))
+        saved = t["step"] + SERVE_STEPS
+        stem = f"esrgan_{t['arch']}_x2_{saved}"
+        names = sorted(p.name for p in Path(tmp.name).iterdir())
+        check(code == 0 and names == [f"{stem}.json", f"{stem}.npz", f"{stem}_opt.pt"], f"the CLI wrote {names}")
+        check(ptrain.main(["--arch", t["arch"], "--calibrate", "--io"]) == 0, "--calibrate failed")
+        model, meta = pel.load_model(t["arch"], 2, directory=tmp.name)
+        scales = pel.load_act_scales(t["arch"], 2, directory=tmp.name)
+        check(meta["step"] == saved and scales and scales["head"] == scales["base"] == 1.0,
+              f"the checkpoint's sidecar: step {meta['step']}, scales {scales}")
+        committed = pel.load_model(t["arch"], 2)[0]
+        moved = max(float((p - q).abs().max()) for p, q in zip(model.parameters(), committed.parameters()))
+        check(moved > 0, "the CLI's training moved no parameter")
+        serving = pel.make_serving_fn(model, IN_H, IN_W, OUT_H, OUT_W, dev, quant_scales=scales)
+        check(isinstance(serving, pel.FusedServing) and serving.quantized and serving.convs_per_frame == 8,
+              f"serving {type(serving).__name__}, {serving.convs_per_frame} convs")
+        x = torch.from_numpy(frame[None]).to(dev)
+        out, got = launches_of(lambda: serving(x)[0].cpu().numpy())
+        plain = pel.make_serving_fn_fused(model, IN_H, IN_W, dev, conv=cc.conv3x3_plain, quant_scales=scales,
+                                          conv_q=cc.conv3x3_q_plain)(x)[0].cpu().numpy()
+        x01 = torch.from_numpy(frame[None, ..., :3].astype(np.float32) / 255.0).to(dev)
+        twin = pel.make_quant_apply(model, scales)(x01)[0]
+        twin = torch.clamp(torch.round(twin * 255.0), 0, 255).to(torch.uint8).cpu().numpy()
+        report["serve"] = {"step": saved, "max_param_moved": moved, "scales": scales, "launches": got,
+                           "vs_plain_path_equal": float((out == plain).mean()), "vs_plain_path_db": psnr(out, plain),
+                           "alpha_equal": bool(np.array_equal(out[..., 3], plain[..., 3])),
+                           "vs_int8_twin_db": psnr(out, twin)}
+        say(f"4k the trained {t['arch']} x2 checkpoint served 1080p -> 4K on conv3x3_q [{card}]: "
+            + json.dumps(report["serve"]))
+        check(got["conv3x3_q"] == 8 and got["conv3x3"] == 0, f"serving launches {got}")
+        check(out.shape == (OUT_H, OUT_W, 4) and report["serve"]["vs_plain_path_equal"] == 1.0,
+              "the trained int8 graph is not bit-equal to its plain path")
+        check(report["serve"]["vs_int8_twin_db"] >= INT8_LEARNED[0][6],
+              f"vs the int8-grid twin: {report['serve']['vs_int8_twin_db']:.2f} dB")
+
+        # (b) the refinement net: its pool at 1080p, then a leg from 112000
+        r = REFINE_TRAIN
+        frng = np.random.default_rng(SEED)
+        tpool, got = launches_of(lambda: pir.TripletPool(frng, n_clips=r["n_clips"],
+                                                         frames_per_clip=r["frames_per_clip"],
+                                                         pool_size=r["pool_size"], height=IN_H, width=IN_W,
+                                                         device=dev))
+        check(got["soft_warp_blend"] == r["frames_per_clip"] - 2, f"pool mids' launches {got}")
+        clip = pdata.clip_through_video_path(pdata.render_clip(IN_H, IN_W, seed=100, frames=r["frames_per_clip"]))
+        replay = np.random.default_rng(SEED)
+        for i in range(r["pool_size"]):  # the pool's draws: triplet, y, x
+            k = replay.integers(0, r["frames_per_clip"] - 2)
+            y, x_ = replay.integers(0, IN_H - 96 + 1), replay.integers(0, IN_W - 96 + 1)
+            sl = np.s_[y: y + 96, x_: x_ + 96, :3]
+            check(np.array_equal(tpool.xs[i, ..., :6],
+                                 np.concatenate([clip[k][sl], clip[k + 2][sl]], -1).astype(np.float32) / 255.0)
+                  and np.array_equal(tpool.ys[i], clip[k + 1][sl].astype(np.float32) / 255.0),
+                  f"pool entry {i}: A, B or target differ from the CPU render")
+        loss, got = launches_of(lambda: pir.train(steps=r["steps"], n_clips=r["n_clips"],
+                                                  frames_per_clip=r["frames_per_clip"], pool_size=r["pool_size"],
+                                                  height=IN_H, width=IN_W, log_every=10))
+        check(got["soft_warp_blend"] == r["frames_per_clip"] - 2 and got["conv3x3"] == 0, f"refine leg {got}")
+        rmodel, rstep = pir.load_checkpoint()
+        check(rstep == REFINE_STEP + r["steps"], f"the refinement leg saved step {rstep}")
+        rscales = pir.calibrate_scales(rmodel, crops=tpool.xs)
+        pir.save_act_scales(rscales, rstep)
+        check(pir.load_act_scales() is None and pir.load_model()[1]["step"] == REFINE_STEP,
+              "the serving net saw the trained checkpoint")
+        a, b = pair
+        soft_mid = interp.soft_interp_fast(a, b, 0.5)
+        committed_mid = pir.get_refine_graph(IN_H, IN_W, dev)(a, b, soft_mid).cpu().numpy()
+        report["refine"] = {"final_loss": loss, "step": rstep, "scales": rscales}
+        for tag, q in (("bf16", None), ("int8", rscales)):
+            graph = pir.RefineGraph(rmodel, IN_H, IN_W, dev, quant_scales=q)
+            ker, got = launches_of(lambda: graph(a, b, soft_mid).cpu().numpy())
+            plain = pir.RefineGraph(rmodel, IN_H, IN_W, dev, conv=cc.conv3x3_plain, quant_scales=q,
+                                    conv_q=cc.conv3x3_q_plain)(a, b, soft_mid).cpu().numpy()
+            report["refine"][tag] = {"launches": got, "vs_plain_convs_db": psnr(ker, plain),
+                                     "vs_plain_convs_max_lsb": lsb(ker, plain),
+                                     "alpha_equal": bool(np.array_equal(ker[..., 3], plain[..., 3])),
+                                     "vs_committed_net_max_lsb": lsb(ker, committed_mid)}
+            want = {"conv3x3": 4, "conv3x3_q": 0} if q is None else {"conv3x3": 0, "conv3x3_q": 4}
+            check(all(got[k] == v for k, v in want.items()), f"refine graph {tag} launches {got}")
+            check(report["refine"][tag]["vs_plain_convs_max_lsb"] <= REFINE_MAX_LSB
+                  and report["refine"][tag]["alpha_equal"], f"refine graph {tag}: {report['refine'][tag]}")
+        rm = copy.deepcopy(rmodel).to(dev)
+        ridx = torch.from_numpy(np.random.default_rng(1).integers(0, r["pool_size"], size=t["batch"])).to(dev)
+        xs, ys = torch.from_numpy(tpool.xs).to(dev), torch.from_numpy(tpool.ys).to(dev)
+        refine_step = pel.make_step(rm, pel.adam(rm, lr), lambda xb, yb: pir.refine_loss(rm, xb, yb))
+        rms = step_ms(refine_step, (xs[ridx], ys[ridx]))
+        traced = {"train_tpu4b2_x2_step": (lambda b_: learn(*b_), draw()),
+                  "train_interp_ref4_step": (lambda b_: refine_step(*b_), (xs[ridx], ys[ridx]))}
+        report["refine"]["step_device_ms"] = rms
+        report["refine"]["crops_per_s"] = t["batch"] / rms * 1e3
+        say(f"4k interp_ref4 from {REFINE_STEP}, {r['steps']} steps at 1080p, then its graphs [{card}]: "
+            + json.dumps(report["refine"]))
+
+        # (c) no module of the JAX side; nothing written outside CKPT_ROOT
+        jax_dirs = (str(root / "nu_scaler_tpu") + os.sep, str(root / "nu_scaler_core") + os.sep)
+        jax_side = [n for n, m in list(sys.modules.items())
+                    if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax")
+                    or (getattr(m, "__file__", None) or "").startswith(jax_dirs)]
+        check(not jax_side, f"modules of the JAX side loaded: {jax_side}")
+    finally:
+        ptrain.CKPT_ROOT = ckpt_root
+        tmp.cleanup()
+    check(listing() == before, "phase 4k wrote under checkpoints/, the committed weights or checkpoints_torch/")
+    say(f"training on the card [{card}]: launches {json.dumps(launches_of.total)}")
+    return launches_of.total, traced
 
 
 def main() -> int:
@@ -2324,6 +2627,11 @@ def main() -> int:
         # read on its own
         j4_counts = app_on_the_port(torch, live_in, wv, wh, card)
 
+    with Phase("4k training"):
+        # the port's trainers at full width on the card, their checkpoints
+        # in a temporary CKPT_ROOT, served through the port's kernels
+        k4_counts, train_steps = training_on_the_card(torch, card, dev, learned_in[2], (on_dev["a"], on_dev["b"]))
+
     with Phase("5 times"):
         flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
         tables = 4 * (OUT_H * (1 + lz.kv) + OUT_W * (1 + lz.kh))
@@ -2359,7 +2667,7 @@ def main() -> int:
         }
         rows = []
         launched = {name: counts[name] + flow_counts.get(name, 0) + g4_counts.get(name, 0)
-                    + h4_counts.get(name, 0) + j4_counts.get(name, 0) for name in counts}
+                    + h4_counts.get(name, 0) + j4_counts.get(name, 0) + k4_counts.get(name, 0) for name in counts}
         for name, (kernel, plain, n, n_ts) in cases.items():
             b_ms, b_by = bound(n, n_ts)
             ms, plain_ms = time_ms(torch, kernel, flush), time_ms(torch, plain, flush)
@@ -2433,8 +2741,9 @@ def main() -> int:
             "name": "soft_warp_blend", "route": "cuda", "source": SOFT_SOURCE,
             "replaces": REPLACES["soft_warp_blend"],
             "launches": flow_counts["soft_warp_blend"] + h4_counts["soft_warp_blend"]
-            + j4_counts["soft_warp_blend"],
+            + j4_counts["soft_warp_blend"] + k4_counts["soft_warp_blend"],
             "launches_flow_soft_ref": h4_counts["soft_warp_blend"], "launches_app": j4_counts["soft_warp_blend"],
+            "launches_training": k4_counts["soft_warp_blend"],
             "max_abs_err": errs["soft_warp_blend"], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "ptxas": soft_regs,
             # no single PyTorch call computes the 4-corner candidate blend
@@ -2570,7 +2879,8 @@ def main() -> int:
         main = conv_ms[main_shape]
         rows.append({
             "name": "conv3x3", "route": "cuda", "source": CONV_SOURCE, "replaces": REPLACES["conv3x3"],
-            "launches": learned_counts["conv3x3"] + h4_counts["conv3x3"] + j4_counts["conv3x3"],
+            "launches": learned_counts["conv3x3"] + h4_counts["conv3x3"] + j4_counts["conv3x3"]
+            + k4_counts["conv3x3"], "launches_training": k4_counts["conv3x3"],
             "max_abs_err": errs["conv3x3"], **main,
             # phase 4h: the refinement net's convs (4 a refined mid) and their times
             "launches_flow_soft_ref": h4_counts["conv3x3"], "refinement_shapes": refine_conv_ms,
@@ -2620,8 +2930,9 @@ def main() -> int:
                           "bound_by": b_by}
         rows.append({
             "name": "conv3x3_q", "route": "cuda", "source": CONV_SOURCE, "replaces": REPLACES["conv3x3_q"],
-            "launches": int8_launches + j4_counts["conv3x3_q"], "max_abs_err": errs["conv3x3_q"],
-            "launches_app": j4_counts["conv3x3_q"],
+            "launches": int8_launches + j4_counts["conv3x3_q"] + k4_counts["conv3x3_q"],
+            "max_abs_err": errs["conv3x3_q"],
+            "launches_app": j4_counts["conv3x3_q"], "launches_training": k4_counts["conv3x3_q"],
             **q_ms[f"x2 block 1x{th2}x{tw2} 128->128"],
             "inputs": f"the committed tpu4b2 block0.conv2 int8 weights on quantised activations, "
                       f"1x{th2}x{tw2}x128 -> 128 (the quality x2 trunk grid)",
@@ -2766,6 +3077,10 @@ def main() -> int:
         busy = trace_calls(torch, s8_graphs["stride8 fused"][0], src8, 7,
                            Path(_build.BUILD_DIR) / "rung_stride8_trace.json")
         say(f"trace every rung [stride8 fused] [{card}]: " + json.dumps(busy))
+        # phase 4k's train steps: where a step's time goes
+        for tag, (fn, arg) in train_steps.items():
+            busy = trace_calls(torch, fn, arg, 7, Path(_build.BUILD_DIR) / f"{tag}_trace.json")
+            say(f"trace {tag} [{card}]: " + json.dumps(busy))
 
     say(f"total {time.perf_counter() - T_START:.1f} s")
     say(json.dumps({"kernels": rows}))

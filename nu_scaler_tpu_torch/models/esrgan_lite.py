@@ -1,5 +1,8 @@
 """ESRGAN-lite, the learned tier — the port of
-`nu_scaler_tpu/models/esrgan_lite.py` (its serving paths).
+`nu_scaler_tpu/models/esrgan_lite.py`: its serving paths and its training
+half (at the end: the seeded flax-distributed init, the L1 and L1 + gradient
+losses, the Adam step in fp32, the int8 calibration), which
+`models/train.py` drives.
 
 `ESRGANLiteTPU` is the network as an `nn.Module` in the [0, 1] domain: a
 space-to-depth(stride) front end, a head conv, residual blocks
@@ -47,13 +50,16 @@ zero-padded once at load (`conv_cuda.pad_weights`), which is exact.
 
 Weights and int8 scales come from the files under
 `nu_scaler_tpu_torch/weights/`, written from the orbax checkpoints (and
-ESRGANLite's seed-0 initialisations) by `tools/export_torch_weights.py`.
+ESRGANLite's seed-0 initialisations) by `tools/export_torch_weights.py`; the
+loaders take a `directory` for the checkpoints the port's trainer writes in
+that format (`write_weights`, `models/train.py` `CKPT_ROOT`).
 `make_pretrained_upscaler` walks JAX's ladder (`_build_pretrained`,
 `:591-649`) and serves every request the JAX package serves.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import hashlib
@@ -438,34 +444,36 @@ def sidecar_scales(meta: Optional[dict]) -> Optional[dict]:
     return dict(scales) if isinstance(scales, dict) and scales else None
 
 
-def _sidecar(arch: str, upscale: int) -> Optional[dict]:
-    """The JSON sidecar of the newest committed weights of `arch` at
-    `upscale`, or None."""
-    return newest_sidecar(WEIGHTS_DIR, f"esrgan_{arch}_x{upscale}_*.json")
+def _sidecar(arch: str, upscale: int, directory: Path = WEIGHTS_DIR) -> Optional[dict]:
+    """The JSON sidecar of the newest weights of `arch` at `upscale` in
+    `directory` (the committed ones by default), or None."""
+    return newest_sidecar(Path(directory), f"esrgan_{arch}_x{upscale}_*.json")
 
 
-def load_weights(arch: str, upscale: int) -> Optional[tuple[dict, dict]]:
-    """(nested flax-named numpy tree, sidecar metadata) of the committed
-    weights of `arch` at `upscale`, or None when the port carries none. The
-    npz's sha256 must match its sidecar's."""
-    meta = _sidecar(arch, upscale)
+def load_weights(arch: str, upscale: int, directory: Path = WEIGHTS_DIR) -> Optional[tuple[dict, dict]]:
+    """(nested flax-named numpy tree, sidecar metadata) of the newest weights
+    of `arch` at `upscale` in `directory` (the committed ones by default; a
+    trainer's `CKPT_ROOT`), or None when there are none. The npz's sha256
+    must match its sidecar's."""
+    meta = _sidecar(arch, upscale, directory)
     if meta is None:
         return None
-    return read_weights(WEIGHTS_DIR / f"esrgan_{arch}_x{upscale}_{meta['step']}.npz", meta["sha256"]), meta
+    npz = Path(directory) / f"esrgan_{arch}_x{upscale}_{meta['step']}.npz"
+    return read_weights(npz, meta["sha256"]), meta
 
 
-def load_act_scales(arch: str, upscale: int) -> Optional[dict]:
-    """The int8 activation scales of the committed weights of `arch` at
-    `upscale` (`sidecar_scales`), or None."""
-    return sidecar_scales(_sidecar(arch, upscale))
+def load_act_scales(arch: str, upscale: int, directory: Path = WEIGHTS_DIR) -> Optional[dict]:
+    """The int8 activation scales of the newest weights of `arch` at
+    `upscale` in `directory` (`sidecar_scales`), or None."""
+    return sidecar_scales(_sidecar(arch, upscale, directory))
 
 
-def load_model(arch: str, upscale: int) -> Optional[tuple[nn.Module, dict]]:
-    """The fp32 module with the committed weights of `arch` at `upscale`
-    (`ESRGANLite` for "lite", else `ESRGANLiteTPU`, with the sparse base at
-    stride 8 as `_build_pretrained` picks it), and its metadata; None when
-    the port carries no such weights."""
-    loaded = load_weights(arch, upscale)
+def load_model(arch: str, upscale: int, directory: Path = WEIGHTS_DIR) -> Optional[tuple[nn.Module, dict]]:
+    """The fp32 module with the newest weights of `arch` at `upscale` in
+    `directory` (`ESRGANLite` for "lite", else `ESRGANLiteTPU`, with the
+    sparse base at stride 8 as `_build_pretrained` picks it), and its
+    metadata; None when there are no such weights."""
+    loaded = load_weights(arch, upscale, directory)
     if loaded is None:
         return None
     tree, meta = loaded
@@ -476,6 +484,40 @@ def load_model(arch: str, upscale: int) -> Optional[tuple[nn.Module, dict]]:
         model = ESRGANLiteTPU(upscale=upscale, base_impl="sparse" if kw["stride"] == 8 else "conv", **kw)
     model.load_state_dict(params_from_flax(tree))
     return model, meta
+
+
+def flax_arrays(model: nn.Module) -> dict:
+    """The module's parameters as float32 numpy arrays under their flax paths
+    joined by "/" (``head/kernel``, ``block0/conv1/bias``): the layout of the
+    weights' npz files."""
+    return {k.replace(".", "/"): v.detach().cpu().float().numpy() for k, v in model.state_dict().items()}
+
+
+def write_weights(stem: Path, model: nn.Module, meta: dict) -> Path:
+    """`stem`.npz (the module's `flax_arrays`) and its sidecar `stem`.json:
+    `meta`, the parameter count and the npz's sha256 — the format of
+    `tools/export_torch_weights.py`, which `load_weights` reads
+    (`write_sidecar_scales` adds the int8 calibration). Returns the npz's
+    path."""
+    flat = flax_arrays(model)
+    stem = Path(stem)
+    stem.parent.mkdir(parents=True, exist_ok=True)
+    npz = stem.with_suffix(".npz")
+    np.savez(npz, **flat)
+    meta = {**meta, "parameters": int(sum(a.size for a in flat.values())),
+            "sha256": hashlib.sha256(npz.read_bytes()).hexdigest()}
+    stem.with_suffix(".json").write_text(json.dumps(meta, indent=1) + "\n")
+    return npz
+
+
+def write_sidecar_scales(sidecar: Path, scales: dict) -> Path:
+    """Record the int8 calibration `scales` in the JSON sidecar `sidecar`,
+    at the step of its weights, replacing any earlier one."""
+    sidecar = Path(sidecar)
+    meta = json.loads(sidecar.read_text())
+    meta["act_scales"] = {"step": meta["step"], "scales": {k: float(v) for k, v in scales.items()}}
+    sidecar.write_text(json.dumps(meta, indent=1) + "\n")
+    return sidecar
 
 
 def make_twin(model: nn.Module, out_h: int, out_w: int) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -955,3 +997,171 @@ def make_fast_upscaler(in_h: int, in_w: int, out_h: int, out_w: int, device=None
     """The "performance" learned tier (`esrgan_lite.py:525-534`): the fast
     ladder, tpu4b1 first, then the stride-8 trunks, then the quality order."""
     return make_pretrained_upscaler(in_h, in_w, out_h, out_w, "performance", device)
+
+
+# ---------------------------------------------------------------------------
+# training (`esrgan_lite.py:344-389`) and the int8 calibration (`:746-803`)
+# ---------------------------------------------------------------------------
+
+# the std of a standard normal truncated to [-2, 2]: flax's `lecun_normal`
+# divides its std by it, so the truncated draw has variance 1/fan_in
+TRUNCATED_STD = 0.87962566103423978
+
+
+def init_module(model: nn.Module, seed: int = 0) -> nn.Module:
+    """Initialise every 3×3 conv of `model` in place, in module order, with
+    flax's distributions: the kernel `lecun_normal` (a normal of std
+    sqrt(1/fan_in) / `TRUNCATED_STD`, fan_in = 9·Cin, truncated to two of its
+    stds, so its variance is 1/fan_in), the bias zero. The draws come from a
+    `torch.Generator` seeded with `seed`; JAX's PRNG cannot be reproduced, so
+    the values differ from flax's `init` with `PRNGKey(seed)` while the
+    distribution is the same. Returns `model`."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for conv in (m for m in model.modules() if isinstance(m, Conv3x3)):
+            std = (1.0 / (9 * conv.kernel.shape[2])) ** 0.5 / TRUNCATED_STD
+            k = torch.empty(conv.kernel.shape, dtype=torch.float32)
+            nn.init.trunc_normal_(k, 0.0, std, -2.0 * std, 2.0 * std, generator=gen)
+            conv.kernel.copy_(k)
+            conv.bias.zero_()
+    return model
+
+
+def init_params(seed: int = 0, stages: int = 1, features: int = 32, blocks: int = 4) -> ESRGANLite:
+    """A fresh `ESRGANLite` (`init_params`, `esrgan_lite.py:344`), fp32 on
+    the CPU, initialised by `init_module(·, seed)`."""
+    return init_module(ESRGANLite(features=features, blocks=blocks, stages=stages), seed)
+
+
+def l1(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return torch.mean(torch.abs(pred - target))
+
+
+def l1_grad(pred: torch.Tensor, target: torch.Tensor, w: float = 0.5) -> torch.Tensor:
+    """L1 plus the L1 of the differences along H and W (axes 1 and 2 of
+    NHWC), each a mean over all its elements."""
+    gy = l1(pred[:, 1:] - pred[:, :-1], target[:, 1:] - target[:, :-1])
+    gx = l1(pred[:, :, 1:] - pred[:, :, :-1], target[:, :, 1:] - target[:, :, :-1])
+    return l1(pred, target) + w * (gy + gx)
+
+
+def l1_loss(model: nn.Module, lr_batch: torch.Tensor, hr_batch: torch.Tensor) -> torch.Tensor:
+    """`l1_loss` (`esrgan_lite.py:355`): mean |model(lr) − hr|."""
+    return l1(model(lr_batch), hr_batch)
+
+
+def l1_grad_loss(model: nn.Module, lr_batch: torch.Tensor, hr_batch: torch.Tensor,
+                 w: float = 0.5) -> torch.Tensor:
+    """`l1_grad_loss` (`esrgan_lite.py:360`): L1 + w·(the gradient
+    differences' L1), which pushes local structure (SSIM)."""
+    return l1_grad(model(lr_batch), hr_batch, w)
+
+
+def loss_of(kind: str) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
+    """The loss on (prediction, target) a loss name selects: "l1_grad", else
+    L1, as JAX's `make_train_step` picks it."""
+    return l1_grad if kind == "l1_grad" else l1
+
+
+@contextlib.contextmanager
+def fp32_training():
+    """Matmuls and cuDNN in full fp32 inside the block (no TF32 on the card:
+    the forward's tap matmuls and autograd's backward ones alike), as the
+    JAX trainer's fp32 XLA convs; the earlier settings are restored after."""
+    cudnn_tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with conv_cuda.full_fp32_matmul():
+            yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+
+
+def adam(model: nn.Module, lr: float) -> torch.optim.Optimizer:
+    """Make `model`'s parameters trainable (serving modules keep them
+    frozen) and return Adam over them with `optax.adam`'s constants:
+    lr·m̂/(√v̂ + 1e-8), β = (0.9, 0.999), the step counted from 1."""
+    params = list(model.parameters())
+    for p in params:
+        p.requires_grad_(True)
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+
+
+def make_step(model: nn.Module, optimizer: torch.optim.Optimizer,
+              loss_fn: Callable[..., torch.Tensor]) -> Callable[..., tuple]:
+    """step(*batch) → (model, optimizer, loss): `loss_fn(*batch)` forward and
+    backward under `fp32_training`, then one optimizer step, in place. The
+    loss comes back detached, on the device."""
+
+    def step(*batch):
+        with fp32_training():
+            optimizer.zero_grad(set_to_none=True)
+            lv = loss_fn(*batch)
+            lv.backward()
+            optimizer.step()
+        return model, optimizer, lv.detach()
+
+    return step
+
+
+def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, loss: str = "l1"):
+    """`make_train_step` (`esrgan_lite.py:379`): step(lr_batch, hr_batch) →
+    (model, optimizer, loss), the L1 or L1 + gradient loss ("l1_grad") of
+    the module's fp32 forward (its convs `conv_cuda.conv3x3_f32`, nine tap
+    matmuls), autograd's gradients and one Adam step (`adam`)."""
+    fn = loss_of(loss)
+    return make_step(model, optimizer, lambda lr_b, hr_b: fn(model(lr_b), hr_b))
+
+
+def amax(t: torch.Tensor) -> float:
+    return float(torch.max(torch.abs(t)))
+
+
+def conv_f32(x: torch.Tensor, conv: Conv3x3) -> torch.Tensor:
+    """`conv` in fp32 on x's device, whatever the module's dtype and device:
+    the calibrations' conv (JAX's `conv_f`)."""
+    k, b = conv.kernel.to(x.device), conv.bias.to(x.device)
+    return conv_cuda.conv3x3_f32(x, k) + b.float()
+
+
+def calibrate_trunk_scales(model: ESRGANLiteTPU, lr_batch) -> dict:
+    """Per-conv-input activation maxima of the int8 trunk (`esrgan_lite.py:746`),
+    in the [0, 1] domain of the fp32 forward, on the module's device.
+    `lr_batch`: f32 RGB [N, h, w, 3] in [0, 1] (an array or a tensor) from
+    training clips (seeds 100..), never the held-out 900+. Returns
+    {"block{i}/conv1": amax, "block{i}/conv2": …, "trunk": …, "tail": …}."""
+    x = torch.as_tensor(lr_batch, dtype=torch.float32, device=model.head.kernel.device)
+    scales: dict = {}
+    with torch.no_grad():
+        feat = conv_f32(_s2d(x, model.stride), model.head)
+        h = feat
+        for i, blk in enumerate(model.res_blocks()):
+            scales[f"block{i}/conv1"] = amax(h)
+            t1 = torch.relu(conv_f32(h, blk.conv1))
+            scales[f"block{i}/conv2"] = amax(t1)
+            h = h + 0.2 * conv_f32(t1, blk.conv2)
+        scales["trunk"] = amax(h)
+        h = conv_f32(h, model.trunk) + feat
+        scales["tail"] = amax(h)
+    return scales
+
+
+def default_trunk_scales(model: ESRGANLiteTPU, n_clips: int = 4) -> dict:
+    """`calibrate_trunk_scales` on crops of the training clips (seeds 100..)
+    through the video path, two frames a clip, cropped with
+    `default_rng(7)` (`default_trunk_scales`, `esrgan_lite.py:784`)."""
+    from nu_scaler_tpu_torch.models.data import clip_through_video_path, render_clip
+
+    crops = []
+    rng = np.random.default_rng(7)
+    sc = model.upscale  # LR = HR / upscale, the serving input's domain
+    # clips are 288×512: the crop capped so HR fits and LR stays stride-divisible
+    lr_c = min(96, 288 // sc // model.stride * model.stride)
+    hr_c = lr_c * sc
+    for seed in range(100, 100 + n_clips):
+        for f in clip_through_video_path(render_clip(seed=seed, frames=2)):
+            y = rng.integers(0, f.shape[0] - hr_c + 1)
+            x = rng.integers(0, f.shape[1] - hr_c + 1)
+            hr = f[y: y + hr_c, x: x + hr_c, :3].astype(np.float32) / 255.0
+            crops.append(hr.reshape(lr_c, sc, lr_c, sc, 3).mean(axis=(1, 3)))
+    return calibrate_trunk_scales(model, np.stack(crops))

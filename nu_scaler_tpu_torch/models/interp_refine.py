@@ -1,5 +1,7 @@
 """The learned MC-interpolation refinement — the port of
-`nu_scaler_tpu/models/interp_refine.py` (its serving paths): a small
+`nu_scaler_tpu/models/interp_refine.py`, its serving paths and (at the end)
+its training half: `TripletPool`, `train`, the named checkpoints under
+`models/train.py`'s `CKPT_ROOT`, `calibrate_scales`, `eval_refine_float`. A small
 phase-domain conv net that reads (A, B, the flow_soft mid) and predicts a
 residual correction to the mid, the net of interpolation mode
 "flow_soft_ref".
@@ -46,6 +48,8 @@ absence is a fault, not JAX's fallback to plain flow_soft.
 from __future__ import annotations
 
 import functools
+import time
+from pathlib import Path
 from typing import Callable, Optional
 
 import numpy as np
@@ -61,10 +65,18 @@ from nu_scaler_tpu_torch.models.esrgan_lite import (
     _d2s,
     _quant_kernel_i8,
     _s2d,
+    adam,
+    amax,
+    conv_f32,
+    fp32_training,
+    init_module,
+    make_step,
     newest_sidecar,
     params_from_flax,
     read_weights,
     sidecar_scales,
+    write_sidecar_scales,
+    write_weights,
 )
 
 NET = "interp_ref4"  # the serving net; its wide teacher is not carried
@@ -332,3 +344,268 @@ def refine_mid(a_u8: torch.Tensor, b_u8: torch.Tensor, mid_u8: torch.Tensor, dev
     if h % STRIDE or w % STRIDE:
         return mid_u8
     return get_refine_graph(h, w, device)(a_u8, b_u8, mid_u8)
+
+
+# ---------------------------------------------------------------------------
+# training (`interp_refine.py:64-390`)
+# ---------------------------------------------------------------------------
+
+
+def make_model(features: int = 128, blocks: int = 1, seed: int = 0) -> InterpRefine:
+    """A fresh fp32 `InterpRefine` on the CPU, initialised with flax's
+    distributions by `esrgan_lite.init_module(·, seed)` (JAX's `make_model`
+    inits with `PRNGKey(0)`; its values cannot be reproduced)."""
+    return init_module(InterpRefine(features=features, blocks=blocks), seed)
+
+
+def _ckpt_dir(name: str = NET) -> Path:
+    """The checkpoints of the net `name`: `train.CKPT_ROOT`/<name>/, beside
+    the SR tier's (`interp_refine.py:73`). Serving reads only the committed
+    weights (`_sidecar`), never this directory."""
+    from nu_scaler_tpu_torch.models import train
+
+    return Path(train.CKPT_ROOT) / name
+
+
+def save_checkpoint(model: InterpRefine, step: int, name: str = NET) -> Path:
+    """`_ckpt_dir(name)`/{name}_{step}.npz and its sidecar (the committed
+    weights' format: net, model kwargs, step, sha256). Returns the npz."""
+    meta = {"net": name, "model": dict(features=model.features, blocks=model.blocks, stride=model.stride),
+            "step": step}
+    return write_weights(_ckpt_dir(name) / f"{name}_{step}", model, meta)
+
+
+def load_checkpoint(name: str = NET) -> Optional[tuple[InterpRefine, int]]:
+    """(fp32 module, step) of the newest checkpoint of `name` under
+    `_ckpt_dir(name)`, or None."""
+    meta = newest_sidecar(_ckpt_dir(name), f"{name}_*.json")
+    if meta is None:
+        return None
+    model = InterpRefine(**meta["model"])
+    model.load_state_dict(params_from_flax(read_weights(_ckpt_dir(name) / f"{name}_{meta['step']}.npz",
+                                                        meta["sha256"])))
+    return model, int(meta["step"])
+
+
+def load_latest(name: str = NET) -> Optional[tuple[InterpRefine, int]]:
+    """The newest checkpoint of `name`, else for the serving net its
+    committed weights (a fresh module: the cached `load_model` one is never
+    modified), else None."""
+    restored = load_checkpoint(name)
+    if restored is None and name == NET and refine_available():
+        tree, meta = load_weights()
+        model = InterpRefine(**meta["model"])
+        model.load_state_dict(params_from_flax(tree))
+        restored = model, int(meta["step"])
+    return restored
+
+
+def save_act_scales(scales: dict, step: int, name: str = NET) -> Path:
+    """Record the int8 activation scales in the sidecar of the checkpoint
+    `name` at `step` (step-gated, as `sidecar_scales` reads them)."""
+    return write_sidecar_scales(_ckpt_dir(name) / f"{name}_{step}.json", scales)
+
+
+class TripletPool:
+    """Pre-rendered (A, B, production mid, target) crop pool: `xs` f32
+    [pool_size, crop, crop, 9] (A, B, mid RGB in [0, 1]) and `ys` f32
+    [pool_size, crop, crop, 3] (the true frame), on the host.
+
+    The clips render at the serving size (1080p by default) through the
+    video path; the mids come from the production soft warp on the full
+    frame (`ops.interpolate.soft_interp_fast`, the `soft_warp_blend` kernel
+    on the card), then are cropped, so the net trains on the artefacts it
+    must fix when it serves. Training seeds 100.. stay disjoint from the
+    900+ eval seeds. `factors`: frame-rate factors (2: t = 0.5; 3 adds pairs
+    three frames apart at t = 1/3, 2/3). `sources`, round-robin per clip:
+    "native" renders at (height, width), "down4k" at twice that, then the
+    port's "area" `make_resampler` on `device`. The draws from `rng` (crop
+    triplet, y, x per entry) follow JAX's order (`interp_refine.py:198`)."""
+
+    def __init__(self, rng: np.random.Generator, crop: int = 96, n_clips: int = 12, frames_per_clip: int = 8,
+                 pool_size: int = 4096, seed0: int = 100, height: int = 1080, width: int = 1920,
+                 factors: tuple = (2,), sources: tuple = ("native",), device=None) -> None:
+        from nu_scaler_tpu_torch.models.data import clip_through_video_path, render_clip
+        from nu_scaler_tpu_torch.ops.interpolate import soft_interp_fast
+        from nu_scaler_tpu_torch.ops.resample import make_resampler
+
+        dev = resolve_device(device)
+        triplets = []  # (A, B, mid, target) full frames, u8 RGBA
+        for c in range(n_clips):
+            if sources[c % len(sources)] == "down4k":
+                down = make_resampler(2 * height, 2 * width, height, width, "area", dev)
+                big = render_clip(2 * height, 2 * width, seed=seed0 + c, frames=frames_per_clip)
+                clip = clip_through_video_path([down(f).cpu().numpy() for f in big])
+            else:
+                clip = clip_through_video_path(render_clip(height, width, seed=seed0 + c, frames=frames_per_clip))
+            for f in factors:
+                # stride 1: overlapping pairs
+                for k in range(0, len(clip) - f):
+                    a, b = clip[k], clip[k + f]
+                    at, bt = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+                    for j in range(1, f):
+                        mid = soft_interp_fast(at, bt, j / f).cpu().numpy()
+                        triplets.append((a, b, mid, clip[k + j]))
+        xs = np.empty((pool_size, crop, crop, 9), np.float32)
+        ys = np.empty((pool_size, crop, crop, 3), np.float32)
+        for i in range(pool_size):
+            a, b, mid, tgt = triplets[rng.integers(0, len(triplets))]
+            y = rng.integers(0, a.shape[0] - crop + 1)
+            x = rng.integers(0, a.shape[1] - crop + 1)
+            sl = np.s_[y: y + crop, x: x + crop, :3]
+            xs[i] = np.concatenate([a[sl], b[sl], mid[sl]], axis=-1).astype(np.float32) / 255.0
+            ys[i] = tgt[sl].astype(np.float32) / 255.0
+        self.xs, self.ys = xs, ys
+
+
+def refine_loss(model: InterpRefine, xb: torch.Tensor, yb: torch.Tensor,
+                teacher: Optional[InterpRefine] = None, distill_w: float = 0.5) -> torch.Tensor:
+    """The refinement step's loss (`interp_refine.py:350-358`): mean |mid +
+    net(A, B, mid) − target|, plus with a frozen `teacher` distill_w · mean
+    |pred − (mid + teacher(A, B, mid))|, the teacher out of the graph."""
+    mid = xb[..., 6:9]
+    pred = mid + model(xb)
+    loss = torch.mean(torch.abs(pred - yb))
+    if teacher is not None:
+        with torch.no_grad():
+            t_pred = mid + teacher(xb)
+        loss = loss + distill_w * torch.mean(torch.abs(pred - t_pred))
+    return loss
+
+
+def train(steps: int = 8000, batch: int = 8, lr: float = 2e-4, seed: int = 0, crop: int = 96, n_clips: int = 12,
+          pool_size: int = 4096, log_every: int = 100, save: bool = True, height: int = 1080, width: int = 1920,
+          factors: tuple = (2,), sources: tuple = ("native",), features: int = 128, blocks: int = 1,
+          name: str = NET, distill: Optional[tuple] = None, distill_w: float = 0.5, device=None,
+          frames_per_clip: int = 8) -> float:
+    """One training leg of the refinement net `name` on `device` (the card
+    unless "cpu"); returns the final loss. Resumes from `load_latest(name)`
+    (the committed weights for the serving net), else a fresh
+    `make_model(features, blocks)`; `distill` = (teacher name, features,
+    blocks) adds distill_w·|student − frozen teacher|. The pool
+    (`TripletPool`) moves to the device once and each step takes only its
+    indices, drawn from the same generator after the pool's crops
+    (`frames_per_clip`, JAX's fixed 8, may cut the pool's depth). Saves at
+    start + steps under `_ckpt_dir(name)`; no optimizer state is kept, as
+    JAX keeps none for this net."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    start = 0
+    restored = load_latest(name)
+    model = make_model(features, blocks)
+    if restored is not None:
+        model.load_state_dict(restored[0].state_dict())
+        start = restored[1]
+        print(f"resumed {name} from step {start}", flush=True)
+    model.to(dev)
+
+    teacher = None
+    if distill is not None:
+        t_name, t_features, t_blocks = distill
+        t_restored = load_checkpoint(t_name)
+        if t_restored is None:
+            raise ValueError(f"no teacher checkpoint {t_name!r}")
+        teacher = t_restored[0].to(dev)
+        if (teacher.features, teacher.blocks) != (int(t_features), int(t_blocks)):
+            raise ValueError(f"teacher {t_name!r} is {teacher.features}/{teacher.blocks}, "
+                             f"not {t_features}/{t_blocks}")
+        print(f"distilling from {t_name}@{t_restored[1]} (w={distill_w})", flush=True)
+
+    opt = adam(model, lr)
+    step_fn = make_step(model, opt, lambda xb, yb: refine_loss(model, xb, yb, teacher, distill_w))
+
+    print("rendering triplet pool (production soft-warp mids)...", flush=True)
+    pool = TripletPool(rng, crop=crop, n_clips=n_clips, frames_per_clip=frames_per_clip, pool_size=pool_size,
+                       height=height, width=width, factors=factors, sources=sources, device=dev)
+    pool_x, pool_y = torch.from_numpy(pool.xs).to(dev), torch.from_numpy(pool.ys).to(dev)
+
+    loss = torch.tensor(float("nan"))
+    t0 = time.time()
+    for s in range(steps):
+        idx = torch.from_numpy(rng.integers(0, pool.xs.shape[0], size=batch)).to(dev)
+        model, opt, loss = step_fn(pool_x[idx], pool_y[idx])
+        if s % log_every == 0:
+            print(f"step {s:5d}  loss {float(loss):.5f}  ({time.time() - t0:.1f}s)", flush=True)
+    print(f"final loss {float(loss):.5f}", flush=True)
+    if save:
+        print(f"checkpoint: {save_checkpoint(model, start + steps, name)}", flush=True)
+    return float(loss)
+
+
+def calibrate_scales(model: Optional[InterpRefine] = None, crops=None, n_clips: int = 4, pool_size: int = 256,
+                     height: int = 1080, width: int = 1920, include_head: bool = True, device=None) -> dict:
+    """Per-conv-input activation maxima of the int8 graph (`interp_refine.py:138`),
+    in the [0, 1] domain of the fp32 forward, on `device`: on `crops` [N, h,
+    w, 9], else on a `TripletPool` of the training seeds drawn with
+    `default_rng(7)`. `model` defaults to `load_latest()`. Returns {"head"
+    (with `include_head`), "block{i}/conv1", "block{i}/conv2", "tail"}."""
+    dev = resolve_device(device)
+    if model is None:
+        restored = load_latest()
+        if restored is None:
+            raise ValueError(f"no {NET} checkpoint")
+        model = restored[0]
+    if crops is None:
+        crops = TripletPool(np.random.default_rng(7), crop=96, n_clips=n_clips, pool_size=pool_size,
+                            height=height, width=width, device=dev).xs
+    x = torch.as_tensor(crops, dtype=torch.float32, device=dev)
+    scales: dict = {}
+    with torch.no_grad():
+        s2d = _s2d(x, model.stride)
+        if include_head:
+            scales["head"] = amax(s2d)
+        h = conv_f32(s2d, model.head)
+        for i, blk in enumerate(model.res_blocks()):
+            scales[f"block{i}/conv1"] = amax(h)
+            t1 = torch.relu(conv_f32(h, blk.conv1))
+            scales[f"block{i}/conv2"] = amax(t1)
+            h = h + 0.2 * conv_f32(t1, blk.conv2)
+        scales["tail"] = amax(h)
+    return scales
+
+
+def eval_refine_float(name: str = NET, features: int = 128, blocks: int = 1, seeds=(900, 901, 902),
+                      frames: int = 5, height: int = 1080, width: int = 1920, device=None) -> dict:
+    """Held-out mid-frame quality of the named net (`load_latest(name)`)
+    through its fp32 forward (mid + net(A, B, mid), rounded to u8) against
+    the production soft warp (`interp_refine.py:389`), on `device`: odd
+    frames from their even neighbours, seeds 900+."""
+    from nu_scaler_tpu_torch.models.data import held_out_mids
+    from nu_scaler_tpu_torch.ops.interpolate import make_interpolator
+    from nu_scaler_tpu_torch.ops.metrics import psnr, ssim
+
+    dev = resolve_device(device)
+    restored = load_latest(name)
+    if restored is None:
+        raise ValueError(f"no checkpoint {name!r}")
+    model, step = restored
+    if (model.features, model.blocks) != (features, blocks):
+        raise ValueError(f"{name!r} is {model.features}/{model.blocks}, not {features}/{blocks}")
+    model.to(dev)
+    apply_fn = make_apply(model)
+    soft_fn = make_interpolator(height, width, "flow_soft", dev)
+    soft_p, soft_s, ref_p, ref_s = [], [], [], []
+    for a, b, truth in held_out_mids(seeds, frames, height, width):
+        at, bt = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+        soft_t = soft_fn(at, bt, 0.5)
+        x01 = [t[None, ..., :3].float() / 255.0 for t in (at, bt, soft_t)]
+        with torch.no_grad(), fp32_training():
+            pred = apply_fn(*x01)[0]
+        soft = soft_t.cpu().numpy()
+        refined = np.dstack([torch.clamp(torch.round(pred * 255.0), 0, 255).to(torch.uint8).cpu().numpy(),
+                             soft[..., 3:]])
+        soft_p.append(psnr(soft, truth))
+        soft_s.append(ssim(soft, truth))
+        ref_p.append(psnr(refined, truth))
+        ref_s.append(ssim(refined, truth))
+    out = {
+        "name": name, "step": step,
+        "soft_psnr_db": float(np.mean(soft_p)), "soft_ssim": float(np.mean(soft_s)),
+        "ref_psnr_db": float(np.mean(ref_p)), "ref_ssim": float(np.mean(ref_s)),
+        "psnr_delta_db": float(np.mean(ref_p) - np.mean(soft_p)),
+        "ssim_delta": float(np.mean(ref_s) - np.mean(soft_s)),
+    }
+    print(f"{name}@{step}: {out['ref_psnr_db']:.2f} dB / {out['ref_ssim']:.4f} SSIM vs soft "
+          f"{out['soft_psnr_db']:.2f} / {out['soft_ssim']:.4f} (Δ {out['psnr_delta_db']:+.2f} dB / "
+          f"{out['ssim_delta']:+.4f})", flush=True)
+    return out

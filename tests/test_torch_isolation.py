@@ -17,7 +17,7 @@ from nu_scaler_tpu_torch.kernels import _build
 from nu_scaler_tpu_torch.ops import resample
 
 PKG = Path(nu_scaler_tpu_torch.__file__).resolve().parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "nu_scaler_tpu", "nu_scaler_core")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "nu_scaler_tpu", "nu_scaler_core")
 
 
 def _forbidden(name: str) -> bool:
@@ -32,7 +32,7 @@ def test_import_leaves_jax_side_out():
         "nu_scaler_tpu_torch.kernels.trunk_cuda, "
         "nu_scaler_tpu_torch.runtime.detector, nu_scaler_tpu_torch.runtime.memory, "
         "nu_scaler_tpu_torch.runtime.framering, nu_scaler_tpu_torch.capture.video, "
-        "nu_scaler_tpu_torch.run; "
+        "nu_scaler_tpu_torch.run, nu_scaler_tpu_torch.models.train, nu_scaler_tpu_torch.models.data; "
         "print('\\n'.join(sys.modules))"
     )
     proc = subprocess.run(
@@ -42,6 +42,23 @@ def test_import_leaves_jax_side_out():
     assert proc.returncode == 0, proc.stderr
     loaded = [m for m in proc.stdout.split() if _forbidden(m)]
     assert loaded == []
+
+
+def test_training_writes_only_under_its_own_root():
+    """The trainers' CKPT_ROOT (checkpoints_torch/ at the root of the
+    checkout) lies outside the JAX package's checkpoints/ and the port's
+    committed weights, and .gitignore lists it; the refinement net's named
+    checkpoints live under it."""
+    from nu_scaler_tpu_torch.models import esrgan_lite, interp_refine, train
+
+    root = PKG.parent
+    ckpt = Path(train.CKPT_ROOT).resolve()
+    assert ckpt == root / "checkpoints_torch"
+    for other in (root / "checkpoints", esrgan_lite.WEIGHTS_DIR.resolve()):
+        assert not ckpt.is_relative_to(other) and not other.is_relative_to(ckpt)
+    assert interp_refine._ckpt_dir("t").parent == ckpt
+    ignored = [ln.strip().rstrip("/") for ln in (root / ".gitignore").read_text().splitlines()]
+    assert ckpt.name in ignored
 
 
 def test_no_source_imports_jax_side():
