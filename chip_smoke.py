@@ -179,6 +179,21 @@ Phases, each printed on its own line with its seconds:
    conv3x3_q), within 2 LSB of the plain convs. No module of the JAX side
    loaded; nothing written under checkpoints/, the committed weights or
    checkpoints_torch/;
+4l. the mesh (parallel/mesh.py) at full width on MESH_SHARDS shards that
+   share cuda:0, and on every card when more than one is visible (the mesh
+   printed on its own line), each call's launches read on its own (the
+   kernel once a shard) and its result byte-equal to one call on the card:
+   upscale_batch_sharded lanczos3 and fsr_batch_sharded quality, 1080p->4K
+   N = 6; interpolate_batch_sharded flow_soft and flow_soft_ref on 4 bench
+   pairs; esrgan_batch_sharded "quality" x2, N = 4; upscale_frame_spatial
+   1080p->4K (also >= 50 dB against the float64 golden); fsr_frame_spatial;
+   interpolate_frame_spatial flow_soft at levels=4 and flow_soft_ref on 2
+   shards; interpolate_multi_spatial at (1/3, 2/3); esrgan_infer_spatial of
+   the committed tpu4b2 x2 at 540p (fp32 and its int8 twin) on 3 shards;
+   PyWgpuUpscaler.upscale_batch and the learned upscale_batch through the
+   mesh branch. CUDA-event times of sharded calls beside the single calls
+   (shards on one card only add launches: no speed claim). What one card
+   cannot check: the copies between cards;
 5. times: per kernel the median of 20 CUDA-event timings after 3 warm-ups,
    the plain version's time, and the bound (the larger of bytes moved over
    the memory rate and operations over the rate of their type: fp32, or
@@ -310,6 +325,11 @@ TRAIN_TIMED = 20  # CUDA-event timings of one step, after 3 warm-ups
 REFINE_STEP = 112000
 REFINE_TRAIN = dict(n_clips=1, frames_per_clip=4, pool_size=256, steps=20)
 EVAL_GATE = (0.05, 1e-3)  # eval_vs_lanczos3 card vs CPU: dB, SSIM
+# phase 4l, the mesh: shards of the virtual mesh on cuda:0, the dp batch (6:
+# padded to 8), the dp pairs, the sp flow_soft_ref mesh (1080 / 4 rows is no
+# multiple of the net's stride) and the esrgan_infer_spatial mesh (540p: H
+# must divide by the shards x the stride 4)
+MESH_SHARDS, MESH_BATCH, MESH_PAIRS, MESH_REFINE_SHARDS, MESH_SR_SHARDS = 4, 6, 4, 2, 3
 T_START = time.perf_counter()
 
 
@@ -334,6 +354,22 @@ class Phase:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(msg)
+
+
+def set_tf32(torch, on: bool) -> tuple:
+    """TF32 on or off for cuBLAS matmuls and cuDNN convs through the
+    per-backend switches only (mixing them with the legacy ``allow_tf32``
+    ones makes PyTorch's global getters raise); returns the earlier values
+    for `restore_tf32`."""
+    old = (torch.backends.cuda.matmul.fp32_precision, torch.backends.cudnn.conv.fp32_precision)
+    value = "tf32" if on else "ieee"
+    torch.backends.cuda.matmul.fp32_precision = value
+    torch.backends.cudnn.conv.fp32_precision = value
+    return old
+
+
+def restore_tf32(torch, old: tuple) -> None:
+    torch.backends.cuda.matmul.fp32_precision, torch.backends.cudnn.conv.fp32_precision = old
 
 
 def gradient_pattern(width: int, height: int) -> np.ndarray:
@@ -890,7 +926,10 @@ def training_on_the_card(torch, card, dev, frame, pair) -> tuple[dict, dict]:
     temporary CKPT_ROOT and served through the port's kernels:
 
     - (a) the SR trainer, tpu4b2 x2 (128 features, 2 blocks, stride 4) on a
-      `PairPool` of video-path crops: one step from the committed 76000 on
+      `PairPool` of video-path crops: a 512x512 fp32 matmul with TF32
+      switched on through the per-backend switches (recorded: whether it
+      differs from fp32) and inside `conv_cuda.full_fp32_matmul` (equal to
+      fp32: the switch cuBLAS follows is the one it sets); one step from the committed 76000 on
       the card (with TF32 switched on around it, as a user's process may
       have it: the step keeps fp32 itself) and on the CPU on the same batch,
       the losses within a relative 1e-5 and every parameter within the CPU
@@ -989,16 +1028,28 @@ def training_on_the_card(torch, card, dev, frame, pair) -> tuple[dict, dict]:
             d = dev if where == "card" else torch.device("cpu")
             model.to(d)
             steps[where] = (model, pel.make_train_step(model, pel.adam(model, lr), "l1"))
+        # which switch cuBLAS follows: a matmul with TF32 switched on through
+        # the per-backend switch, and inside full_fp32_matmul, against fp32
+        mat = torch.from_numpy(np.random.default_rng(1).random((512, 512), np.float32)).to(dev)
+        mat_fp32 = mat @ mat
+        tf32 = set_tf32(torch, True)
+        try:
+            mat_tf32 = mat @ mat
+            with cc.full_fp32_matmul():
+                mat_kept = mat @ mat
+        finally:
+            restore_tf32(torch, tf32)
+        report["tf32_switch"] = {"tf32_on_differs_from_fp32": not torch.equal(mat_tf32, mat_fp32),
+                                 "full_fp32_matmul_equals_fp32": bool(torch.equal(mat_kept, mat_fp32))}
+        say(f"4k TF32 switches [{card}]: " + json.dumps(report["tf32_switch"]))
+        check(report["tf32_switch"]["full_fp32_matmul_equals_fp32"], "full_fp32_matmul let TF32 through")
         # TF32 on around the card's step, as a user's process may have it
         # (PyTorch's own defaults allow it for cuDNN): the step keeps fp32
-        tf32 = (torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32)
-        torch.set_float32_matmul_precision("high")
-        torch.backends.cudnn.allow_tf32 = True
+        tf32 = set_tf32(torch, True)
         try:
             (_, _, losses["card"]), got = launches_of(lambda: steps["card"][1](*batch))
         finally:
-            torch.set_float32_matmul_precision(tf32[0])
-            torch.backends.cudnn.allow_tf32 = tf32[1]
+            restore_tf32(torch, tf32)
         _, _, losses["cpu"] = steps["cpu"][1](*(x.cpu() for x in batch))
         rel = abs(float(losses["card"]) - float(losses["cpu"])) / float(losses["cpu"])
         within, max_d = param_diffs(steps["card"][0], steps["cpu"][0])
@@ -1149,6 +1200,176 @@ def training_on_the_card(torch, card, dev, frame, pair) -> tuple[dict, dict]:
     return launches_of.total, traced
 
 
+def mesh_on_the_card(torch, card, dev, frames, golden_a, frame540) -> tuple[dict, dict]:
+    """Phase 4l: the mesh functions (nu_scaler_tpu_torch/parallel/mesh.py) at
+    full width on a mesh of MESH_SHARDS shards that all sit on `dev` (and
+    on every card, when more than one is visible), each call's launches read
+    on its own and each result byte-equal to the port's single-device path
+    on the card:
+
+    - dp: upscale_batch_sharded lanczos3 1080p->4K and fsr_batch_sharded
+      quality, N = MESH_BATCH (one batched launch a shard);
+      interpolate_batch_sharded flow_soft and flow_soft_ref on MESH_PAIRS
+      bench pairs (one soft warp a pair, four convs a refined pair);
+      esrgan_batch_sharded "quality" x2, N = 4 (8 conv3x3_q a frame);
+    - sp: upscale_frame_spatial 1080p->4K (also >= PSNR_GATE_DB against the
+      float64 golden), fsr_frame_spatial quality 1080p->4K,
+      interpolate_frame_spatial flow_soft at levels=4 and flow_soft_ref on
+      MESH_REFINE_SHARDS shards, interpolate_multi_spatial at (1/3, 2/3),
+      esrgan_infer_spatial of the committed tpu4b2 x2 at 540p (the fp32
+      module and its int8 twin) on MESH_SR_SHARDS shards;
+    - the API: PyWgpuUpscaler.upscale_batch and the learned upscale_batch
+      (create_advanced_upscaler("ultra"), "quality" ladder) through the mesh
+      branch (default_mesh patched to the mesh), equal to one card's bytes;
+    - CUDA-event times of sharded calls beside the single calls (no speed
+      claim: shards on one card only add launches).
+
+    Returns (the launches of the phase by kernel, the times)."""
+    from nu_scaler_tpu_torch.core import PyWgpuUpscaler, create_advanced_upscaler
+    from nu_scaler_tpu_torch.kernels import conv_cuda as cc
+    from nu_scaler_tpu_torch.kernels import fsr_cuda as fc
+    from nu_scaler_tpu_torch.kernels import resample_cuda as rc
+    from nu_scaler_tpu_torch.kernels import soft_warp_cuda as swc
+    from nu_scaler_tpu_torch.kernels import trunk_cuda as tc
+    from nu_scaler_tpu_torch.models import esrgan_lite as pel
+    from nu_scaler_tpu_torch.models import interp_refine as pir
+    from nu_scaler_tpu_torch.ops import fsr as pfsr
+    from nu_scaler_tpu_torch.ops import resample
+    from nu_scaler_tpu_torch.parallel import mesh as pmesh
+
+    launches_of = Launches(torch, (rc, swc, fc, cc, tc))
+    meshes = {"virtual": pmesh.Mesh((dev,) * MESH_SHARDS)}
+    if torch.cuda.device_count() > 1:
+        meshes["cards"] = pmesh.make_mesh()
+    for tag, m in meshes.items():
+        say(f"mesh {tag}: {m!r}")
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    batch = np.stack([np.roll(frames["a"], 16 * i, axis=1) for i in range(MESH_BATCH)])
+    batch_dev = torch.from_numpy(batch).to(dev)
+    pairs_a = batch[:MESH_PAIRS]
+    pairs_b = np.stack([np.roll(f, 16, axis=1) for f in pairs_a])
+    a_dev, b_dev = (torch.from_numpy(frames[k]).to(dev) for k in ("a", "b"))
+    report, times = {}, {}
+
+    def same(tag: str, got, want, launched: dict, want_launches: dict) -> None:
+        eq = bool(got.shape == want.shape and torch.equal(got, want))
+        report[tag] = {"byte_equal": eq, "launches": {k: v for k, v in launched.items() if v}}
+        check(eq, f"mesh {tag}: not byte-equal to the single-device path")
+        check(all(launched.get(k, 0) == v for k, v in want_launches.items()),
+              f"mesh {tag}: launches {launched}, want {want_launches}")
+
+    up_single = resample.make_resampler(IN_H, IN_W, OUT_H, OUT_W, "lanczos3", dev)
+    fsr_single = pfsr.make_fsr_upscaler(IN_H, IN_W, OUT_H, OUT_W, "quality", dev)
+    refine_graph = pir.get_refine_graph(IN_H, IN_W, dev)
+    for tag, m in meshes.items():
+        n = len(m)
+        # dp
+        out, got = launches_of(lambda: pmesh.upscale_batch_sharded(batch, OUT_H, OUT_W, "lanczos3", m))
+        same(f"{tag} upscale_batch_sharded", out, up_single(batch_dev), got, {"resample_fused_batched": n})
+        out, got = launches_of(lambda: pmesh.fsr_batch_sharded(batch, OUT_H, OUT_W, "quality", m))
+        same(f"{tag} fsr_batch_sharded", out, fsr_single(batch_dev), got, {"fsr_batched": n})
+        for mode in ("flow_soft", "flow_soft_ref"):
+            refine = refine_graph if mode == "flow_soft_ref" else None
+            out, got = launches_of(lambda: pmesh.interpolate_batch_sharded(pairs_a, pairs_b, 0.5, mode, m))
+            want = torch.stack([pmesh.pair_mid(torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev),
+                                               0.5, mode, 2, refine) for x, y in zip(pairs_a, pairs_b)])
+            per = -(-MESH_PAIRS // n) * n  # the padded batch
+            same(f"{tag} interpolate_batch_sharded {mode}", out, want, got,
+                 {"soft_warp_blend": per, "conv3x3": 4 * per if refine is not None else 0})
+        learned = batch[:4]
+        out, got = launches_of(lambda: pmesh.esrgan_batch_sharded(learned, OUT_H, OUT_W, m, "quality"))
+        want = pel.make_pretrained_batch_upscaler(IN_H, IN_W, OUT_H, OUT_W, "quality", dev)(learned)
+        same(f"{tag} esrgan_batch_sharded quality x2", out, want, got, {"conv3x3_q": 8 * (-(-4 // n) * n)})
+        # sp
+        out, got = launches_of(lambda: pmesh.upscale_frame_spatial(frames["a"], OUT_H, OUT_W, "lanczos3", m))
+        same(f"{tag} upscale_frame_spatial", out, up_single(a_dev), got, {"resample_fused": n})
+        report[f"{tag} upscale_frame_spatial"]["vs_golden_db"] = db = psnr(out.cpu().numpy(), golden_a)
+        check(db >= PSNR_GATE_DB, f"mesh {tag} upscale_frame_spatial: {db:.2f} dB against the golden")
+        out, got = launches_of(lambda: pmesh.fsr_frame_spatial(frames["a"], OUT_H, OUT_W, "quality", m))
+        same(f"{tag} fsr_frame_spatial", out, fsr_single(a_dev), got, {"fsr": n})
+        out, got = launches_of(lambda: pmesh.interpolate_frame_spatial(frames["a"], frames["b"], 0.5,
+                                                                       "flow_soft", m, levels=4))
+        same(f"{tag} interpolate_frame_spatial flow_soft levels=4", out,
+             pmesh.pair_mid(a_dev, b_dev, 0.5, "flow_soft", 4), got, {"soft_warp_blend": n})
+        ts = (1.0 / 3.0, 2.0 / 3.0)
+        out, got = launches_of(lambda: pmesh.interpolate_multi_spatial(frames["a"], frames["b"], ts,
+                                                                       "flow_soft", m, levels=4))
+        want = torch.stack([pmesh.pair_mid(a_dev, b_dev, t, "flow_soft", 4) for t in ts])
+        same(f"{tag} interpolate_multi_spatial (1/3, 2/3)", out, want, got, {"soft_warp_blend": 2 * n})
+    # sp flow_soft_ref and the learned module on meshes the shapes allow,
+    # of shards on `dev` and, where there are enough, of cards
+    def sized_meshes(n: int) -> dict:
+        out = {f"{n} shards": pmesh.Mesh((dev,) * n)}
+        if "cards" in meshes and torch.cuda.device_count() >= n:
+            out[f"{n} cards"] = pmesh.make_mesh(n)
+        return out
+
+    for tag, m in sized_meshes(MESH_REFINE_SHARDS).items():
+        out, got = launches_of(lambda: pmesh.interpolate_frame_spatial(frames["a"], frames["b"], 0.5,
+                                                                       "flow_soft_ref", m, levels=2))
+        same(f"{tag} interpolate_frame_spatial flow_soft_ref", out,
+             pmesh.pair_mid(a_dev, b_dev, 0.5, "flow_soft_ref", 2, refine_graph), got,
+             {"soft_warp_blend": len(m), "conv3x3": 4 * len(m)})
+    model = pel.load_model("tpu4b2", 2)[0].to(dev)
+    scales = pel.load_act_scales("tpu4b2", 2)
+    x540 = torch.from_numpy(frame540[None, ..., :3].astype(np.float32) / 255.0).to(dev)
+    with torch.no_grad():
+        for kind, fn in (("fp32", model), ("int8 twin", pel.make_quant_apply(model, scales))):
+            want = fn(x540)
+            for tag, m in sized_meshes(MESH_SR_SHARDS).items():
+                out, got = launches_of(lambda: pmesh.esrgan_infer_spatial(
+                    model, x540, m, quant_scales=None if kind == "fp32" else scales))
+                same(f"{tag} esrgan_infer_spatial tpu4b2 x2 540p {kind}", out, want, got, {})
+    # the API's mesh branch: default_mesh patched to the shards on `dev`, and
+    # unpatched where several cards are visible (then it gives them all)
+    classical = PyWgpuUpscaler("ultra", "lanczos3")
+    classical.initialize(IN_W, IN_H, OUT_W, OUT_H)
+    learned_api = create_advanced_upscaler("ultra")
+    learned_api.adaptive_quality = False
+    learned_api.initialize(IN_W, IN_H, OUT_W, OUT_H)
+    check(learned_api._serving_tier == "learned" and learned_api._fn.quantized, "the API's learned tier")
+    api_stack = batch[:4]
+    api_in = [f.tobytes() for f in api_stack]
+    real_default = pmesh.default_mesh
+    for api, up, single, per_shard in (
+        ("PyWgpuUpscaler.upscale_batch", classical, lambda: up_single(api_stack), {"resample_fused_batched": 1}),
+        ("learned upscale_batch", learned_api, lambda: pel.make_pretrained_batch_upscaler(
+            IN_H, IN_W, OUT_H, OUT_W, "quality", dev)(api_stack), {"conv3x3_q": 8}),
+    ):
+        want = [f.tobytes() for f in single().cpu().numpy()]
+        for tag, m in meshes.items():
+            if tag == "virtual":
+                pmesh.default_mesh = lambda device=None: m
+            try:
+                out, got = launches_of(lambda: up.upscale_batch(api_in))
+            finally:
+                pmesh.default_mesh = real_default
+            eq = out == want
+            report[f"{tag} API {api} through the mesh"] = {
+                "byte_equal": eq, "launches": {k: v for k, v in got.items() if v}}
+            check(eq, f"mesh {tag} API {api}: not byte-equal to one card")
+            check(all(got.get(k, 0) == v * len(m) for k, v in per_shard.items()),
+                  f"mesh {tag} API {api}: launches {got}")
+    # CUDA-event times, sharded beside single, inputs on `dev`
+    for tag, m in meshes.items():
+        for case, sharded, single in (
+            (f"dp resample N={MESH_BATCH}", lambda: pmesh.upscale_batch_sharded(batch_dev, OUT_H, OUT_W, "lanczos3", m),
+             lambda: up_single(batch_dev)),
+            ("sp resample", lambda: pmesh.upscale_frame_spatial(a_dev, OUT_H, OUT_W, "lanczos3", m),
+             lambda: up_single(a_dev)),
+            ("sp fsr", lambda: pmesh.fsr_frame_spatial(a_dev, OUT_H, OUT_W, "quality", m),
+             lambda: fsr_single(a_dev)),
+            ("sp flow_soft levels=4",
+             lambda: pmesh.interpolate_frame_spatial(a_dev, b_dev, 0.5, "flow_soft", m, levels=4),
+             lambda: pmesh.pair_mid(a_dev, b_dev, 0.5, "flow_soft", 4)),
+        ):
+            times[f"{tag} {case}"] = {"sharded_ms": time_ms(torch, sharded, flush),
+                                      "single_ms": time_ms(torch, single, flush), "shards": len(m)}
+    say(f"mesh on the card [{card}]: " + json.dumps(report))
+    say(f"mesh times, sharded against one call on {dev} (CUDA events) [{card}]: " + json.dumps(times))
+    return launches_of.total, times
+
+
 def main() -> int:
     import torch
 
@@ -1182,8 +1403,7 @@ def main() -> int:
     from nu_scaler_tpu_torch.utils.tracing import device_timer
 
     # plain versions and goldens in full fp32 / fp64: no TF32 anywhere
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_tf32(torch, False)
 
     with Phase("1 card"):
         kind = torch.cuda.get_device_name(0)
@@ -1656,11 +1876,11 @@ def main() -> int:
         # and with TF32 allowed (the flow stage uses no matmul or convolution)
         cpu_tiles = interp.flow_tiles_fast(torch.from_numpy(frames["a"]), torch.from_numpy(frames["b"]))
         gates["flow_tiles_card_vs_cpu_px"] = float((tiles.cpu() - cpu_tiles).abs().max())
-        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        tf32 = set_tf32(torch, True)
         try:
             tf32_tiles = interp.flow_tiles_fast(on_dev["a"], on_dev["b"])
         finally:
-            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+            restore_tf32(torch, tf32)
         gates["flow_tiles_tf32_equal"] = bool(torch.equal(tf32_tiles, tiles))
         gates["mean_tile_motion_px"] = [float(v) for v in tiles.mean(dim=(0, 1)).cpu()]
         say("flow_soft gates: " + json.dumps(gates))
@@ -2632,6 +2852,13 @@ def main() -> int:
         # in a temporary CKPT_ROOT, served through the port's kernels
         k4_counts, train_steps = training_on_the_card(torch, card, dev, learned_in[2], (on_dev["a"], on_dev["b"]))
 
+    with Phase("4l mesh"):
+        # the mesh functions on shards that share the card (and on every card
+        # when several are visible), each byte-equal to one call; the API's
+        # sharded batch branches
+        l4_counts, mesh_times = mesh_on_the_card(torch, card, torch.device("cuda", 0), frames, g["a"],
+                                                 sized["540p"])
+
     with Phase("5 times"):
         flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
         tables = 4 * (OUT_H * (1 + lz.kv) + OUT_W * (1 + lz.kh))
@@ -3082,6 +3309,10 @@ def main() -> int:
             busy = trace_calls(torch, fn, arg, 7, Path(_build.BUILD_DIR) / f"{tag}_trace.json")
             say(f"trace {tag} [{card}]: " + json.dumps(busy))
 
+    # phase 4l's launches join every kernel's count of the main path's run
+    for row in rows:
+        row["launches_mesh"] = l4_counts.get(row["name"], 0)
+        row["launches"] += row["launches_mesh"]
     say(f"total {time.perf_counter() - T_START:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(card)

@@ -22,6 +22,7 @@ from nu_scaler_tpu_torch.device import resolve_device
 from nu_scaler_tpu_torch.models import esrgan_lite as _learned
 from nu_scaler_tpu_torch.ops import fsr as _fsr
 from nu_scaler_tpu_torch.ops import resample as _resample
+from nu_scaler_tpu_torch.parallel import mesh as _mesh
 from nu_scaler_tpu_torch.runtime.detector import device_info
 from nu_scaler_tpu_torch.runtime.memory import AllocationStrategy, MemoryPool, MemoryPressure
 
@@ -149,11 +150,21 @@ class PyWgpuUpscaler:
         return self._fn(arr)
 
     def upscale_batch(self, frames: Iterable[bytes]) -> list[bytes]:
-        """The whole batch as one [N,H,W,4] upload and one batched launch."""
+        """The whole batch as one [N,H,W,4] upload and one batched launch; on
+        a mesh of several cards (`parallel.mesh.default_mesh`), data-parallel
+        over them (`upscale_batch_sharded`, as `nu_scaler_core/upscaler.py:
+        157-163`)."""
         self._check_ready()
         stacked = np.stack([self._to_array(bytes(f)) for f in frames])
-        out = self._fn(stacked).cpu().numpy()
+        out = self._batch(stacked).cpu().numpy()
         return [out[i].tobytes() for i in range(out.shape[0])]
+
+    def _batch(self, stacked: np.ndarray) -> torch.Tensor:
+        mesh = _mesh.default_mesh(self.device)
+        if len(mesh) > 1:
+            return _mesh.upscale_batch_sharded(
+                stacked, self.output_height, self.output_width, self._algorithm, mesh)
+        return self._fn(stacked)
 
     # -- compat knobs -----------------------------------------------------
 
@@ -199,6 +210,11 @@ class PyFsrUpscaler(PyWgpuUpscaler):
             self.input_height, self.input_width, self.output_height, self.output_width,
             self._quality.value, self.device,
         )
+
+    def _batch(self, stacked: np.ndarray) -> torch.Tensor:
+        """One batched launch on this instance's card: the JAX package's FSR
+        tier shards no batch (`nu_scaler_core/upscaler.py:471-479`)."""
+        return self._fn(stacked)
 
 
 def create_fsr_upscaler(quality: str, device=None) -> PyFsrUpscaler:
@@ -297,17 +313,24 @@ class PyAdvancedWgpuUpscaler(PyWgpuUpscaler):
 
     def upscale_batch(self, frames: Iterable[bytes]) -> list[bytes]:
         """The learned tier takes the stacked batch through its graph in one
-        pass (one launch per conv layer); classical tiers take the batched
-        resample launch."""
+        pass (one launch per conv layer), on a mesh of several cards
+        data-parallel over them (`parallel.mesh.esrgan_batch_sharded`, as
+        `nu_scaler_core/upscaler.py:307-312`); classical tiers take the
+        batched resample launch."""
         if self._serving_tier != "learned":
             return super().upscale_batch(frames)
         self._check_ready()
         stacked = np.stack([self._to_array(bytes(f)) for f in frames])
-        bfn = _learned.make_pretrained_batch_upscaler(
-            self.input_height, self.input_width, self.output_height, self.output_width,
-            self.learned_prefer, self.device,
-        )
-        out = bfn(stacked).cpu().numpy()
+        mesh = _mesh.default_mesh(self.device)
+        if len(mesh) > 1:
+            out = _mesh.esrgan_batch_sharded(
+                stacked, self.output_height, self.output_width, mesh, self.learned_prefer)
+        else:
+            out = _learned.make_pretrained_batch_upscaler(
+                self.input_height, self.input_width, self.output_height, self.output_width,
+                self.learned_prefer, self.device,
+            )(stacked)
+        out = out.cpu().numpy()
         if self._adaptive_quality:
             self._update_adaptive_quality()
         return [out[i].tobytes() for i in range(out.shape[0])]

@@ -72,6 +72,7 @@ SIGNATURES = {
             _VP, _VP, _VP, _INT,  # tiles, assign, cand, k
             _INT, _INT, _F32, _F32,  # th, tw, inv_th, inv_tw
             _F32, _F32,  # weight of a, weight of b
+            _INT, _INT,  # row0, rows
             _VP, _VP,  # out, stream
         ],
     },

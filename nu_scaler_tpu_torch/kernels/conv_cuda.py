@@ -78,13 +78,21 @@ def reset_launches() -> None:
 
 @contextlib.contextmanager
 def full_fp32_matmul():
-    """fp32 matmuls in full fp32 (no TF32 on the card) inside the block."""
-    old = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
+    """fp32 matmuls in full fp32 (no TF32 on the card) inside the block: each
+    matmul backend's own switch (`torch.backends.cuda.matmul` and
+    `torch.backends.mkldnn.matmul` ``.fp32_precision``) is set to "ieee" and
+    restored after. The process-wide `torch.get_float32_matmul_precision`
+    is not read: it raises once a process has mixed the legacy
+    ``allow_tf32`` switches with the per-backend ones."""
+    backends = (torch.backends.cuda.matmul, torch.backends.mkldnn.matmul)
+    old = [b.fp32_precision for b in backends]
+    for b in backends:
+        b.fp32_precision = "ieee"
     try:
         yield
     finally:
-        torch.set_float32_matmul_precision(old)
+        for b, value in zip(backends, old):
+            b.fp32_precision = value
 
 
 def conv_valid_f32(xp: torch.Tensor, k: torch.Tensor) -> torch.Tensor:

@@ -54,6 +54,7 @@
 #include <cstdint>
 
 #include "conv3x3_core.cuh"
+#include "device_guard.cuh"
 
 namespace {
 
@@ -136,8 +137,8 @@ int nu_conv3x3_variant(int device, const void* x, const void* k, const void* b, 
       bad_shape(n, h, w, cin, cout, tile_w)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  const DeviceGuard guard(device);
+  if (guard.error != cudaSuccess) return static_cast<int>(guard.error);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tile_w == 16) {
     return stages == 3 ? dispatch<16, 16, 3>(x, k, b, out, n, h, w, cin, cout, relu, round_sum, s)
@@ -161,8 +162,8 @@ int nu_conv3x3_q(int device, const void* x, const void* k, const float* scale, c
   if (scale == nullptr || bad_shape(n, h, w, cin, cout, 16)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  const DeviceGuard guard(device);
+  if (guard.error != cudaSuccess) return static_cast<int>(guard.error);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return relu ? launch<16, 16, 4, true, kQGrid>(x, k, b, scale, out, n, h, w, cin, cout, s)
               : launch<16, 16, 4, false, kQGrid>(x, k, b, scale, out, n, h, w, cin, cout, s);

@@ -82,6 +82,8 @@
 
 #include <utility>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kTileW = 32;  // input columns per block: a warp per tile row
@@ -454,8 +456,8 @@ int nu_fsr(int device, const void* src, int n, int h, int w, int scale, float sh
   if (n < 1 || n > 65535 || h < 1 || w < 1 || scale < 1 || scale > kMaxScale) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  const DeviceGuard guard(device);
+  if (guard.error != cudaSuccess) return static_cast<int>(guard.error);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (scale) {
     case 1: return launch<1>(src, n, h, w, sharp, mix, dst, s);

@@ -70,6 +70,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -489,8 +491,8 @@ int nu_resample_fused(int device, const void* src, int n, int h, int w,
   p.vec_in = (w % 4 == 0) && aligned16(src);
   p.vec_out = (ow % 4 == 0) && aligned16(dst) && (n_ts < 1 || (aligned16(prev) && aligned16(mid0))) &&
               (n_ts < 2 || aligned16(mid1));
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  const DeviceGuard guard(device);
+  if (guard.error != cudaSuccess) return static_cast<int>(guard.error);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (n_ts) {
     case 0:

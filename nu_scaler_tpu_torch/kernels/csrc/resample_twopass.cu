@@ -53,6 +53,8 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "device_guard.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -190,8 +192,8 @@ int nu_resample_vert(int device, const void* src, int n, int h, int w,
                      void* mid, void* stream) {
   const int runs = (oh + kRB - 1) / kRB;
   if (bad_grid(n, runs, w) || h < 1 || wv < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  const DeviceGuard guard(device);
+  if (guard.error != cudaSuccess) return static_cast<int>(guard.error);
   const dim3 grid((w + kThreads - 1) / kThreads, runs, n);
   vert_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(src), h, w, static_cast<const int*>(first_v),
@@ -206,8 +208,8 @@ int nu_resample_horiz(int device, const void* mid, int n, int oh, int w,
                       void* dst, void* stream) {
   const int pairs = (oh + kHR - 1) / kHR;
   if (bad_grid(n, pairs, ow) || w < 1 || wh < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  const DeviceGuard guard(device);
+  if (guard.error != cudaSuccess) return static_cast<int>(guard.error);
   const int groups = (ow + kGW - 1) / kGW;
   const dim3 grid((groups + kThreads - 1) / kThreads, pairs, n);
   horiz_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(

@@ -38,7 +38,8 @@
 //
 // Design. A block of 32 x 8 threads owns one row of cells (blockIdx.y = cy:
 // Ty + 1 of them, the first and last half-height, so no division finds a
-// pixel's cell row) and 128 columns; a thread owns G = 4 adjacent pixels of
+// pixel's cell row; a launch for a band of rows runs the cell rows it
+// touches and writes only its rows) and 128 columns; a thread owns G = 4 adjacent pixels of
 // a row (th > 8: rows ty, ty + 8, ...).
 //  * Once per thread, before the block's one barrier: its group's cell
 //    column (the float reciprocal 1/tw and one exact correction step: no
@@ -61,9 +62,12 @@
 // block waits on its corners, candidates and taps in turn (PERF.md §6).
 //
 // C interface: nu_soft_warp_blend launches on the caller's stream, allocates
-// nothing and returns cudaGetLastError() of the launch.
+// nothing and returns cudaGetLastError() of the launch; it computes a band of
+// output rows (the whole frame, or one shard's rows of the sp mesh path).
 
 #include <cuda_runtime.h>
+
+#include "device_guard.cuh"
 
 namespace {
 
@@ -181,7 +185,7 @@ __device__ __forceinline__ void run_group(const uchar4* __restrict__ a,
                                           const Corners& cn, const int* s_cand,
                                           const float* s_candf, int k, int th, int cy, int lc0,
                                           int c0, float inv_th, float inv_tw, float w_a,
-                                          float w_b, uchar4* out) {
+                                          float w_b, int row0, int row_end, uchar4* out) {
   float fx[G], gx[G];
 #pragma unroll
   for (int j = 0; j < G; ++j) {
@@ -190,7 +194,7 @@ __device__ __forceinline__ void run_group(const uchar4* __restrict__ a,
   }
   for (int lr = threadIdx.y; lr < th; lr += kBlockY) {
     const int r = cy * th - th / 2 + lr;
-    if (r < 0 || r >= h) continue;
+    if (r < row0 || r >= row_end) continue;
     const float fy = __fmul_rn(__fadd_rn(small_to_float(lr), 0.5f), inv_th);
     const float gy = __fsub_rn(1.f, fy);
     // sums start at +0: adding a first term x >= +0 to +0 gives x exactly
@@ -249,7 +253,7 @@ __device__ __forceinline__ void run_group(const uchar4* __restrict__ a,
       const unsigned ba = __byte_perm(pack_round(acc[j].z), pack_round(acc[j].w), 0x0040);
       px[j] = __byte_perm(rg, ba, 0x5410);
     }
-    unsigned* o = reinterpret_cast<unsigned*>(out) + static_cast<size_t>(r) * w + c0;
+    unsigned* o = reinterpret_cast<unsigned*>(out) + static_cast<size_t>(r - row0) * w + c0;
     if constexpr (G == 4) {
       if ((w & 3) == 0) {
         *reinterpret_cast<uint4*>(o) = make_uint4(px[0], px[1], px[2], px[3]);
@@ -265,9 +269,10 @@ __global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocks) soft_warp_kerne
     const uchar4* __restrict__ a, const uchar4* __restrict__ b, int h, int w,
     const float2* __restrict__ tiles, const int* __restrict__ assign,
     const int* __restrict__ cand, int k, int th, int tw, int ty, int tx, float inv_th,
-    float inv_tw, float w_a, float w_b, uchar4* __restrict__ out) {
+    float inv_tw, float w_a, float w_b, int cy0, int row0, int row_end,
+    uchar4* __restrict__ out) {
   const int c0 = (blockIdx.x * kBlockX + threadIdx.x) * kGroup;
-  const int cy = blockIdx.y;
+  const int cy = cy0 + blockIdx.y;
   const int cx = div_small(c0 + tw / 2, tw, inv_tw);
   const int lc0 = c0 + tw / 2 - cx * tw;
   const bool whole = lc0 + kGroup <= tw && c0 + kGroup <= w;
@@ -287,14 +292,15 @@ __global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocks) soft_warp_kerne
 
   if (whole) {
     run_group<kGroup>(a, b, h, w, cn, s_cand, s_candf, k, th, cy, lc0, c0, inv_th, inv_tw, w_a,
-                      w_b, out);
+                      w_b, row0, row_end, out);
     return;
   }
   // the group lies in two cells or crosses the frame's edge: pixel by pixel
   for (int j = 0; j < kGroup && c0 + j < w; ++j) {
     const int cxj = div_small(c0 + j + tw / 2, tw, inv_tw);
     run_group<1>(a, b, h, w, load_corners(tiles, assign, ty, tx, cy, cxj), s_cand, s_candf, k,
-                 th, cy, c0 + j + tw / 2 - cxj * tw, c0 + j, inv_th, inv_tw, w_a, w_b, out);
+                 th, cy, c0 + j + tw / 2 - cxj * tw, c0 + j, inv_th, inv_tw, w_a, w_b, row0,
+                 row_end, out);
   }
 }
 
@@ -302,29 +308,33 @@ __global__ void __launch_bounds__(kBlockX * kBlockY, kMinBlocks) soft_warp_kerne
 
 extern "C" {
 
+// Output rows row0 .. row0 + rows - 1 of the frame (all of it: 0, h) into
+// out [rows, w]; every pixel is computed as in the whole frame's launch.
 // Returns 0 on success, else a cudaError_t code (see nu_cuda_error_string).
 int nu_soft_warp_blend(int device, const void* a, const void* b, int h, int w,
                        const void* tiles, const void* assign, const void* cand, int k,
                        int th, int tw, float inv_th, float inv_tw, float w_a, float w_b,
-                       void* out, void* stream) {
+                       int row0, int rows, void* out, void* stream) {
   // soft_warp_cuda.MAX_WIDTH and MAX_CELL_ROWS: div_small needs c + tw/2 <
   // 2^23, and the grid has one block row per cell row
   if (k < 1 || k > kMaxK || th < 1 || tw < 1 || h % th != 0 || w % tw != 0 ||
-      w >= (1 << 22) || h / th + 1 > 65535) {
+      w >= (1 << 22) || h / th + 1 > 65535 || row0 < 0 || rows < 1 || row0 + rows > h) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  // one block row per cell row (Ty + 1 of them, the first and last
-  // half-height) and 128 columns
+  const DeviceGuard guard(device);
+  if (guard.error != cudaSuccess) return static_cast<int>(guard.error);
+  // one block row per cell row that the rows touch (of Ty + 1, the first
+  // and last half-height) and 128 columns
   const int ty = h / th;
+  const int cy0 = (row0 + th / 2) / th;
+  const int cy1 = (row0 + rows - 1 + th / 2) / th;
   const dim3 block(kBlockX, kBlockY);
-  const dim3 grid((w + kBlockX * kGroup - 1) / (kBlockX * kGroup), ty + 1);
+  const dim3 grid((w + kBlockX * kGroup - 1) / (kBlockX * kGroup), cy1 - cy0 + 1);
   soft_warp_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uchar4*>(a), static_cast<const uchar4*>(b), h, w,
       static_cast<const float2*>(tiles), static_cast<const int*>(assign),
-      static_cast<const int*>(cand), k, th, tw, ty, w / tw, inv_th, inv_tw, w_a, w_b,
-      static_cast<uchar4*>(out));
+      static_cast<const int*>(cand), k, th, tw, ty, w / tw, inv_th, inv_tw, w_a, w_b, cy0,
+      row0, row0 + rows, static_cast<uchar4*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -83,6 +83,7 @@
 #include <cstdint>
 
 #include "conv3x3_core.cuh"
+#include "device_guard.cuh"
 
 namespace {
 
@@ -360,8 +361,8 @@ int nu_trunk_fused(int device, const void* x, const void* const* ks, const void*
   const Buffers buf{static_cast<__nv_bfloat16*>(feat), static_cast<__nv_bfloat16*>(hbuf),
                     static_cast<__nv_bfloat16*>(tbuf), static_cast<__nv_bfloat16*>(out),
                     static_cast<unsigned int*>(ready)};
-  const cudaError_t e = cudaSetDevice(device);
-  if (e != cudaSuccess) return static_cast<int>(e);
+  const DeviceGuard guard(device);
+  if (guard.error != cudaSuccess) return static_cast<int>(guard.error);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tile_w == 16) {
     return stages == 3 ? dispatch<16, 16, 3>(x, layers, g, buf, grid, round_sum, s)

@@ -277,7 +277,8 @@ class ResamplePlan:
 def resample_plain(src: torch.Tensor, plan: ResamplePlan) -> torch.Tensor:
     """u8 [..., H, W, 4] → u8 [..., OH, OW, 4]: two fp32 matmuls on the dense
     matrices, then trunc(clip(·, 0, 255)). On a card this needs
-    `torch.backends.cuda.matmul.allow_tf32` False (PyTorch's default).
+    `torch.backends.cuda.matmul.fp32_precision` "ieee" (PyTorch's default
+    "none" is that too).
 
     Both products are plain 2-D matmuls (no broadcast batch, which would
     materialize the dense matrix once per row)."""

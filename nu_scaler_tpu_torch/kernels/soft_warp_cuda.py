@@ -4,7 +4,11 @@ front end (candidate selection) and its plain PyTorch version.
 `soft_warp_blend` replaces `nu_scaler_tpu/kernels/soft_warp_pallas.py:984`
 (soft_warp_blend → `_build` → `_kernel_strip_v7`): the motion-compensated
 blend of two u8 ``[H, W, 4]`` frames given the per-tile mean motion
-``[H/th, W/tw, 2]`` (x, y) of the step A→B.
+``[H/th, W/tw, 2]`` (x, y) of the step A→B. `soft_warp_rows` is the same
+kernel on a band of output rows, given the whole frame's front end
+(`frame_inputs`): the sp mesh path (`parallel/mesh.py`) solves the front end
+once and gives each shard its rows, with the bytes of the whole frame's
+launch.
 
 Per frame f — A warped by ``−t·motion`` with weight ``1 − t``, B by
 ``(1 − t)·motion`` with weight ``t`` — the front end clips the scaled tile
@@ -106,10 +110,11 @@ def frame_inputs(tiles: torch.Tensor, t: float, k: int, rng: int) -> tuple[Frame
 # ---------------------------------------------------------------------------
 
 
-def _cell_axis(n: int, tile: int, n_tiles: int, device):
-    """Per output row (or column): its two corner tiles on the half-tile-offset
-    cell grid, edge-clamped, and the bilinear fraction (local + 0.5)·(1/tile)."""
-    p = torch.arange(n, device=device)
+def _cell_axis(n: int, tile: int, n_tiles: int, device, start: int = 0):
+    """Per output row (or column) start .. n − 1: its two corner tiles on the
+    half-tile-offset cell grid, edge-clamped, and the bilinear fraction
+    (local + 0.5)·(1/tile)."""
+    p = torch.arange(start, n, device=device)
     cell = (p + tile // 2) // tile
     local = p + tile // 2 - cell * tile
     t0 = (cell - 1).clamp(0, n_tiles - 1)
@@ -133,22 +138,26 @@ def corner_assign(frames, h: int, w: int, tile: tuple) -> list[torch.Tensor]:
     return out
 
 
-def soft_warp_plain(a: torch.Tensor, b: torch.Tensor, frames, tile: tuple) -> torch.Tensor:
-    """The kernel's function in PyTorch ops, vectorised over pixels."""
+def soft_warp_plain(a: torch.Tensor, b: torch.Tensor, frames, tile: tuple, row0: int = 0,
+                    rows: int | None = None) -> torch.Tensor:
+    """The kernel's function in PyTorch ops, vectorised over pixels: output
+    rows row0 .. row0 + rows − 1 (the whole frame by default)."""
     h, w = a.shape[0], a.shape[1]
+    rows = h - row0 if rows is None else rows
     th, tw = tile
     ty, tx = h // th, w // tw
     dev = a.device
-    y0, y1, fy = _cell_axis(h, th, ty, dev)
+    y0, y1, fy = _cell_axis(row0 + rows, th, ty, dev, row0)
     x0, x1, fx = _cell_axis(w, tw, tx, dev)
     gy, gx = (1.0 - fy)[:, None], (1.0 - fx)[None, :]
     fy, fx = fy[:, None], fx[None, :]
     bw = (gy * gx, gy * fx, fy * gx, fy * fx)
     corners = ((y0, x0), (y0, x1), (y1, x0), (y1, x1))
-    rows = torch.arange(h, device=dev)[:, None]
+    out_rows = torch.arange(row0, row0 + rows, device=dev)[:, None]
     cols = torch.arange(w, device=dev)[None, :]
     acc = None
-    for img, fr, kks in zip((a, b), frames, corner_assign(frames, h, w, tile)):
+    for img, fr in zip((a, b), frames):
+        kks = [fr.assign[ry][:, rx] for ry, rx in corners]
         src = img.to(torch.float32)
         sy = [fr.tiles[..., 1][ry][:, rx] for ry, rx in corners]
         sx = [fr.tiles[..., 0][ry][:, rx] for ry, rx in corners]
@@ -159,8 +168,8 @@ def soft_warp_plain(a: torch.Tensor, b: torch.Tensor, frames, tile: tuple) -> to
             dy, dx = fr.cand_y[kk], fr.cand_x[kk]
             fyk = torch.clamp(sm_y - dy.to(torch.float32), 0.0, 1.0)[..., None]
             fxk = torch.clamp(sm_x - dx.to(torch.float32), 0.0, 1.0)[..., None]
-            r0 = (rows + dy).clamp(0, h - 1)
-            r1 = (rows + dy + 1).clamp(0, h - 1)
+            r0 = (out_rows + dy).clamp(0, h - 1)
+            r1 = (out_rows + dy + 1).clamp(0, h - 1)
             c0 = (cols + dx).clamp(0, w - 1)
             c1 = (cols + dx + 1).clamp(0, w - 1)
             p00, p01, p10, p11 = src[r0, c0], src[r0, c1], src[r1, c0], src[r1, c1]
@@ -218,24 +227,27 @@ def pack_inputs(frames) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     return tiles, assign, cand
 
 
-def _launch(a: torch.Tensor, b: torch.Tensor, frames, packed, tile: tuple, k: int) -> torch.Tensor:
-    """One launch of the kernel on `packed` (from `pack_inputs(frames)`)."""
+def _launch(a: torch.Tensor, b: torch.Tensor, frames, packed, tile: tuple, k: int,
+            row0: int = 0, rows: int | None = None) -> torch.Tensor:
+    """One launch of the kernel on `packed` (from `pack_inputs(frames)`), for
+    output rows row0 .. row0 + rows − 1 (the whole frame by default)."""
     if a.device.type != "cuda":
         raise RuntimeError(f"the CUDA kernel needs CUDA tensors, got {a.device}")
     from nu_scaler_tpu_torch.kernels import _build
 
     lib = _build.load_library("soft_warp")
     h, w = a.shape[0], a.shape[1]
+    rows = h - row0 if rows is None else rows
     th, tw = tile
     a, b = a.contiguous(), b.contiguous()
     tiles, assign, cand = packed
-    out = torch.empty_like(a)
+    out = torch.empty((rows, w, 4), dtype=torch.uint8, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = lib.nu_soft_warp_blend(
         a.device.index or 0, a.data_ptr(), b.data_ptr(), h, w,
         tiles.data_ptr(), assign.data_ptr(), cand.data_ptr(), k,
         th, tw, reciprocal(th), reciprocal(tw),
-        frames[0].weight, frames[1].weight, out.data_ptr(), stream,
+        frames[0].weight, frames[1].weight, row0, rows, out.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(
@@ -253,9 +265,23 @@ def soft_warp_blend(
     H and W must divide by the tile. Alpha is motion-compensated with RGB."""
     tile = tuple(tile)
     check_inputs(a, b, tiles, tile, k)
-    frames = frame_inputs(tiles, t, k, rng)
+    return soft_warp_rows(a, b, frame_inputs(tiles, t, k, rng), tile, k, 0, a.shape[0])
+
+
+def soft_warp_rows(a: torch.Tensor, b: torch.Tensor, frames, tile: tuple, k: int, row0: int,
+                   rows: int, packed=None) -> torch.Tensor:
+    """Output rows row0 .. row0 + rows − 1 of `soft_warp_blend`, u8
+    [rows, W, 4], from the whole frame's front end `frames`
+    (`frame_inputs`, on the frames' device) and, on a card, its packed form
+    `packed` (`pack_inputs(frames)`; packed here when not given). Every pixel
+    has the bytes of the whole frame's launch."""
+    tile = tuple(tile)
+    check_inputs(a, b, frames[0].tiles, tile, k)
+    h = a.shape[0]
+    if not (0 <= row0 and rows >= 1 and row0 + rows <= h):
+        raise ValueError(f"rows {row0} .. {row0 + rows - 1} outside the frame's {h}")
     if a.device.type == "cpu":
-        return soft_warp_plain(a, b, frames, tile)
-    out = _launch(a, b, frames, pack_inputs(frames), tile, k)
+        return soft_warp_plain(a, b, frames, tile, row0, rows)
+    out = _launch(a, b, frames, pack_inputs(frames) if packed is None else packed, tile, k, row0, rows)
     launches["soft_warp_blend"] += 1
     return out

@@ -1065,16 +1065,18 @@ def loss_of(kind: str) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
 
 @contextlib.contextmanager
 def fp32_training():
-    """Matmuls and cuDNN in full fp32 inside the block (no TF32 on the card:
-    the forward's tap matmuls and autograd's backward ones alike), as the
-    JAX trainer's fp32 XLA convs; the earlier settings are restored after."""
-    cudnn_tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+    """Matmuls and cuDNN convs in full fp32 inside the block (no TF32 on the
+    card: the forward's tap matmuls and autograd's backward ones alike), as
+    the JAX trainer's fp32 XLA convs, through the per-backend switches only
+    (`conv_cuda.full_fp32_matmul`, `torch.backends.cudnn.conv.fp32_precision`);
+    the earlier settings are restored after."""
+    cudnn_conv = torch.backends.cudnn.conv.fp32_precision
+    torch.backends.cudnn.conv.fp32_precision = "ieee"
     try:
         with conv_cuda.full_fp32_matmul():
             yield
     finally:
-        torch.backends.cudnn.allow_tf32 = cudnn_tf32
+        torch.backends.cudnn.conv.fp32_precision = cudnn_conv
 
 
 def adam(model: nn.Module, lr: float) -> torch.optim.Optimizer:

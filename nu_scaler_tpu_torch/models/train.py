@@ -29,9 +29,11 @@ its Adam state), else the committed export of the arch in
 ``nu_scaler_tpu_torch/weights/`` (JAX resumes from the committed orbax
 checkpoint, e.g. tpu4b2 ×2 at 76000), else for tpu4b2 / tpu4b1 the next
 deeper arch's weights with its last block dropped, else a seeded
-initialisation; a run saves at start + steps. The exports hold no optimizer
-state (the orbax ``*_opt`` trees cannot be read without JAX), so a resume
-from an export starts Adam's moments at zero where JAX's restores them.
+initialisation; a run saves at start + steps. A resume from the export
+restores Adam's moments from the export's ``_opt.npz`` where it has one
+(tpu4b2 ×2, tpu4b1 ×2, tpu4 ×4: optax's ``count``, ``mu``, ``nu``, written by
+`tools/export_torch_weights.py` from the orbax ``{step}_opt`` tree that
+JAX's resume restores), checked against the sidecar's ``opt_sha256``.
 
 Run (the card by default; ``--device cpu`` for the CPU):
 
@@ -139,6 +141,30 @@ def load_opt_state(optimizer: torch.optim.Optimizer, arch: str, stages: int, ste
     return True
 
 
+def load_export_opt_state(optimizer: torch.optim.Optimizer, model: nn.Module, arch: str,
+                          stages: int, step: int) -> bool:
+    """Restore Adam's state of the committed export at `step` into
+    `optimizer` (Adam over `model`'s parameters, `esrgan_lite.adam`): optax's
+    ``ScaleByAdamState`` mapped onto PyTorch's, ``count`` → each
+    parameter's ``step``, ``mu`` → ``exp_avg``, ``nu`` → ``exp_avg_sq``, by
+    the parameters' flax names. False when the export carries no moments;
+    raises ValueError when the file's sha256 is not the sidecar's."""
+    meta = el._sidecar(arch, 2 ** stages, el.WEIGHTS_DIR)
+    if meta is None or meta["step"] != step or "opt_sha256" not in meta:
+        return False
+    path = el.WEIGHTS_DIR / f"esrgan_{arch}_x{2 ** stages}_{step}_opt.npz"
+    tree = el.read_weights(path, meta["opt_sha256"])
+    count = float(tree.pop("count"))
+    moments = {m: el.params_from_flax(tree[m]) for m in ("mu", "nu")}
+    for name, p in model.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(count, dtype=torch.float32),
+            "exp_avg": moments["mu"][name].to(p.device).reshape(p.shape),
+            "exp_avg_sq": moments["nu"][name].to(p.device).reshape(p.shape),
+        }
+    return True
+
+
 def _warm_start(model: nn.Module, arch: str, stages: int) -> None:
     """Copy the donor's layers whose names the module shares (head, the
     first blocks, trunk, tail) into `model`, as train.py:292-309 does."""
@@ -235,6 +261,8 @@ def train(steps: int = 200, batch: int = 8, stages: int = 1, lr: float = 2e-4, s
     opt = el.adam(model, lr)
     if own and load_opt_state(opt, arch, stages, start):
         print("restored optimizer state")
+    elif restored is not None and not own and load_export_opt_state(opt, model, arch, stages, start):
+        print("restored optimizer state (the committed export's)")
     if distill is not None:
         step_fn = make_distill_step(model, opt, loss_kind, distill_w)
     else:

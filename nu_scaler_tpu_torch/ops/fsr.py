@@ -48,10 +48,12 @@ def sharpness(quality: str) -> float:
     return FSR_SHARPNESS.get((quality or "").lower(), FSR_SHARPNESS["quality"])
 
 
-def easu(img_u8: torch.Tensor, out_h: int, out_w: int, sharpness: float) -> torch.Tensor:
+def easu(img_u8: torch.Tensor, out_h: int, out_w: int, sharpness: float, row0: int = 0,
+         rows: int | None = None) -> torch.Tensor:
     """Edge Adaptive Spatial Upsampling at any scale, trunc-packed: the JAX
     package's `_easu_general` in its fp32 order. u8 [..., H, W, 4] →
-    u8 [..., out_h, out_w, 4]. Output pixel (y, x) maps to input
+    u8 [..., out_h, out_w, 4], or only output rows row0 .. row0 + rows − 1
+    (each as in the whole frame's result). Output pixel (y, x) maps to input
     ((y + 0.5)·H/out_h, (x + 0.5)·W/out_w); the direction comes from the
     central differences at its integer part, the 4×4 taps from one row and
     column above it, and the fractions weigh them through FsrCubic."""
@@ -64,6 +66,8 @@ def easu(img_u8: torch.Tensor, out_h: int, out_w: int, sharpness: float) -> torc
         return o.to(torch.int64), o - torch.floor(o)
 
     cy, fr_y = axis(out_h, in_h)
+    band = slice(row0, out_h if rows is None else row0 + rows)
+    cy, fr_y = cy[band], fr_y[band]
     cx, fr_x = axis(out_w, in_w)
     cy, fr_y = cy[:, None], fr_y[:, None]
     cx, fr_x = cx[None, :], fr_x[None, :]

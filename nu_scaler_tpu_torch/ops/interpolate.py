@@ -56,7 +56,7 @@ import numpy as np
 import torch
 
 from nu_scaler_tpu_torch.device import resolve_device
-from nu_scaler_tpu_torch.kernels.soft_warp_cuda import candidates, soft_warp_blend
+from nu_scaler_tpu_torch.kernels.soft_warp_cuda import candidates, frame_inputs, soft_warp_blend
 from nu_scaler_tpu_torch.models import interp_refine
 from nu_scaler_tpu_torch.ops.resample import (
     apply_taps,
@@ -342,15 +342,18 @@ def _tile_to_pixels(tiles: torch.Tensor, th: int, tw: int, h: int, w: int) -> to
 
 def block_warp_planar(
     img_p: torch.Tensor, offset_field: torch.Tensor, k: int = WARP_K, rng: int = WARP_RANGE,
-    tile: tuple = WARP_TILE,
+    tile: tuple = WARP_TILE, row0: int = 0, rows: int | None = None,
 ) -> torch.Tensor:
     """Sample planar `img_p` [C, H, W] f32 at p + offset(p), block-quantized:
     the top-K integer offsets of the tile means, each tile's nearest one, one
     gather of the candidate-shifted image and one bilinear lerp with the
     tile's fractions. As in the JAX function, the lerp reads the +1
     neighbour under the pixel's own tile's offset even across a tile border
-    (the 1-px "lerp after select" approximation)."""
+    (the 1-px "lerp after select" approximation). Output rows row0 ..
+    row0 + rows − 1 (all by default), each as in the whole frame's result."""
     c, h, w = img_p.shape
+    rows = h - row0 if rows is None else rows
+    band = slice(row0, row0 + rows)
     if tuple(offset_field.shape[:2]) != (h, w):
         raise ValueError(
             f"offset_field {tuple(offset_field.shape[:2])} must match image [H, W] ({h}, {w})"
@@ -361,14 +364,15 @@ def block_warp_planar(
     chosen_y, chosen_x = cand_y[assign], cand_x[assign]
     fry = torch.clamp(tiles[..., 1] - chosen_y, 0.0, 1.0)
     frx = torch.clamp(tiles[..., 0] - chosen_x, 0.0, 1.0)
-    fry_px = _tile_to_pixels(fry, th, tw, h, w)
-    frx_px = _tile_to_pixels(frx, th, tw, h, w)
+    fry_px = _tile_to_pixels(fry, th, tw, h, w)[band]
+    frx_px = _tile_to_pixels(frx, th, tw, h, w)[band]
     # the candidate-shifted image on the (h+1)×(w+1) grid, edge-clamped
-    assign_pad = _tile_to_pixels(assign, th, tw, h + 1, w + 1)
-    rows = (torch.arange(h + 1, device=img_p.device)[:, None] + cand_y[assign_pad]).clamp(0, h - 1)
+    assign_pad = _tile_to_pixels(assign, th, tw, h + 1, w + 1)[row0 : row0 + rows + 1]
+    grid_rows = torch.arange(row0, row0 + rows + 1, device=img_p.device)[:, None]
+    src_rows = (grid_rows + cand_y[assign_pad]).clamp(0, h - 1)
     cols = (torch.arange(w + 1, device=img_p.device)[None, :] + cand_x[assign_pad]).clamp(0, w - 1)
-    combined = img_p[:, rows, cols]
-    top_row = combined[:, :h, :w] + frx_px * (combined[:, :h, 1:] - combined[:, :h, :w])
+    combined = img_p[:, src_rows, cols]
+    top_row = combined[:, :rows, :w] + frx_px * (combined[:, :rows, 1:] - combined[:, :rows, :w])
     bot_row = combined[:, 1:, :w] + frx_px * (combined[:, 1:, 1:] - combined[:, 1:, :w])
     return top_row + fry_px * (bot_row - top_row)
 
@@ -465,17 +469,21 @@ def flow_tiles_fast(frame_a: torch.Tensor, frame_b: torch.Tensor, tile: tuple = 
 
 
 def warp_blend_fast(frame_a: torch.Tensor, frame_b: torch.Tensor, flow: torch.Tensor,
-                    time_t: float, tile: tuple = WARP_TILE) -> torch.Tensor:
+                    time_t: float, tile: tuple = WARP_TILE, row0: int = 0,
+                    rows: int | None = None) -> torch.Tensor:
     """The "flow" mode's warp, `warp_blend_fast` (no overlap) of the JAX
     package: RGB of A block-warped by −t·flow and of B by (1 − t)·flow
     (K = `WARP_K`), mixed as va + (vb − va)·t; alpha cross-faded; rounded
-    half to even. u8 [H, W, 4] × 2 + full-resolution flow → u8."""
+    half to even. u8 [H, W, 4] × 2 + full-resolution flow → u8 (output rows
+    row0 .. row0 + rows − 1, all by default)."""
     t = np.float32(time_t)
+    rows = frame_a.shape[0] - row0 if rows is None else rows
     a4 = frame_a.to(torch.float32).permute(2, 0, 1)
     b4 = frame_b.to(torch.float32).permute(2, 0, 1)
-    va = block_warp_planar(a4[:3], flow * float(-t), tile=tile)
-    vb = block_warp_planar(b4[:3], flow * float(np.float32(1.0) - t), tile=tile)
+    va = block_warp_planar(a4[:3], flow * float(-t), tile=tile, row0=row0, rows=rows)
+    vb = block_warp_planar(b4[:3], flow * float(np.float32(1.0) - t), tile=tile, row0=row0, rows=rows)
     rgb = va + (vb - va) * float(t)
+    a4, b4 = a4[:, row0 : row0 + rows], b4[:, row0 : row0 + rows]
     alpha = a4[3:] + (b4[3:] - a4[3:]) * float(t)
     out = torch.clamp(torch.round(torch.cat([rgb, alpha])), 0, 255).to(torch.uint8)
     return out.permute(1, 2, 0).contiguous()
@@ -494,7 +502,8 @@ def soft_tiles_fit(h: int, w: int, tile: tuple) -> bool:
 
 
 def _soft_warp_accumulate(acc, img_p: torch.Tensor, offset_field: torch.Tensor, k: int,
-                          rng: int, tile: tuple, weight: float):
+                          rng: int, tile: tuple, weight: float, row0: int = 0,
+                          rows: int | None = None):
     """Add ``weight · soft_warp(img_p, offset_field)`` to the accumulator pair
     ``(acc_p, acc_q)`` (bf16 [C, H, W+1]; None starts it): the port's copy of
     `nu_scaler_tpu/ops/interpolate.py` _soft_warp_accumulate.
@@ -505,15 +514,20 @@ def _soft_warp_accumulate(acc, img_p: torch.Tensor, offset_field: torch.Tensor, 
     the pixel's weight on the candidate (the half-tile-shift bilinear mix of
     its four corner tiles' one-hot assignments) split between P and Q by the
     column fraction: out[j] = P[j] + Q[j + 1]. The bf16 casts are where the
-    JAX function has them: they decide the last LSB."""
+    JAX function has them: they decide the last LSB. The accumulators hold
+    output rows row0 .. row0 + rows − 1 (all by default): the fields are
+    formed over the whole frame and cut to those rows, so each value is the
+    whole frame's."""
     c, h, w = img_p.shape
+    rows = h - row0 if rows is None else rows
+    band = slice(row0, row0 + rows)
     th, tw = min(tile[0], h), min(tile[1], w)
     tiles = torch.clamp(_tile_mean(offset_field, th, tw), -rng, rng)
     cand_y, cand_x, assign = candidates(tiles, k, rng)
     dev = img_p.device
     w1 = w + 1  # the coefficient fields live on the slab's W + 1 grid
     img_bf = img_p.to(torch.bfloat16)
-    slab_rows = torch.arange(h + 1, device=dev)
+    slab_rows = torch.arange(row0, row0 + rows + 1, device=dev)
     slab_cols = torch.arange(w1, device=dev)
 
     def frac(n: int, size: int) -> torch.Tensor:
@@ -532,44 +546,73 @@ def _soft_warp_accumulate(acc, img_p: torch.Tensor, offset_field: torch.Tensor, 
         fv = (1.0 - fyv) * _shift_edge(fp, -hh, 0) + fyv * _shift_edge(fp, th - hh, 0)
         return (1.0 - fxv) * _shift_edge(fv, -hw, 1) + fxv * _shift_edge(fv, tw - hw, 1)
 
-    sx, sy = smooth(tiles[..., 0]), smooth(tiles[..., 1])
+    sx, sy = smooth(tiles[..., 0])[band], smooth(tiles[..., 1])[band]
+    fyv = fyv[band]
+    a_tl, a_tr, a_bl, a_br = (x[band] for x in (a_tl, a_tr, a_bl, a_br))
     if acc is None:
-        acc = (torch.zeros((c, h, w1), dtype=torch.bfloat16, device=dev),) * 2
+        acc = (torch.zeros((c, rows, w1), dtype=torch.bfloat16, device=dev),) * 2
     acc_p, acc_q = acc
     for i in range(k):
-        rows = (slab_rows + cand_y[i]).clamp(0, h - 1)
+        src_rows = (slab_rows + cand_y[i]).clamp(0, h - 1)
         cols = (slab_cols + cand_x[i]).clamp(0, w - 1)
-        s = img_bf[:, rows][:, :, cols]
+        s = img_bf[:, src_rows][:, :, cols]
         wv_t = torch.where(a_tl == i, 1.0 - fxv, 0.0) + torch.where(a_tr == i, fxv, 0.0)
         wv_b = torch.where(a_bl == i, 1.0 - fxv, 0.0) + torch.where(a_br == i, fxv, 0.0)
         wk_i = ((1.0 - fyv) * wv_t + fyv * wv_b) * weight
         fx = torch.clamp(sx - cand_x[i].to(torch.float32), 0.0, 1.0)
         fy = torch.clamp(sy - cand_y[i].to(torch.float32), 0.0, 1.0).to(torch.bfloat16)[None]
-        row = s[:, :h] + fy * (s[:, 1:] - s[:, :h])
+        row = s[:, :rows] + fy * (s[:, 1:] - s[:, :rows])
         acc_p = acc_p + (wk_i * (1.0 - fx)).to(torch.bfloat16)[None] * row
         acc_q = acc_q + (wk_i * fx).to(torch.bfloat16)[None] * row
     return acc_p, acc_q
 
 
 def warp_blend_soft(frame_a: torch.Tensor, frame_b: torch.Tensor, flow: torch.Tensor,
-                    time_t: float, tile: tuple = WARP_TILE) -> torch.Tensor:
+                    time_t: float, tile: tuple = WARP_TILE, row0: int = 0,
+                    rows: int | None = None) -> torch.Tensor:
     """The ragged branch's warp, `warp_blend_fast(overlap=True)` of the JAX
-    package: A warped by −t·flow at weight 1 − t and B by (1 − t)·flow at
-    weight t into one accumulator pair (K = `WARP_K`), alpha cross-faded,
-    rounded half to even. u8 [H, W, 4] × 2 + full-resolution flow → u8."""
+    package without its Pallas kernel: A warped by −t·flow at weight 1 − t
+    and B by (1 − t)·flow at weight t into one accumulator pair (K =
+    `WARP_K`), alpha cross-faded, rounded half to even. u8 [H, W, 4] × 2 +
+    full-resolution flow → u8 (output rows row0 .. row0 + rows − 1, all by
+    default)."""
     t = np.float32(time_t)
     one_minus_t = np.float32(1.0) - t
+    rows = frame_a.shape[0] - row0 if rows is None else rows
     a4 = frame_a.to(torch.float32).permute(2, 0, 1)
     b4 = frame_b.to(torch.float32).permute(2, 0, 1)
     w = frame_a.shape[1]
     acc = _soft_warp_accumulate(None, a4[:3], flow * float(-t), WARP_K, WARP_RANGE, tile,
-                                float(one_minus_t))
+                                float(one_minus_t), row0, rows)
     acc = _soft_warp_accumulate(acc, b4[:3], flow * float(one_minus_t), WARP_K, WARP_RANGE, tile,
-                                float(t))
+                                float(t), row0, rows)
     rgb = (acc[0][:, :, :w] + acc[1][:, :, 1:]).to(torch.float32)
+    a4, b4 = a4[:, row0 : row0 + rows], b4[:, row0 : row0 + rows]
     alpha = a4[3:] + (b4[3:] - a4[3:]) * float(t)
     out = torch.clamp(torch.round(torch.cat([rgb, alpha])), 0, 255).to(torch.uint8)
     return out.permute(1, 2, 0).contiguous()
+
+
+def soft_front_end(flow: torch.Tensor, time_t: float, tile: tuple = WARP_TILE):
+    """The soft warp kernel's front end for a full-resolution flow: both
+    frames' `FrameInputs` from the flow's tile means (clipped, top-K
+    candidates, assignments; K = `WARP_K`, the JAX kernel's default), on the
+    flow's device."""
+    return frame_inputs(_tile_mean(flow, *tile), time_t, WARP_K, WARP_RANGE)
+
+
+def warp_blend_overlap(frame_a: torch.Tensor, frame_b: torch.Tensor, flow: torch.Tensor,
+                       time_t: float, tile: tuple = WARP_TILE) -> torch.Tensor:
+    """`warp_blend_fast(overlap=True)` of the JAX package
+    (`nu_scaler_tpu/ops/interpolate.py:644-690`) on a full-resolution flow:
+    the soft warp kernel on the flow's tile means (K = `WARP_K`) where the
+    tile fits the frame (`soft_tiles_fit`), else `warp_blend_soft`. The
+    flow-given warp of the mesh functions (`parallel/mesh.py`)."""
+    h, w = frame_a.shape[0], frame_a.shape[1]
+    if frame_a.shape[-1] == 4 and soft_tiles_fit(h, w, tile):
+        return soft_warp_blend(frame_a, frame_b, _tile_mean(flow, *tile), time_t, tile=tile,
+                               rng=WARP_RANGE, k=WARP_K)
+    return warp_blend_soft(frame_a, frame_b, flow, time_t, tile)
 
 
 def _check_rgba(frame: torch.Tensor) -> None:

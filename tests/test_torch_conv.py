@@ -168,3 +168,57 @@ def test_two_cin_chunks_match_pallas(rng):
     want = torch.from_numpy(np.asarray(fn(_jnp(x[0]), _jnp(k), _jnp(b)), np.float32))[None]
     got = cc.conv3x3(x, k, b, True)
     assert _within(got, want.to(torch.bfloat16), cc.ulp_tolerance(x, k, want)) == 0.0
+
+
+_TF32_SWITCHES = (
+    (torch.backends.cuda.matmul, "fp32_precision"),
+    (torch.backends.mkldnn.matmul, "fp32_precision"),
+    (torch.backends.cudnn.conv, "fp32_precision"),
+    (torch.backends.cudnn.rnn, "fp32_precision"),
+    (torch.backends.mkldnn.conv, "fp32_precision"),
+    (torch.backends.mkldnn.rnn, "fp32_precision"),
+)
+
+
+@pytest.fixture
+def tf32_switches():
+    """Every per-backend fp32 precision switch, restored after the test."""
+    saved = [getattr(obj, name) for obj, name in _TF32_SWITCHES]
+    yield
+    for (obj, name), value in zip(_TF32_SWITCHES, saved):
+        setattr(obj, name, value)
+
+
+def test_full_fp32_matmul_after_mixed_tf32_apis(rng, tf32_switches):
+    """A caller that set TF32 through the process-wide API and then through
+    the legacy switch leaves `torch.get_float32_matmul_precision()` raising;
+    the fp32 conv (every conv of the port, serving and training) must still
+    run, in full fp32, and leave the caller's settings as they were."""
+    torch.set_float32_matmul_precision("high")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with pytest.raises(RuntimeError):
+        torch.get_float32_matmul_precision()
+    before = (torch.backends.cuda.matmul.fp32_precision, torch.backends.mkldnn.matmul.fp32_precision)
+    x = torch.from_numpy(rng.random((1, 9, 11, 16), np.float32))
+    k = torch.from_numpy(rng.random((3, 3, 16, 8), np.float32) - 0.5)
+    got = cc.conv3x3_f32(x, k)
+    want = torch.nn.functional.conv2d(
+        x.double().permute(0, 3, 1, 2), k.double().permute(3, 2, 0, 1), padding=1
+    ).permute(0, 2, 3, 1)
+    assert float((got.double() - want).abs().max()) < 1e-5
+    assert (torch.backends.cuda.matmul.fp32_precision, torch.backends.mkldnn.matmul.fp32_precision) == before
+    with pytest.raises(RuntimeError):
+        torch.get_float32_matmul_precision()
+
+
+def test_fp32_training_restores_the_cudnn_switch(tf32_switches):
+    """`esrgan_lite.fp32_training` sets cuDNN's conv switch to "ieee" inside
+    the block and restores it, without reading the legacy getters."""
+    from nu_scaler_tpu_torch.models import esrgan_lite as el
+
+    torch.backends.cudnn.conv.fp32_precision = "tf32"
+    torch.backends.cudnn.rnn.fp32_precision = "ieee"  # the legacy cuDNN getter now raises
+    with el.fp32_training():
+        assert torch.backends.cudnn.conv.fp32_precision == "ieee"
+        assert torch.backends.cuda.matmul.fp32_precision == "ieee"
+    assert torch.backends.cudnn.conv.fp32_precision == "tf32"

@@ -32,7 +32,8 @@ def test_import_leaves_jax_side_out():
         "nu_scaler_tpu_torch.kernels.trunk_cuda, "
         "nu_scaler_tpu_torch.runtime.detector, nu_scaler_tpu_torch.runtime.memory, "
         "nu_scaler_tpu_torch.runtime.framering, nu_scaler_tpu_torch.capture.video, "
-        "nu_scaler_tpu_torch.run, nu_scaler_tpu_torch.models.train, nu_scaler_tpu_torch.models.data; "
+        "nu_scaler_tpu_torch.run, nu_scaler_tpu_torch.models.train, nu_scaler_tpu_torch.models.data, "
+        "nu_scaler_tpu_torch.parallel.mesh; "
         "print('\\n'.join(sys.modules))"
     )
     proc = subprocess.run(
@@ -207,8 +208,9 @@ def test_kernel_source_is_plain_c():
     the trunk run on warpgroup MMAs fed by cp.async, with no WMMA left in
     them; the trunk is one cooperative launch."""
     sources = sorted(p.name for p in PKG.rglob("*.cu*"))
-    assert sources == ["conv3x3.cu", "conv3x3_core.cuh", "fsr.cu", "resample_fused.cu",
-                       "resample_twopass.cu", "soft_warp.cu", "trunk_fused.cu"]
+    assert sources == ["conv3x3.cu", "conv3x3_core.cuh", "device_guard.cuh", "fsr.cu",
+                       "resample_fused.cu", "resample_twopass.cu", "soft_warp.cu",
+                       "trunk_fused.cu"]
     written_out = ("__fmul_rn", "__fadd_rn")
     packing = {
         "resample_fused": (*written_out, "__fadd_rz", "fmaf", "cp.async"),
@@ -230,6 +232,44 @@ def test_kernel_source_is_plain_c():
         assert not any("wmma::" in path.read_text() for path in _build.source_files(name))
     fsr = _build.source_path("fsr").read_text()
     assert np.all([s in fsr for s in ("__fsub_rn", "__fdiv_rn", "__fsqrt_rn")])
+
+
+def _c_entries(text: str) -> dict:
+    """{name: body} of every ``int nu_*(...) {...}`` function in `text`."""
+    import re
+
+    out = {}
+    for m in re.finditer(r"^int (nu_\w+)\([^)]*\)\s*\{", text, re.MULTILINE):
+        depth, i = 1, m.end()
+        while depth:
+            depth += {"{": 1, "}": -1}.get(text[i], 0)
+            i += 1
+        out[m.group(1)] = text[m.end():i - 1]
+    return out
+
+
+def test_kernel_entries_restore_the_device():
+    """Every C entry gives the calling thread's current device back: each
+    one that launches holds a `DeviceGuard` (csrc/device_guard.cuh: the
+    device saved with cudaGetDevice, the named one set, the saved one set
+    again in its destructor), or delegates to an entry that does; no entry
+    calls cudaSetDevice itself. Otherwise a launch on cuda:1 would leave
+    `torch.cuda.current_device()` at 1 for the caller's next call that
+    names no card (`device._card`)."""
+    guard = (PKG / "kernels" / "csrc" / "device_guard.cuh").read_text()
+    ctor, dtor = guard.split("~DeviceGuard()")
+    assert "cudaGetDevice(&previous)" in ctor and "cudaSetDevice(device)" in ctor
+    assert "cudaSetDevice(previous)" in dtor
+    entries = {}
+    for name in _build.SIGNATURES:
+        text = "".join(path.read_text() for path in _build.source_files(name))
+        assert '#include "device_guard.cuh"' in text
+        entries.update(_c_entries(text))
+    assert sorted(entries) == sorted(fn for fns in _build.SIGNATURES.values() for fn in fns)
+    for fn, body in entries.items():
+        assert "cudaSetDevice" not in body, fn
+        delegates = [other for other in entries if other != fn and f"{other}(" in body]
+        assert "const DeviceGuard guard(device);" in body or delegates, fn
 
 
 def _pyproject() -> dict:

@@ -31,6 +31,17 @@ exported step, as `nu_scaler_tpu.models.train.load_act_scales` requires
 npz already on disk whose arrays equal the restore is kept as it is (its
 bytes and sha256 do not move); only the sidecar is rewritten.
 
+A checkpoint whose Adam state the JAX trainer saved beside it (the orbax
+``{step}_opt`` tree: optax's ``ScaleByAdamState`` ``count``, ``mu``, ``nu``)
+also gets
+
+    nu_scaler_tpu_torch/weights/esrgan_{arch}_x{upscale}_{step}_opt.npz
+
+(compressed; ``count`` as int32, ``mu/<flax path>`` and ``nu/<flax path>``
+as float32), its sha256 in the checkpoint's sidecar under ``opt_sha256``:
+the port's trainer restores the moments when it resumes from the export
+(`nu_scaler_tpu_torch.models.train.load_export_opt_state`).
+
 Run it where JAX and orbax are installed, from the root of the checkout:
 
     python tools/export_torch_weights.py
@@ -114,11 +125,31 @@ def restore(arch: str, stages: int, step: int):
     return restored
 
 
-def write(stem: Path, params, meta: dict, scales, init: bool = False) -> Path:
+def restore_opt(arch: str, stages: int, step: int):
+    """The Adam state the JAX trainer saved beside checkpoint `step`, as
+    {"count": int32, "mu/<path>": float32, "nu/<path>": float32}, or None
+    when there is none."""
+    import os
+
+    import orbax.checkpoint as ocp
+    from nu_scaler_tpu.models.train import ckpt_dir
+
+    path = os.path.join(os.path.abspath(ckpt_dir(stages, arch)), f"{step}_opt")
+    if step == 0 or not os.path.exists(path):
+        return None
+    adam_state = ocp.PyTreeCheckpointer().restore(path)[0]  # (ScaleByAdamState, EmptyState)
+    flat = {"count": np.asarray(adam_state["count"], np.int32)}
+    for moment in ("mu", "nu"):
+        flat.update({f"{moment}/{k}": v for k, v in flatten(adam_state[moment]).items()})
+    return flat
+
+
+def write(stem: Path, params, meta: dict, scales, init: bool = False, opt=None) -> Path:
     """`stem`.npz (the flattened params; an equal npz on disk is kept) and
     `stem`.json (`meta`, the parameter count, the npz's sha256, with `init`
     the note on an initialisation and, when given, the int8 calibration of
-    step meta["step"])."""
+    step meta["step"]); with `opt` (`restore_opt`) also `stem`_opt.npz,
+    compressed, its sha256 in the sidecar."""
     flat = flatten(params)
     stem.parent.mkdir(parents=True, exist_ok=True)
     npz = stem.with_suffix(".npz")
@@ -133,6 +164,11 @@ def write(stem: Path, params, meta: dict, scales, init: bool = False) -> Path:
         meta["init"] = INIT
     if scales is not None:
         meta["act_scales"] = {"step": meta["step"], "scales": scales}
+    if opt is not None:
+        opt_npz = stem.with_name(stem.name + "_opt.npz")
+        if not (opt_npz.exists() and same_arrays(opt_npz, opt)):
+            np.savez_compressed(opt_npz, **opt)
+        meta["opt_sha256"] = hashlib.sha256(opt_npz.read_bytes()).hexdigest()
     stem.with_suffix(".json").write_text(json.dumps(meta, indent=1) + "\n")
     return npz
 
@@ -147,7 +183,8 @@ def export(arch: str, stages: int, step: int, kwargs: dict, out_dir: Path = OUT_
     meta = {"arch": arch, "stages": stages, "upscale": 2 ** stages, "model": kwargs, "step": step}
     # the scales are None unless their step is `step`
     return write(out_dir / f"esrgan_{arch}_x{2 ** stages}_{step}", params, meta,
-                 load_act_scales(stages, arch, step), init=step == 0)
+                 load_act_scales(stages, arch, step), init=step == 0,
+                 opt=restore_opt(arch, stages, step))
 
 
 def export_refine(net: str, step: int, kwargs: dict, out_dir: Path = OUT_DIR) -> Path:

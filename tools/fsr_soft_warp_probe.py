@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import argparse
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -99,8 +100,8 @@ VARIANTS = {
               "  return __fadd_rn(a, b);")],
         )),
         ("no stores", (
-            [("    unsigned* o = reinterpret_cast<unsigned*>(out) + static_cast<size_t>(r) * w + c0;\n",
-              "    unsigned* o = reinterpret_cast<unsigned*>(out) + static_cast<size_t>(r) * w + c0;\n"
+            [("    unsigned* o = reinterpret_cast<unsigned*>(out) + static_cast<size_t>(r - row0) * w + c0;\n",
+              "    unsigned* o = reinterpret_cast<unsigned*>(out) + static_cast<size_t>(r - row0) * w + c0;\n"
               "    unsigned x_ = 0;\n    for (int j = 0; j < G; ++j) x_ = x_ * 33u + px[j];\n"
               f"    if (x_ != {_RARE}) continue;\n")],
             [("  out[static_cast<size_t>(r) * w + c] =\n"
@@ -193,6 +194,8 @@ def main() -> int:
         ptxas' registers and spill stores per kernel."""
         d = _build.BUILD_DIR / "probe" / re.sub(r"\W+", "_", tag)
         d.mkdir(parents=True, exist_ok=True)
+        for header in csrc.glob("*.cuh"):  # the headers the source includes
+            shutil.copy(header, d / header.name)
         (d / f"{library}.cu").write_text(text)
         _build.CSRC = d
         _build.load_library.cache_clear()

@@ -22,6 +22,7 @@ limit. Exits non-zero without a card.
 from __future__ import annotations
 
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -83,6 +84,8 @@ def main() -> int:
         registers and spill stores per kernel."""
         d = _build.BUILD_DIR / "probe" / re.sub(r"\W+", "_", name)
         d.mkdir(parents=True, exist_ok=True)
+        for header in csrc.glob("*.cuh"):  # the headers the source includes
+            shutil.copy(header, d / header.name)
         (d / "resample_fused.cu").write_text(text)
         _build.CSRC = d
         _build.load_library.cache_clear()

@@ -141,7 +141,7 @@ def main() -> int:
     from nu_scaler_tpu_torch.models import esrgan_lite as pel
     from nu_scaler_tpu_torch.ops import resample
 
-    torch.backends.cuda.matmul.allow_tf32 = False
+    chip_smoke.set_tf32(torch, False)
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     bench = chip_smoke.bench_frame(1080, 1920)
