@@ -194,6 +194,19 @@ Phases, each printed on its own line with its seconds:
    mesh branch. CUDA-event times of sharded calls beside the single calls
    (shards on one card only add launches: no speed claim). What one card
    cannot check: the copies between cards;
+4m. the dp x tp train step (parallel/mesh.py make_2d_mesh, parallel/tp.py,
+   esrgan_lite.make_sharded_train_step and gather_model): tpu4b2 x2 at full
+   width from the committed 76000 on a 2 x 2 mesh of 4 gloo ranks that share
+   cuda:0, batches of 8 x 96^2 from phase 4k's pool: the first step against
+   one card's (the loss within a relative 1e-5; the gradients, Adam's
+   moments and the parameters against one card's step with the world's L1
+   residual signs), 20 steps (the loss falling), the step's CUDA-event ms,
+   collectives and launches a rank beside one card's step; the gathered
+   weights saved into a temporary CKPT_ROOT and served 1080p -> 4K through
+   conv3x3 (7 launches), against the plain conv and against the
+   single-device-trained weights; a 1 x 1 NCCL world; with four cards
+   visible, the 2 x 2 step on NCCL across them
+   (tools/sharded_train_probe.py runs this phase alone);
 5. times: per kernel the median of 20 CUDA-event timings after 3 warm-ups,
    the plain version's time, and the bound (the larger of bytes moved over
    the memory rate and operations over the rate of their type: fp32, or
@@ -330,6 +343,23 @@ EVAL_GATE = (0.05, 1e-3)  # eval_vs_lanczos3 card vs CPU: dB, SSIM
 # multiple of the net's stride) and the esrgan_infer_spatial mesh (540p: H
 # must divide by the shards x the stride 4)
 MESH_SHARDS, MESH_BATCH, MESH_PAIRS, MESH_REFINE_SHARDS, MESH_SR_SHARDS = 4, 6, 4, 2, 3
+# phase 4m, the dp x tp train step: TRAIN's arch from the committed export on
+# a (data, model) mesh of 4 gloo ranks that share cuda:0 (and on NCCL across
+# cuda:0..3 when four cards are visible), SHARD_STEPS steps cycling
+# SHARD_CYCLE batches of phase 4k's pool, SHARD_TIMED timed steps. The
+# sharded-trained weights served against the single-device-trained ones, set
+# before the first run: the two differ by the order of fp32 sums over 20
+# Adam steps, which bf16 serving rounds mostly away
+SHARD_MESH, SHARD_STEPS, SHARD_CYCLE, SHARD_TIMED = (2, 2), 20, 5, 10
+SHARD_SERVE_GATE_DB = 45.0
+# The gradients' and moments' bound against one card's step (with the
+# world's L1 residual signs): the CPU tests' 1e-6 of each leaf's largest
+# entry, or SHARD_SPREAD_FACTOR times the spread one card's own step shows
+# when its batch is summed in reverse order, whichever is larger. At full
+# width, from a converged checkpoint, a gradient is small against its terms,
+# and reordering one card's own sums moves it measurably (the phase prints
+# that spread)
+SHARD_GRAD_BOUND, SHARD_SPREAD_FACTOR = 1e-6, 4.0
 T_START = time.perf_counter()
 
 
@@ -666,6 +696,24 @@ def fsr_work(torch, fc, src, s: int, sharp: float) -> tuple[int, int]:
     return px_in * 4 * (1 + s * s), ops
 
 
+def guarded_listing(root, weights_dir) -> dict:
+    """Every file under checkpoints/, the committed weights and
+    checkpoints_torch/, with its mtime: what a training phase must leave as
+    it found it."""
+    dirs = (root / "checkpoints", weights_dir, root / "checkpoints_torch")
+    return {str(d): sorted((p.relative_to(d).as_posix(), p.stat().st_mtime_ns) for p in d.rglob("*"))
+            if d.exists() else None for d in dirs}
+
+
+def jax_side_modules(root) -> list:
+    """The loaded modules of the JAX side: jax, flax, optax, orbax, or a file
+    of the JAX package."""
+    jax_dirs = (str(root / "nu_scaler_tpu") + os.sep, str(root / "nu_scaler_core") + os.sep)
+    return [n for n, m in list(sys.modules.items())
+            if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax")
+            or (getattr(m, "__file__", None) or "").startswith(jax_dirs)]
+
+
 class Launches:
     """Reads the kernels' launches one call at a time: each call sets the
     wrappers' counts to 0 just before `fn` and reads them just after it;
@@ -955,7 +1003,8 @@ def training_on_the_card(torch, card, dev, frame, pair) -> tuple[dict, dict]:
       checkpoints/, nu_scaler_tpu_torch/weights/ or checkpoints_torch/.
 
     Returns (the launches of the phase by kernel, {tag: (fn, arg)}: the SR
-    and refinement train steps for phase 6's traces)."""
+    and refinement train steps for phase 6's traces, the SR trainer's
+    `PairPool`)."""
     import tempfile
     from pathlib import Path
 
@@ -991,13 +1040,7 @@ def training_on_the_card(torch, card, dev, frame, pair) -> tuple[dict, dict]:
         return float((d <= 1e-6).float().mean()), float(d.max())
 
     root = Path(__file__).resolve().parent
-    guarded = (root / "checkpoints", pel.WEIGHTS_DIR, root / "checkpoints_torch")
-
-    def listing() -> dict:
-        return {str(d): sorted((p.relative_to(d).as_posix(), p.stat().st_mtime_ns) for p in d.rglob("*"))
-                if d.exists() else None for d in guarded}
-
-    before = listing()
+    before = guarded_listing(root, pel.WEIGHTS_DIR)
     t = TRAIN
     lr = t["lr"]
     report = {"reduced": {"sr": {"n_clips": f"{t['n_clips']} of 12", "pool_size": f"{t['pool_size']} of 4096",
@@ -1187,17 +1230,15 @@ def training_on_the_card(torch, card, dev, frame, pair) -> tuple[dict, dict]:
             + json.dumps(report["refine"]))
 
         # (c) no module of the JAX side; nothing written outside CKPT_ROOT
-        jax_dirs = (str(root / "nu_scaler_tpu") + os.sep, str(root / "nu_scaler_core") + os.sep)
-        jax_side = [n for n, m in list(sys.modules.items())
-                    if n.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax")
-                    or (getattr(m, "__file__", None) or "").startswith(jax_dirs)]
+        jax_side = jax_side_modules(root)
         check(not jax_side, f"modules of the JAX side loaded: {jax_side}")
     finally:
         ptrain.CKPT_ROOT = ckpt_root
         tmp.cleanup()
-    check(listing() == before, "phase 4k wrote under checkpoints/, the committed weights or checkpoints_torch/")
+    check(guarded_listing(root, pel.WEIGHTS_DIR) == before,
+          "phase 4k wrote under checkpoints/, the committed weights or checkpoints_torch/")
     say(f"training on the card [{card}]: launches {json.dumps(launches_of.total)}")
-    return launches_of.total, traced
+    return launches_of.total, traced, pool
 
 
 def mesh_on_the_card(torch, card, dev, frames, golden_a, frame540) -> tuple[dict, dict]:
@@ -1368,6 +1409,336 @@ def mesh_on_the_card(torch, card, dev, frames, golden_a, frame540) -> tuple[dict
     say(f"mesh on the card [{card}]: " + json.dumps(report))
     say(f"mesh times, sharded against one call on {dev} (CUDA events) [{card}]: " + json.dumps(times))
     return launches_of.total, times
+
+
+def step_times(torch, step, batch, n: int) -> tuple[float, float]:
+    """(the median CUDA-event ms, the median host ms) of n calls of
+    step(*batch), each waited for, after 2 warm-ups."""
+    for _ in range(2):
+        step(*batch)
+    events, host = [], []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        step(*batch)
+        end.record()
+        end.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        events.append(start.elapsed_time(end))
+    return float(np.median(events)), float(np.median(host))
+
+
+def first_step_record(torch, loss, named, opt) -> dict:
+    """A train step's loss, gradients, Adam moments and parameters, copied to the CPU."""
+
+    def cpu(x):
+        return x.detach().to("cpu", copy=True)
+
+    return {"loss": float(loss), "grads": {n: cpu(p.grad) for n, p in named},
+            "mu": {n: cpu(opt.state[p]["exp_avg"]) for n, p in named},
+            "nu": {n: cpu(opt.state[p]["exp_avg_sq"]) for n, p in named},
+            "params": {n: cpu(p) for n, p in named}}
+
+
+def sharded_train_rank(rank, dev, backend, state, batches, ckpt_root, trace_dir) -> dict:
+    """Phase 4m's rank (`parallel/mesh.py` `spawn_world`): TRAIN's arch from
+    `state` on a SHARD_MESH mesh, SHARD_STEPS sharded steps cycling
+    `batches`; the signs of the first step's residuals on the rank's part of
+    the batch, the first step's record (`first_step_record`, the rank's
+    slices) and collectives, the losses, the conv kernels' launches (none:
+    training runs the fp32 forward), rank 0 saving the gathered module
+    into `ckpt_root` at TRAIN's step + SHARD_STEPS; then the step's times
+    (`step_times`) and, on rank 0, a profiler window of 5 steps."""
+    from pathlib import Path
+
+    import torch
+    import torch.distributed as dist
+
+    from nu_scaler_tpu_torch.kernels import conv_cuda as cc
+    from nu_scaler_tpu_torch.models import esrgan_lite as pel
+    from nu_scaler_tpu_torch.models import train as ptrain
+    from nu_scaler_tpu_torch.parallel import mesh as pmesh
+    from nu_scaler_tpu_torch.parallel import tp
+
+    t = TRAIN
+    cc.reset_launches()
+    mesh = pmesh.make_2d_mesh(*SHARD_MESH, dev)
+    model = pel.ESRGANLiteTPU(upscale=2, **ptrain.ARCHS[t["arch"]])
+    model.load_state_dict(state)
+    step, sharded, opt = pel.make_sharded_train_step(model, t["lr"], mesh)
+    lrs, hrs = (b.to(dev) for b in batches)
+    rec = {"coords": (dist.get_rank(mesh.get_group("data")), dist.get_rank(mesh.get_group("model"))),
+           "layout": pel.param_shardings(model, mesh), "device": str(dev)}
+    # the signs of the first step's residuals on this rank's part of the
+    # batch: the subgradient its L1 loss takes (the same forward as the step's)
+    k = lrs.shape[1] // SHARD_MESH[0]
+    part = slice(rec["coords"][0] * k, (rec["coords"][0] + 1) * k)
+    with torch.no_grad(), pel.fp32_training():
+        rec["signs"] = torch.sign(sharded(lrs[0][part]) - hrs[0][part]).to(torch.int8).cpu()
+    losses = []
+    for s in range(SHARD_STEPS):
+        tp.reset_collectives()
+        _, _, loss = step(lrs[s % len(lrs)], hrs[s % len(hrs)])
+        losses.append(loss)
+        if s == 0:
+            rec["collectives_per_step"] = dict(tp.collectives)
+            rec["first"] = first_step_record(torch, loss, list(sharded.named_parameters()), opt)
+    rec["losses"] = [float(v) for v in losses]
+    full = pel.gather_model(sharded, mesh)
+    if rank == 0:
+        ptrain.CKPT_ROOT = Path(ckpt_root)
+        ptrain.save_checkpoint(full, t["arch"], 1, t["step"] + SHARD_STEPS)
+    rec["step_ms"], rec["host_ms"] = step_times(torch, step, (lrs[0], hrs[0]), SHARD_TIMED)
+    if rank == 0:
+        rec["trace"] = trace_calls(torch, lambda b: step(*b), (lrs[0], hrs[0]), 5,
+                                   Path(trace_dir) / f"sharded_{backend}_trace.json")
+    else:  # the same steps as rank 0's window: every rank takes part in each collective
+        for _ in range(6):
+            step(lrs[0], hrs[0])
+    torch.cuda.synchronize()
+    rec["conv_launches"] = dict(cc.launches)
+    return rec
+
+
+def sharded_training_on_the_card(torch, card, dev, pool, frame) -> tuple[dict, dict]:
+    """Phase 4m: the dp x tp train step (`models/esrgan_lite.py`
+    `make_sharded_train_step` on `parallel/mesh.py` `make_2d_mesh`) at full
+    width: TRAIN's arch (tpu4b2 x2: 128 features, 2 blocks, stride 4; every
+    conv splits by 2) from the committed export, batches of TRAIN's size
+    drawn from phase 4k's `PairPool`, on a SHARD_MESH mesh:
+
+    - (a) 4 gloo ranks that share `dev` (`sharded_train_rank`): the first
+      step against the single-device `make_train_step` on the same batch on
+      the card: the loss within a relative 1e-5; every gradient and Adam
+      moment within SHARD_GRAD_BOUND of its leaf's largest entry and the
+      parameters 99.9% within 1e-6 and all within 6·lr (phase 4k's bound),
+      against that step with the world's L1 residual signs (`held`); each
+      leaf equal on the ranks that hold it; then SHARD_STEPS steps cycling
+      SHARD_CYCLE batches (the mean loss of the last cycle below the
+      first's), the collectives a rank makes a step, the step's CUDA-event
+      and host ms beside one card's, and rank 0's profiler window;
+    - (b) the weights rank 0 gathered and saved into a temporary CKPT_ROOT,
+      loaded by `load_model(..., directory=)` and served 1080p -> 4K by
+      `make_serving_fn_fused` (7 conv3x3 launches): against the same graph
+      on the plain conv (LEARNED_GATE_DB, alpha equal) and against the
+      single-device-trained weights after the same steps, served alike
+      (SHARD_SERVE_GATE_DB);
+    - (c) a 1 x 1 NCCL world in this process: the same first step, against
+      the single-device one, and an all-reduce and a gather on NCCL;
+    - (d) with four or more cards visible, the 2 x 2 step on NCCL across
+      cuda:0..3, with the gates of (a);
+    - (e) no module of the JAX side loaded; nothing written under
+      checkpoints/, nu_scaler_tpu_torch/weights/ or checkpoints_torch/.
+
+    Returns (the launches of the phase by kernel, the report)."""
+    import concurrent.futures
+    import tempfile
+    from pathlib import Path
+
+    from nu_scaler_tpu_torch.kernels import _build
+    from nu_scaler_tpu_torch.kernels import conv_cuda as cc
+    from nu_scaler_tpu_torch.models import esrgan_lite as pel
+    from nu_scaler_tpu_torch.models import train as ptrain
+    from nu_scaler_tpu_torch.parallel import mesh as pmesh
+    from nu_scaler_tpu_torch.parallel import tp
+
+    launches_of = Launches(torch, (cc,))
+    t = TRAIN
+    lr = t["lr"]
+    root = Path(__file__).resolve().parent
+    before = guarded_listing(root, pel.WEIGHTS_DIR)
+    idx = np.random.default_rng(SEED + 4).integers(0, t["pool_size"], size=(SHARD_CYCLE, t["batch"]))
+    batches = (torch.from_numpy(pool.lrs[idx]), torch.from_numpy(pool.hrs[idx]))
+    start, step0, own = ptrain.load_latest(t["arch"], 1)
+    check(step0 == t["step"] and not own, f"{t['arch']} resumes from step {step0}")
+    state = {k: v.detach().clone() for k, v in start.state_dict().items()}
+    saved = t["step"] + SHARD_STEPS
+    report = {"card": card, "mesh": list(SHARD_MESH), "steps": SHARD_STEPS, "cycle": SHARD_CYCLE,
+              "batch": f"{t['batch']} x {t['crop']}^2", "lr": lr}
+    tmp = tempfile.TemporaryDirectory(prefix="nu_scaler_4m_")
+    trace_dir = Path(_build.BUILD_DIR)
+
+    def run_world(backend: str, devices) -> list:
+        ckpt = Path(tmp.name) / backend
+        return pmesh.spawn_world(sharded_train_rank, backend, devices,
+                                 (backend, state, batches, str(ckpt), str(trace_dir)), timeout=600.0)
+
+    def worst(got: dict, want: dict) -> tuple[float, str]:
+        return max((float((got[n] - want[n]).abs().max()) / max(float(want[n].abs().max()), 1e-30), n)
+                   for n in want)
+
+    def param_diffs(got: dict, want: dict) -> tuple[float, float]:
+        d = torch.cat([(got[n] - want[n]).abs().flatten() for n in want])
+        return float((d <= 1e-6).float().mean()), float(d.max())
+
+    def first_step(signs=None, reverse: bool = False) -> dict:
+        """One card's first step from `start` on batch 0 (`first_step_record`):
+        the plain L1 step, or with `signs` the same step with the L1
+        subgradient taking those residual signs (mean((pred - hr) * signs):
+        its gradient is L1's wherever the signs agree); `reverse`: the batch
+        in reverse order, the same function summed in another order."""
+        m = copy.deepcopy(start).to(dev)
+        o = pel.adam(m, lr)
+        if signs is None:
+            step = pel.make_train_step(m, o)
+        else:
+            s = signs.to(dev, torch.float32)
+            step = pel.make_step(m, o, lambda x, y: torch.mean((m(x) - y) * s))
+        batch = (lr0.flip(0), hr0.flip(0)) if reverse else (lr0, hr0)
+        return first_step_record(torch, step(*batch)[2], list(m.named_parameters()), o)
+
+    def held(tag: str, ranks: list, plain: dict, plain_signs, ref_ms: float) -> dict:
+        """The gates of (a) on a world's records: its first loss against one
+        card's plain step `plain`; its gradients, moments and parameters
+        against one card's step with the world's residual signs (an L1
+        residual at the kink, |pred - hr| below the fp32 noise of the
+        forward, takes the sign the forward's order of sums gives it, and a
+        converged checkpoint has some: their count is reported, with the
+        gradients' distance from the plain step). Returns the world's report."""
+        recs = sorted((r for r in ranks if r["coords"][0] == 0), key=lambda r: r["coords"][1])
+        split = {n for n, spec in recs[0]["layout"].items() if spec}
+        signs = torch.cat([r["signs"] for r in sorted((r for r in ranks if r["coords"][1] == 0),
+                                                      key=lambda r: r["coords"][0])])
+        ref = first_step(signs)
+
+        def full(field: str) -> dict:
+            return {n: torch.cat([r["first"][field][n] for r in recs], -1) if n in split
+                    else recs[0]["first"][field][n] for n in recs[0]["first"][field]}
+
+        for r in ranks:  # each leaf equal on every rank that holds it
+            same = [q for q in ranks if q["coords"][1] == r["coords"][1]]
+            for field in ("grads", "mu", "nu", "params"):
+                for n, v in r["first"][field].items():
+                    peers = same if n in split else ranks
+                    check(all(torch.equal(q["first"][field][n], v) for q in peers),
+                          f"4m {tag}: {field} {n} differs across the ranks that hold it")
+        out = {"devices": sorted({r["device"] for r in ranks}), "split_leaves": len(split),
+               "replicated_leaves": sorted(set(recs[0]["layout"]) - split),
+               "loss_first": recs[0]["first"]["loss"], "loss_first_single": plain["loss"],
+               "loss_rel": abs(recs[0]["first"]["loss"] - plain["loss"]) / plain["loss"],
+               "residual_sign_flips": int((signs != plain_signs).sum()), "residuals": signs.numel()}
+        out["plain_grads_worst_rel"], out["plain_grads_worst_leaf"] = worst(full("grads"), plain["grads"])
+        for field in ("grads", "mu", "nu"):
+            out[f"{field}_worst_rel"], out[f"{field}_worst_leaf"] = worst(full(field), ref[field])
+            out[f"{field}_bound"], out[f"one_card_{field}_spread"] = bounds[field], spreads[field]
+        out["params_within_1e-6"], out["params_max_abs_diff"] = param_diffs(full("params"), ref["params"])
+        losses = recs[0]["losses"]
+        out.update({"first_cycle_mean_loss": float(np.mean(losses[:SHARD_CYCLE])),
+                    "last_cycle_mean_loss": float(np.mean(losses[-SHARD_CYCLE:])),
+                    "collectives_per_step": recs[0]["collectives_per_step"],
+                    "conv_launches": recs[0]["conv_launches"],
+                    "step_ms_by_rank": [r["step_ms"] for r in ranks],
+                    "host_ms_by_rank": [r["host_ms"] for r in ranks], "single_step_ms": ref_ms,
+                    "rank0_trace": recs[0].get("trace")})
+        say(f"4m {tag} [{card}]: " + json.dumps(out))
+        check(out["loss_rel"] <= 1e-5, f"4m {tag}: first loss relative {out['loss_rel']:.3g}")
+        for field in ("grads", "mu", "nu"):
+            check(out[f"{field}_worst_rel"] <= bounds[field],
+                  f"4m {tag}: {field} {out[f'{field}_worst_leaf']} off by {out[f'{field}_worst_rel']:.3g}")
+        check(out["params_within_1e-6"] >= 0.999 and out["params_max_abs_diff"] <= 6 * lr,
+              f"4m {tag}: params {out['params_within_1e-6']:.6f} within 1e-6, max {out['params_max_abs_diff']:.3g}")
+        check(out["last_cycle_mean_loss"] < out["first_cycle_mean_loss"], f"4m {tag}: the loss did not fall")
+        n_split = sum(1 for n in split if n.endswith(".kernel"))
+        check(all(r["collectives_per_step"] == {"all_gather": n_split, "all_reduce": n_split}
+                  for r in ranks), f"4m {tag}: collectives a step {recs[0]['collectives_per_step']}")
+        check(all(sum(r["conv_launches"].values()) == 0 for r in ranks), f"4m {tag}: a train step launched a kernel")
+        return out
+
+    try:
+        # (a) the world runs while this process steps the single-device reference
+        with concurrent.futures.ThreadPoolExecutor(1) as ex:
+            world = ex.submit(run_world, "gloo", [dev] * (SHARD_MESH[0] * SHARD_MESH[1]))
+            lrs, hrs = (b.to(dev) for b in batches)
+            lr0, hr0 = lrs[0], hrs[0]
+            with torch.no_grad(), pel.fp32_training():
+                plain_signs = torch.sign(copy.deepcopy(start).to(dev)(lr0) - hr0).to(torch.int8).cpu()
+            single = copy.deepcopy(start).to(dev)
+            opt = pel.adam(single, lr)
+            sstep = pel.make_train_step(single, opt)
+            losses = []
+            for s in range(SHARD_STEPS):
+                losses.append(sstep(lrs[s % SHARD_CYCLE], hrs[s % SHARD_CYCLE])[2])
+                if s == 0:
+                    ref = first_step_record(torch, losses[0], list(single.named_parameters()), opt)
+            trained_single = copy.deepcopy(single)
+            for p in trained_single.parameters():
+                p.requires_grad_(False)
+            gloo = world.result()
+        ref_ms, ref_host_ms = step_times(torch, sstep, (lrs[0], hrs[0]), SHARD_TIMED)
+        # one card's own spread: its first step on the batch reversed
+        reversed_step = first_step(reverse=True)
+        spreads = {field: worst(reversed_step[field], ref[field])[0] for field in ("grads", "mu", "nu")}
+        bounds = {field: max(SHARD_GRAD_BOUND, SHARD_SPREAD_FACTOR * v) for field, v in spreads.items()}
+        report["single"] = {"losses_first_cycle_mean": float(np.mean([float(v) for v in losses[:SHARD_CYCLE]])),
+                            "losses_last_cycle_mean": float(np.mean([float(v) for v in losses[-SHARD_CYCLE:]])),
+                            "step_ms": ref_ms, "host_ms": ref_host_ms}
+        report["gloo 2x2 on one card"] = held("gloo 2x2 on one card", gloo, ref, plain_signs, ref_ms)
+
+        # (b) the gathered weights, saved by rank 0, served through conv3x3.cu
+        model, meta = pel.load_model(t["arch"], 2, directory=Path(tmp.name) / "gloo")
+        check(meta["step"] == saved, f"the sharded checkpoint's step {meta['step']}")
+        x = torch.from_numpy(frame[None]).to(dev)
+        serving = pel.make_serving_fn_fused(model, IN_H, IN_W, dev)
+        out, got = launches_of(lambda: serving(x)[0].cpu().numpy())
+        plain = pel.make_serving_fn_fused(model, IN_H, IN_W, dev, conv=cc.conv3x3_plain)(x)[0].cpu().numpy()
+        single_out, got_single = launches_of(
+            lambda: pel.make_serving_fn_fused(trained_single, IN_H, IN_W, dev)(x)[0].cpu().numpy())
+        moved = max(float((p.cpu() - state[n]).abs().max()) for n, p in model.state_dict().items())
+        report["serve"] = {"step": meta["step"], "max_param_moved": moved, "launches": got,
+                           "vs_plain_conv_db": psnr(out, plain), "vs_plain_conv_max_lsb": lsb(out, plain),
+                           "alpha_equal": bool(np.array_equal(out[..., 3], plain[..., 3])),
+                           "vs_single_trained_db": psnr(out, single_out),
+                           "vs_single_trained_max_lsb": lsb(out, single_out),
+                           "vs_single_trained_equal": float((out == single_out).mean())}
+        say(f"4m the sharded-trained {t['arch']} x2 served 1080p -> 4K on conv3x3 [{card}]: "
+            + json.dumps(report["serve"]))
+        check(moved > 0, "the sharded steps moved no parameter")
+        check(got == {"conv3x3": 7, "conv3x3_q": 0} and got_single["conv3x3"] == 7, f"serving launches {got}")
+        check(out.shape == (OUT_H, OUT_W, 4) and report["serve"]["vs_plain_conv_db"] >= LEARNED_GATE_DB
+              and report["serve"]["alpha_equal"], f"4m serving vs its plain conv: {report['serve']}")
+        check(report["serve"]["vs_single_trained_db"] >= SHARD_SERVE_GATE_DB,
+              f"4m served vs the single-device-trained weights: {report['serve']['vs_single_trained_db']:.2f} dB")
+
+        # (c) a 1 x 1 NCCL world in this process
+        with pmesh.world(0, 1, "nccl", dev, str(Path(tmp.name) / "nccl_store")):
+            mesh = pmesh.make_2d_mesh(1, 1, dev)
+            one = copy.deepcopy(start)
+            step, sharded, nopt = pel.make_sharded_train_step(one, lr, mesh)
+            _, _, loss = step(batches[0][0], batches[1][0])
+            rec = first_step_record(torch, loss, list(sharded.named_parameters()), nopt)
+            tp.reset_collectives()
+            summed = tp.all_reduce(torch.arange(4.0, device=dev), mesh.get_group("data"))
+            gathered = tp.all_gather_last(torch.ones(2, 3, device=dev), mesh.get_group("model"))
+            nccl = {"backend": torch.distributed.get_backend(),
+                    "loss_rel": abs(rec["loss"] - ref["loss"]) / ref["loss"],
+                    "collectives": dict(tp.collectives),
+                    "probe_ok": bool(torch.equal(summed.cpu(), torch.arange(4.0))
+                                     and gathered.shape == (2, 3))}
+            nccl["grads_worst_rel"] = worst(rec["grads"], ref["grads"])[0]
+            nccl["params_within_1e-6"], nccl["params_max_abs_diff"] = param_diffs(rec["params"], ref["params"])
+            nccl["step_ms"], nccl["host_ms"] = step_times(torch, step, (lrs[0], hrs[0]), SHARD_TIMED)
+        report["nccl 1x1"] = nccl
+        say(f"4m NCCL 1 x 1 world [{card}]: " + json.dumps(nccl))
+        check(nccl["backend"] == "nccl" and nccl["probe_ok"] and nccl["loss_rel"] <= 1e-5
+              and nccl["grads_worst_rel"] <= SHARD_GRAD_BOUND and nccl["params_within_1e-6"] >= 0.999
+              and nccl["params_max_abs_diff"] <= 6 * lr, f"4m NCCL 1 x 1: {nccl}")
+
+        # (d) the step across four cards on NCCL
+        if torch.cuda.device_count() >= 4:
+            cards = [torch.device("cuda", i) for i in range(4)]
+            report["nccl 2x2 on four cards"] = held("nccl 2x2 on four cards", run_world("nccl", cards), ref,
+                                                   plain_signs, ref_ms)
+
+        # (e) no module of the JAX side; nothing written outside the temporary root
+        jax_side = jax_side_modules(root)
+        check(not jax_side, f"modules of the JAX side loaded: {jax_side}")
+    finally:
+        tmp.cleanup()
+    check(guarded_listing(root, pel.WEIGHTS_DIR) == before,
+          "phase 4m wrote under checkpoints/, the committed weights or checkpoints_torch/")
+    say(f"sharded training on the card [{card}]: launches {json.dumps(launches_of.total)}")
+    return launches_of.total, report
 
 
 def main() -> int:
@@ -2850,7 +3221,8 @@ def main() -> int:
     with Phase("4k training"):
         # the port's trainers at full width on the card, their checkpoints
         # in a temporary CKPT_ROOT, served through the port's kernels
-        k4_counts, train_steps = training_on_the_card(torch, card, dev, learned_in[2], (on_dev["a"], on_dev["b"]))
+        k4_counts, train_steps, pool = training_on_the_card(torch, card, dev, learned_in[2],
+                                                            (on_dev["a"], on_dev["b"]))
 
     with Phase("4l mesh"):
         # the mesh functions on shards that share the card (and on every card
@@ -2858,6 +3230,12 @@ def main() -> int:
         # sharded batch branches
         l4_counts, mesh_times = mesh_on_the_card(torch, card, torch.device("cuda", 0), frames, g["a"],
                                                  sized["540p"])
+
+    with Phase("4m sharded training"):
+        # the dp x tp train step on 4 ranks that share the card (and on NCCL
+        # across four cards when they are visible), a 1 x 1 NCCL world, and
+        # the gathered weights served through conv3x3.cu
+        m4_counts, _ = sharded_training_on_the_card(torch, card, torch.device("cuda", 0), pool, learned_in[2])
 
     with Phase("5 times"):
         flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -3107,7 +3485,8 @@ def main() -> int:
         rows.append({
             "name": "conv3x3", "route": "cuda", "source": CONV_SOURCE, "replaces": REPLACES["conv3x3"],
             "launches": learned_counts["conv3x3"] + h4_counts["conv3x3"] + j4_counts["conv3x3"]
-            + k4_counts["conv3x3"], "launches_training": k4_counts["conv3x3"],
+            + k4_counts["conv3x3"] + m4_counts["conv3x3"], "launches_training": k4_counts["conv3x3"],
+            "launches_sharded_training": m4_counts["conv3x3"],
             "max_abs_err": errs["conv3x3"], **main,
             # phase 4h: the refinement net's convs (4 a refined mid) and their times
             "launches_flow_soft_ref": h4_counts["conv3x3"], "refinement_shapes": refine_conv_ms,

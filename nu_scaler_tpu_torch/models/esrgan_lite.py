@@ -1,8 +1,8 @@
 """ESRGAN-lite, the learned tier — the port of
 `nu_scaler_tpu/models/esrgan_lite.py`: its serving paths and its training
 half (at the end: the seeded flax-distributed init, the L1 and L1 + gradient
-losses, the Adam step in fp32, the int8 calibration), which
-`models/train.py` drives.
+losses, the Adam step in fp32, the dp × tp sharded step on a 2-D
+`DeviceMesh`, the int8 calibration), which `models/train.py` drives.
 
 `ESRGANLiteTPU` is the network as an `nn.Module` in the [0, 1] domain: a
 space-to-depth(stride) front end, a head conv, residual blocks
@@ -69,6 +69,7 @@ from typing import Callable, NamedTuple, Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -76,6 +77,7 @@ from nu_scaler_tpu_torch.device import resolve_device
 from nu_scaler_tpu_torch.kernels import conv_cuda, trunk_cuda
 from nu_scaler_tpu_torch.ops.image_resize import image_resize
 from nu_scaler_tpu_torch.ops.resample import to_device_u8
+from nu_scaler_tpu_torch.parallel import tp
 
 WEIGHTS_DIR = Path(__file__).resolve().parents[1] / "weights"
 
@@ -1113,6 +1115,133 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, loss: st
     matmuls), autograd's gradients and one Adam step (`adam`)."""
     fn = loss_of(loss)
     return make_step(model, optimizer, lambda lr_b, hr_b: fn(model(lr_b), hr_b))
+
+
+# ---------------------------------------------------------------------------
+# the dp × tp train step (`esrgan_lite.py:392-434`) on a 2-D DeviceMesh
+# ---------------------------------------------------------------------------
+
+
+def param_shardings(model: nn.Module, mesh) -> dict:
+    """The tp layout (`param_shardings`, `esrgan_lite.py:392`): a 4-D (HWIO)
+    kernel whose last axis divides by the mesh's "model" size splits on it,
+    ``(None, None, None, "model")``; a 1-D leaf that divides splits,
+    ``("model",)``; any other leaf is replicated, ``()``. The specs are
+    JAX's PartitionSpec entries, by parameter name."""
+    m = mesh.size(mesh.mesh_dim_names.index("model"))
+
+    def spec(p: torch.Tensor) -> tuple:
+        if p.ndim == 4 and p.shape[-1] % m == 0:
+            return (None, None, None, "model")
+        if p.ndim == 1 and p.shape[0] % m == 0:
+            return ("model",)
+        return ()
+
+    return {name: spec(p) for name, p in model.named_parameters()}
+
+
+class ShardedConv3x3(Conv3x3):
+    """A `Conv3x3` column-parallel over the mesh's "model" axis: it holds
+    this rank's slice of the output channels (kernel and bias), takes its
+    input replicated (`tp.copy_to_model`) and gives the full channels back
+    (`tp.gather_channels`); over one rank it is the plain conv."""
+
+    def __init__(self, conv: Conv3x3, group) -> None:
+        nn.Module.__init__(self)
+        self.group = group
+        size, rank = dist.get_world_size(group), dist.get_rank(group)
+        w = conv.kernel.shape[-1] // size
+        mine = slice(rank * w, (rank + 1) * w)
+        self.kernel = nn.Parameter(conv.kernel.detach()[..., mine].clone(), requires_grad=False)
+        self.bias = nn.Parameter(conv.bias.detach()[mine].clone(), requires_grad=False)
+        self.split = size > 1
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.split:
+            return super().forward(x)
+        return tp.gather_channels(super().forward(tp.copy_to_model(x, self.group)), self.group)
+
+
+def _swap_convs(model: nn.Module, make: Callable[[str, Conv3x3], nn.Module], keep=()) -> nn.Module:
+    """A copy of `model` with each `Conv3x3` child named n replaced by
+    ``make(n, conv)``; the objects in `keep` (process groups) are shared,
+    not copied."""
+    out = copy.deepcopy(model, memo={id(k): k for k in keep})
+    for name, conv in [(n, m) for n, m in out.named_modules() if isinstance(m, Conv3x3)]:
+        parent, _, leaf = name.rpartition(".")
+        setattr(out.get_submodule(parent), leaf, make(name, conv))
+    return out
+
+
+def make_sharded_train_step(model: nn.Module, lr: float, mesh):
+    """The port of `make_sharded_train_step` (`esrgan_lite.py:409`): the L1
+    train step with the batch split over the mesh's "data" axis and every
+    conv whose output channels divide by the "model" size split over it
+    (`param_shardings`), run on every rank of the mesh's world.
+
+    Returns (step, sharded_model, optimizer), as JAX returns (step,
+    sharded_params, opt_state): `sharded_model` a copy of `model` on this
+    rank's device whose split convs are `ShardedConv3x3`, the module's own
+    forward unchanged; `optimizer` `adam` over its local parameters with
+    fresh moments. ``step(lr_batch, hr_batch)`` takes the global batch (N
+    must divide by the "data" size, as JAX's ``P("data")``), runs this
+    rank's part forward and backward under `fp32_training`, averages the
+    gradients over "data" (one all-reduce of one flat buffer, the loss in
+    it), takes one Adam step and returns (sharded_model, optimizer, the
+    global L1 loss) on every rank."""
+    specs = param_shardings(model, mesh)
+    model_group, data_group = mesh.get_group("model"), mesh.get_group("data")
+    device = tp.rank_device(mesh)
+    sharded = _swap_convs(
+        model, lambda n, c: ShardedConv3x3(c, model_group) if specs[f"{n}.kernel"] else c).to(device)
+    optimizer = adam(sharded, lr)
+    params = list(sharded.parameters())
+    d, r = dist.get_world_size(data_group), dist.get_rank(data_group)
+
+    def step(lr_batch, hr_batch):
+        n = int(lr_batch.shape[0])
+        if n % d or int(hr_batch.shape[0]) != n:
+            raise ValueError(f"a global batch of {n} (targets {hr_batch.shape[0]}) does not split over "
+                             f"the {d} data ranks")
+        k = n // d
+        lr_b, hr_b = (torch.as_tensor(b)[r * k: (r + 1) * k].to(device) for b in (lr_batch, hr_batch))
+        with fp32_training():
+            optimizer.zero_grad(set_to_none=True)
+            lv = l1_loss(sharded, lr_b, hr_b)
+            lv.backward()
+            if d > 1:
+                flat = torch.cat([p.grad.reshape(-1) for p in params] + [lv.detach().reshape(1)])
+                tp.all_reduce(flat, data_group).div_(d)
+                for p, g in zip(params, flat[:-1].split([p.numel() for p in params])):
+                    p.grad.copy_(g.view_as(p))
+                lv = flat[-1]
+            optimizer.step()
+        return sharded, optimizer, lv.detach()
+
+    return step, sharded, optimizer
+
+
+def gather_model(sharded: nn.Module, mesh) -> nn.Module:
+    """The full module of a sharded one (`make_sharded_train_step`) on every
+    rank, on this rank's device, its parameters frozen as a served module's:
+    each split conv's slices gathered over "model" in rank order, the bytes
+    the ranks hold."""
+    group = mesh.get_group("model")
+
+    def full(_, conv: Conv3x3) -> Conv3x3:
+        if not isinstance(conv, ShardedConv3x3):
+            return conv
+        out = Conv3x3(conv.kernel.shape[2], conv.kernel.shape[3] * dist.get_world_size(group))
+        out.to(conv.kernel.device)
+        with torch.no_grad():
+            for mine, whole in ((conv.kernel, out.kernel), (conv.bias, out.bias)):
+                whole.copy_(tp.all_gather_last(mine.detach(), group) if conv.split else mine)
+        return out
+
+    out = _swap_convs(sharded, full, keep=(group,))
+    for p in out.parameters():
+        p.requires_grad_(False)
+    return out
 
 
 def amax(t: torch.Tensor) -> float:

@@ -7,7 +7,10 @@ the synthetic gradients and blobs of `make_batch`. The step is
 `esrgan_lite.make_train_step`: the module's fp32 forward, autograd, Adam with
 `optax.adam`'s constants, under `esrgan_lite.fp32_training` (no TF32), on
 the card unless the caller asks for the CPU. A step that fails raises; it
-never moves to the CPU.
+never moves to the CPU. Training on several cards (or several ranks of one)
+uses the dp × tp sharded step, `esrgan_lite.make_sharded_train_step` on a
+`parallel.mesh.make_2d_mesh`, one process a rank; `esrgan_lite.gather_model`
+gives back the full module that `save_checkpoint` writes.
 
 Checkpoints go under `CKPT_ROOT` (``checkpoints_torch/`` at the root of the
 checkout, git-ignored), never under the JAX package's ``checkpoints/`` or the

@@ -36,18 +36,31 @@ A mesh is a tuple of devices: the visible cards (`make_mesh`), or shards
 that share one card or the CPU, built explicitly as
 ``Mesh((torch.device("cuda", 0),) * 4)``, the port's counterpart of JAX's
 ``--xla_force_host_platform_device_count``. The API reads `default_mesh`.
-The dp × tp train step (`make_2d_mesh`) is not ported yet.
+
+The dp × tp train step (`models/esrgan_lite.py` `make_sharded_train_step`)
+is SPMD instead: one process a rank, `torch.distributed` collectives over
+the `DeviceMesh` of `make_2d_mesh` (dims "data" and "model"), its
+collectives in `parallel/tp.py`. `world` makes this process a rank and
+`spawn_world` starts a world of them; the caller names each rank's device
+and the backend: "nccl" across cards, "gloo" for ranks that share one card
+or the CPU (NCCL refuses two ranks on one card).
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import datetime
 import functools
+import tempfile
+import time
+from pathlib import Path
 from typing import Callable, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from nu_scaler_tpu_torch.device import resolve_device
 from nu_scaler_tpu_torch.kernels import soft_warp_cuda as swc
@@ -510,3 +523,86 @@ def esrgan_infer_spatial(model: torch.nn.Module, x: torch.Tensor, mesh: Optional
             u = out.shape[1] // (e1 - e0)
             parts.append(out[:, (r0 - e0) * u : (r0 - e0 + rows) * u])
     return _gather(parts, mesh, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# the dp × tp train step's world: one process a rank
+# ---------------------------------------------------------------------------
+
+BACKENDS = ("nccl", "gloo")
+WORLD_TIMEOUT_S = 300.0
+
+
+@contextlib.contextmanager
+def world(rank: int, world_size: int, backend: str, device, store: str,
+          timeout: float = WORLD_TIMEOUT_S):
+    """This process as rank `rank` of a `torch.distributed` world of
+    `world_size` ranks on `backend` ("nccl" or "gloo"), its device `device`
+    (made the current CUDA device), the rendezvous the file `store` (a path
+    that no earlier world used). A collective that waits longer than
+    `timeout` seconds raises. Yields the device; the process group is
+    destroyed on the way out."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
+    dev = resolve_device(torch.device(device))
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError(f"nccl needs a CUDA device, got {dev}")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"file://{store}", rank=rank, world_size=world_size,
+                            timeout=datetime.timedelta(seconds=timeout))
+    try:
+        yield dev
+    finally:
+        dist.destroy_process_group()
+
+
+def _rank_main(rank: int, fn: Callable, backend: str, devices: tuple, tmp: str, args: tuple,
+               timeout: float) -> None:
+    with world(rank, len(devices), backend, devices[rank], f"{tmp}/store", timeout) as dev:
+        result = fn(rank, dev, *args)
+    torch.save(result, f"{tmp}/rank{rank}.pt")
+
+
+def spawn_world(fn: Callable, backend: str, devices: Sequence, args: tuple = (),
+                timeout: float = WORLD_TIMEOUT_S) -> list:
+    """Run ``fn(rank, device, *args)`` as each rank of a world of
+    ``len(devices)`` spawned processes, rank r on ``devices[r]`` (`world`),
+    and return the ranks' results in rank order. `fn` and `args` must pickle
+    (`fn` a module-level function) and the results hold only tensors and
+    plain Python values. The rendezvous is a file in a fresh temporary
+    directory, so worlds never share a port. A rank that raises or dies ends
+    the others and raises here, and so does a world that outlives `timeout`
+    seconds."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="nu_scaler_world_") as tmp:
+        ctx = mp.start_processes(_rank_main, args=(fn, backend, tuple(str(d) for d in devices), tmp, args,
+                                                   timeout),
+                                 nprocs=len(devices), join=False, start_method="spawn")
+        deadline = time.monotonic() + timeout
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.monotonic() > deadline:
+                    raise TimeoutError(f"the world of {len(devices)} ranks outlived {timeout} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                p.join()
+        return [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=True) for r in range(len(devices))]
+
+
+def make_2d_mesh(data: int, model: int, device) -> DeviceMesh:
+    """The port of `make_2d_mesh` (`nu_scaler_tpu/parallel/mesh.py:40`): a
+    `DeviceMesh` of dims ("data", "model") and shape (data, model) over the
+    initialised world (`world`), whose size must be data × model; `device`
+    is this rank's (made the current CUDA device) and gives the mesh its
+    device type."""
+    size = dist.get_world_size() if dist.is_initialized() else 0
+    if data < 1 or model < 1 or size != data * model:
+        raise ValueError(f"a {data} x {model} mesh needs a world of {data * model} ranks; it has {size}")
+    dev = resolve_device(torch.device(device))
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return init_device_mesh(dev.type, (data, model), mesh_dim_names=("data", "model"))
