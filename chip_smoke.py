@@ -207,6 +207,23 @@ Phases, each printed on its own line with its seconds:
    single-device-trained weights; a 1 x 1 NCCL world; with four cards
    visible, the 2 x 2 step on NCCL across them
    (tools/sharded_train_probe.py runs this phase alone);
+4n. serving after training, its launches read call by call: with
+   phase 4k's root as CKPT_ROOT and the loaders' caches cleared,
+   create_advanced_upscaler("ultra") on the "quality" ladder at 1080p -> 4K
+   serves the CLI's calibrated tpu4b2 76050 (8 conv3x3_q, 4k's bytes); after
+   a further CLI step without calibration, the committed tpu4 x2 int8 at
+   80000 (against its plain path and make_quant_apply, phase 4d's gates),
+   and "ultra" the new step in bf16 (>= 45 dB against the plain conv);
+   WgpuFrameInterpolator("flow_soft_ref") at 1080p the trained interp_ref4
+   in int8, 4k's RefineGraph mid. Then tpu4 x2 resumed from 80000 with the
+   export's Adam moments, one step card vs CPU (4k's bounds); the tpu4 x2
+   teacher's outputs card vs CPU (TEACHER_GATE) and two interp_ref4 steps
+   distilled from interp_ref4w, the first loss card vs CPU within 1e-5;
+   tpu8 and tpu8w x2 on their committed weights at 1080p -> 4K (phase 4f's
+   gates). Every phase runs with CKPT_ROOT an empty temporary directory, so
+   a checkpoints_torch/ on the machine changes nothing served; at the end
+   nothing may have been written there, under checkpoints/, the committed
+   weights or checkpoints_torch/;
 5. times: per kernel the median of 20 CUDA-event timings after 3 warm-ups,
    the plain version's time, and the bound (the larger of bytes moved over
    the memory rate and operations over the rate of their type: fp32, or
@@ -336,6 +353,11 @@ LEARN_STEPS = 100  # from a seeded init: the loss must fall
 SERVE_STEPS = 50  # the CLI's leg from the export, then calibrated and served
 TRAIN_TIMED = 20  # CUDA-event timings of one step, after 3 warm-ups
 REFINE_STEP = 112000
+# phase 4n: tpu4 x2 teacher outputs (fp32, [0, 1] domain), card against the
+# CPU: max |d|, set before the first run (the nine convs' fp32 sums in
+# another order on each side); the refinement net's distillation teacher
+TEACHER_GATE = 1e-4
+DISTILL_TEACHER = ("interp_ref4w", 192, 2)
 REFINE_TRAIN = dict(n_clips=1, frames_per_clip=4, pool_size=256, steps=20)
 EVAL_GATE = (0.05, 1e-3)  # eval_vs_lanczos3 card vs CPU: dB, SSIM
 # phase 4l, the mesh: shards of the virtual mesh on cuda:0, the dp batch (6:
@@ -1002,9 +1024,13 @@ def training_on_the_card(torch, card, dev, frame, pair) -> tuple[dict, dict]:
     - (c) no module of the JAX side loaded; nothing written under
       checkpoints/, nu_scaler_tpu_torch/weights/ or checkpoints_torch/.
 
-    Returns (the launches of the phase by kernel, {tag: (fn, arg)}: the SR
-    and refinement train steps for phase 6's traces, the SR trainer's
-    `PairPool`)."""
+    The temporary CKPT_ROOT outlives the phase: phase 4n serves from it and
+    removes it. Returns (the launches of the phase by kernel, {tag: (fn,
+    arg)}: the SR and refinement train steps for phase 6's traces, the SR
+    trainer's `PairPool`, what phase 4n needs: {"tmp": the root, "saved"
+    and "rstep": the steps the CLI and the refinement leg saved, "served":
+    the 4K bytes of the CLI's calibrated checkpoint, "refine_mid": the int8
+    `RefineGraph` mid of the trained net, "pair", "tpool"})."""
     import tempfile
     from pathlib import Path
 
@@ -1198,15 +1224,20 @@ def training_on_the_card(torch, card, dev, frame, pair) -> tuple[dict, dict]:
         check(rstep == REFINE_STEP + r["steps"], f"the refinement leg saved step {rstep}")
         rscales = pir.calibrate_scales(rmodel, crops=tpool.xs)
         pir.save_act_scales(rscales, rstep)
-        check(pir.load_act_scales() is None and pir.load_model()[1]["step"] == REFINE_STEP,
-              "the serving net saw the trained checkpoint")
+        # the trained step resolves (its scales), while the cached serving
+        # net stays the one this process loaded first (phase 4h's) until the
+        # loaders' caches are cleared (phase 4n)
+        check(pir.load_act_scales() == rscales and pir.load_model()[1]["step"] == REFINE_STEP,
+              "the trained step did not resolve, or the cached serving net moved")
         a, b = pair
         soft_mid = interp.soft_interp_fast(a, b, 0.5)
         committed_mid = pir.get_refine_graph(IN_H, IN_W, dev)(a, b, soft_mid).cpu().numpy()
         report["refine"] = {"final_loss": loss, "step": rstep, "scales": rscales}
+        refined = {}
         for tag, q in (("bf16", None), ("int8", rscales)):
             graph = pir.RefineGraph(rmodel, IN_H, IN_W, dev, quant_scales=q)
             ker, got = launches_of(lambda: graph(a, b, soft_mid).cpu().numpy())
+            refined[tag] = ker
             plain = pir.RefineGraph(rmodel, IN_H, IN_W, dev, conv=cc.conv3x3_plain, quant_scales=q,
                                     conv_q=cc.conv3x3_q_plain)(a, b, soft_mid).cpu().numpy()
             report["refine"][tag] = {"launches": got, "vs_plain_convs_db": psnr(ker, plain),
@@ -1234,11 +1265,12 @@ def training_on_the_card(torch, card, dev, frame, pair) -> tuple[dict, dict]:
         check(not jax_side, f"modules of the JAX side loaded: {jax_side}")
     finally:
         ptrain.CKPT_ROOT = ckpt_root
-        tmp.cleanup()
     check(guarded_listing(root, pel.WEIGHTS_DIR) == before,
           "phase 4k wrote under checkpoints/, the committed weights or checkpoints_torch/")
     say(f"training on the card [{card}]: launches {json.dumps(launches_of.total)}")
-    return launches_of.total, traced, pool
+    trained = {"tmp": tmp, "saved": saved, "rstep": rstep, "served": out, "refine_mid": refined["int8"],
+               "pair": pair, "tpool": tpool}
+    return launches_of.total, traced, pool, trained
 
 
 def mesh_on_the_card(torch, card, dev, frames, golden_a, frame540) -> tuple[dict, dict]:
@@ -1741,6 +1773,253 @@ def sharded_training_on_the_card(torch, card, dev, pool, frame) -> tuple[dict, d
     return launches_of.total, report
 
 
+def serving_after_training(torch, card, dev, frame, pool, trained) -> dict:
+    """Phase 4n: train -> serve -> resume at full width, seed 0, through the
+    entry points a user calls, after phase 4k's trainers wrote into its
+    CKPT_ROOT (`trained`: that root, with the CLI's tpu4b2 x2 step at 76050
+    calibrated with --io and interp_ref4 at 112020 calibrated, and what 4k
+    served from them), the loaders' caches cleared as a new process has
+    them:
+
+    - (b) with 4k's root as CKPT_ROOT: `create_advanced_upscaler("ultra")`
+      on the "quality" ladder (the default `learned_prefer`) at 1080p -> 4K
+      serves tpu4b2@76050 in int8 from that root, 8 conv3x3_q launches, the
+      bytes 4k served through `load_model(directory=)`; the CLI writes
+      76051 with no calibration, and "quality" falls to the committed tpu4
+      x2 int8 at 80000 (8 conv3x3_q, its bf16 head on conv3x3): against the
+      same graph on the plain versions (bit-equal where every conv is int8,
+      else >= LEARNED_GATE_DB and alpha equal, phase 4d's rule) and >=
+      INT8_LEARNED's x2 gate against `make_quant_apply`; "ultra" serves
+      76051 in bf16 (7 conv3x3) >= LEARNED_GATE_DB against the plain conv,
+      alpha equal; `WgpuFrameInterpolator("flow_soft_ref")` at 1080p serves
+      interp_ref4@112020 in int8 (4 conv3x3_q, 1 soft_warp_blend), its mid
+      the one 4k's `RefineGraph` on the trained module gave;
+    - (c) with the run's empty CKPT_ROOT: `train.load_latest("tpu4", 1)`
+      resumes from the committed 80000 and `load_export_opt_state` restores
+      Adam's moments; one step on the card and one on the CPU on a batch of
+      TRAIN's size from 4k's `PairPool`: the loss within a relative 1e-5,
+      the parameters 99.9% within 1e-6 and all within 6·lr (4k's bounds);
+    - (d) `teacher_outputs("tpu4", 1, …)` on 64 pool crops, card against
+      CPU, within TEACHER_GATE; two interp_ref4 distillation steps from the
+      committed 112000 with the teacher DISTILL_TEACHER resolved from its
+      committed export, on 4k's `TripletPool`, card against CPU: the first
+      loss within a relative 1e-5;
+    - (e) tpu8 and tpu8w x2 on their committed weights at 1080p -> 4K
+      through `load_model` + `make_serving_fn` on conv3x3 (9 launches each):
+      >= LEARNED_GATE_DB against the same graph on the plain conv, alpha
+      equal, and >= RUNG_TWIN_GATE_DB against the fp32 twin (4f's gates).
+
+    Each learned call's arch, step and source directory are printed. 4k's
+    root is removed at the end, and the loaders' caches cleared again.
+    Returns the launches of the phase by kernel."""
+    from pathlib import Path
+
+    from nu_scaler_tpu_torch.core import WgpuFrameInterpolator, create_advanced_upscaler
+    from nu_scaler_tpu_torch.kernels import conv_cuda as cc
+    from nu_scaler_tpu_torch.kernels import resample_cuda as rc
+    from nu_scaler_tpu_torch.kernels import soft_warp_cuda as swc
+    from nu_scaler_tpu_torch.models import esrgan_lite as pel
+    from nu_scaler_tpu_torch.models import interp_refine as pir
+    from nu_scaler_tpu_torch.models import train as ptrain
+    from nu_scaler_tpu_torch.ops import interpolate as interp
+
+    launches_of = Launches(torch, (rc, swc, cc))
+    t, lr = TRAIN, TRAIN["lr"]
+    cpu = torch.device("cpu")
+    report = {"card": card}
+    x = torch.from_numpy(frame[None]).to(dev)
+    x01 = torch.from_numpy(frame[None, ..., :3].astype(np.float32) / 255.0).to(dev)
+
+    def clear_caches() -> None:
+        for fn in (pel._cached_model, pel._build_pretrained, pir.load_model, pir._refine_graph,
+                   interp._interpolator, interp._multi_interpolator, interp._refined_mid_upscaler,
+                   interp._refined_multi_upscaler):
+            fn.cache_clear()
+
+    def served(prefer: str):
+        """(the learned fn, its 4K output, its launches) of the API's learned
+        tier on the `prefer` ladder at 1080p -> 4K."""
+        up = create_advanced_upscaler("ultra")
+        up.learned_prefer = prefer
+        up.initialize(IN_W, IN_H, OUT_W, OUT_H)
+        fn = up._fn
+        out, got = launches_of(lambda: up.upscale(frame.tobytes()))
+        say(f"4n learned {prefer} x2: {fn.arch}@{fn.step} from {fn.directory}, int8 {fn.quantized}, "
+            f"launches {json.dumps(got)}")
+        return fn, np.frombuffer(out, np.uint8).reshape(OUT_H, OUT_W, 4), got
+
+    def ran(got: dict) -> dict:
+        """The kernels a call launched, with their counts."""
+        return {k: v for k, v in got.items() if v}
+
+    def u8(t01) -> np.ndarray:
+        return torch.clamp(torch.round(t01 * 255.0), 0, 255).to(torch.uint8).cpu().numpy()
+
+    def param_diffs(a, b) -> tuple[float, float]:
+        d = torch.cat([(p.detach().cpu() - q.detach().cpu()).abs().flatten()
+                       for p, q in zip(a.parameters(), b.parameters())])
+        return float((d <= 1e-6).float().mean()), float(d.max())
+
+    run_root = ptrain.CKPT_ROOT
+    ptrain.CKPT_ROOT = Path(trained["tmp"].name)
+    clear_caches()
+    try:
+        # (b) serve what 4k's trainers wrote
+        fn, out, got = served("quality")
+        report["quality_trained"] = {"arch": fn.arch, "step": fn.step, "directory": str(fn.directory),
+                                     "quantized": fn.quantized, "launches": got,
+                                     "equals_4k_served": bool(np.array_equal(out, trained["served"]))}
+        check((fn.arch, fn.step, fn.directory, fn.quantized) == (t["arch"], trained["saved"], ptrain.CKPT_ROOT, True)
+              and ran(got) == {"conv3x3_q": 8},
+              f"quality after the CLI's calibrated step: {report['quality_trained']}")
+        check(report["quality_trained"]["equals_4k_served"], "quality's bytes differ from 4k's served checkpoint")
+
+        further = trained["saved"] + 1
+        check(ptrain.main(["--arch", t["arch"], "--steps", "1", "--batch", str(t["batch"]),
+                           "--data", "synthetic"]) == 0, "the CLI's further step failed")
+        check(pel.sidecar_scales(pel._sidecar(t["arch"], 2, ptrain.CKPT_ROOT)) is None,
+              "the further step carries a calibration")
+        clear_caches()
+        fn, out, got = served("quality")
+        model, meta = pel.load_model("tpu4", 2)
+        scales = pel.sidecar_scales(meta)
+        plain = pel.make_serving_fn_fused(model, IN_H, IN_W, dev, conv=cc.conv3x3_plain, quant_scales=scales,
+                                          conv_q=cc.conv3x3_q_plain)(x)[0].cpu().numpy()
+        twin = u8(pel.make_quant_apply(model, scales)(x01)[0])
+        n_bf16 = got["conv3x3"]
+        report["quality_fallback"] = {
+            "arch": fn.arch, "step": fn.step, "directory": str(fn.directory), "quantized": fn.quantized,
+            "launches": got, "vs_plain_path_equal": float((out == plain).mean()), "vs_plain_path_db": psnr(out, plain),
+            "vs_plain_path_max_lsb": lsb(out, plain), "alpha_equal": bool(np.array_equal(out[..., 3], plain[..., 3])),
+            "vs_int8_twin_db": psnr(out, twin)}
+        say(f"4n quality x2 after a step with no calibration [{card}]: " + json.dumps(report["quality_fallback"]))
+        check((fn.arch, fn.step, fn.directory, fn.quantized) == ("tpu4", 80000, pel.WEIGHTS_DIR, True)
+              and ran(got) == {"conv3x3_q": 8, **({} if "head" in scales else {"conv3x3": 1})},
+              f"quality after the uncalibrated step: {report['quality_fallback']}")
+        check(report["quality_fallback"]["vs_plain_path_db"] >= LEARNED_GATE_DB
+              and report["quality_fallback"]["alpha_equal"]
+              and (n_bf16 > 0 or report["quality_fallback"]["vs_plain_path_equal"] == 1.0),
+              f"tpu4 x2 int8 vs its plain path: {report['quality_fallback']}")
+        check(report["quality_fallback"]["vs_int8_twin_db"] >= INT8_LEARNED[0][6],
+              f"tpu4 x2 int8 vs its twin: {report['quality_fallback']['vs_int8_twin_db']:.2f} dB")
+
+        fn, out, got = served("ultra")
+        model, meta = pel.load_model(t["arch"], 2, ptrain.CKPT_ROOT)
+        plain = pel.make_serving_fn_fused(model, IN_H, IN_W, dev, conv=cc.conv3x3_plain)(x)[0].cpu().numpy()
+        report["ultra_trained"] = {"arch": fn.arch, "step": fn.step, "directory": str(fn.directory),
+                                   "quantized": fn.quantized, "launches": got, "vs_plain_conv_db": psnr(out, plain),
+                                   "alpha_equal": bool(np.array_equal(out[..., 3], plain[..., 3]))}
+        say(f"4n ultra x2 after the further step [{card}]: " + json.dumps(report["ultra_trained"]))
+        check((fn.arch, fn.step, fn.directory, fn.quantized, meta["step"])
+              == (t["arch"], further, ptrain.CKPT_ROOT, False, further) and ran(got) == {"conv3x3": 7},
+              f"ultra after the further step: {report['ultra_trained']}")
+        check(report["ultra_trained"]["vs_plain_conv_db"] >= LEARNED_GATE_DB and report["ultra_trained"]["alpha_equal"],
+              f"ultra's new step vs its plain conv: {report['ultra_trained']}")
+
+        fr = WgpuFrameInterpolator(mode="flow_soft_ref")
+        ab = (trained["pair"][0].cpu().numpy().tobytes(), trained["pair"][1].cpu().numpy().tobytes())
+        mid, got = launches_of(lambda: fr.interpolate_py(*ab, IN_W, IN_H))
+        meta = pir.load_model()[1]
+        mid = np.frombuffer(mid, np.uint8).reshape(IN_H, IN_W, 4)
+        report["flow_soft_ref_trained"] = {"net": meta["net"], "step": meta["step"],
+                                           "directory": str(pir._newest()[1]),
+                                           "int8": pir.get_refine_graph(IN_H, IN_W, dev).quantized, "launches": got,
+                                           "equals_4k_graph": bool(np.array_equal(mid, trained["refine_mid"]))}
+        say(f"4n flow_soft_ref at 1080p: {meta['net']}@{meta['step']} from "
+            f"{report['flow_soft_ref_trained']['directory']} [{card}]: " + json.dumps(report["flow_soft_ref_trained"]))
+        check(meta["step"] == trained["rstep"] and report["flow_soft_ref_trained"]["int8"]
+              and ran(got) == {"conv3x3_q": 4, "soft_warp_blend": 1}
+              and report["flow_soft_ref_trained"]["equals_4k_graph"],
+              f"flow_soft_ref after 4k's leg: {report['flow_soft_ref_trained']}")
+    finally:
+        ptrain.CKPT_ROOT = run_root
+        clear_caches()
+        trained["tmp"].cleanup()
+
+    # (c) resume tpu4 x2 from the committed 80000 with Adam's moments
+    rng = np.random.default_rng(SEED + 5)
+    idx = rng.integers(0, pool.lrs.shape[0], size=t["batch"])
+    batch = (torch.from_numpy(pool.lrs[idx]), torch.from_numpy(pool.hrs[idx]))
+    resumed, losses = {}, {}
+    for where, d in (("card", dev), ("cpu", cpu)):
+        model, step0, own = ptrain.load_latest("tpu4", 1)
+        model.to(d)
+        opt = pel.adam(model, lr)
+        check(step0 == 80000 and not own and ptrain.load_export_opt_state(opt, model, "tpu4", 1, step0),
+              f"tpu4 x2 resumes from {step0} (own {own}) without the export's moments")
+        count = {float(s["step"]) for s in opt.state.values()}
+        (_, _, losses[where]), got = launches_of(lambda: pel.make_train_step(model, opt, "l1")(
+            *(b.to(d) for b in batch)))
+        resumed[where] = model
+        check(not ran(got) and {float(s["step"]) for s in opt.state.values()} == {c + 1 for c in count},
+              f"the tpu4 resume step: launches {got}, Adam counts {count}")
+    rel = abs(float(losses["card"]) - float(losses["cpu"])) / float(losses["cpu"])
+    within, max_d = param_diffs(resumed["card"], resumed["cpu"])
+    report["resume_tpu4_x2"] = {"from": 80000, "adam_count": sorted(count)[0], "loss_card": float(losses["card"]),
+                                "loss_cpu": float(losses["cpu"]), "loss_rel": rel, "params_within_1e-6": within,
+                                "params_max_abs_diff": max_d}
+    say(f"4n tpu4 x2 resumed from 80000 with the export's moments, card vs CPU [{card}]: "
+        + json.dumps(report["resume_tpu4_x2"]))
+    check(rel <= 1e-5 and within >= 0.999 and max_d <= 6 * lr, f"4n resume: {report['resume_tpu4_x2']}")
+
+    # (d) the teachers: tpu4 x2 for `--distill tpu4`, interp_ref4w for the refinement net
+    lrs = pool.lrs[:64]
+    t_card = ptrain.teacher_outputs("tpu4", 1, lrs, dev)
+    t_cpu = ptrain.teacher_outputs("tpu4", 1, lrs, "cpu")
+    report["teacher_tpu4_x2"] = {"crops": int(lrs.shape[0]), "max_abs_diff": float(np.abs(t_card - t_cpu).max()),
+                                 "gate": TEACHER_GATE}
+    name, t_features, t_blocks = DISTILL_TEACHER
+    student0, sstep = pir.load_checkpoint()
+    teacher0, tstep = pir.load_checkpoint(name)
+    check(sstep == REFINE_STEP and (teacher0.features, teacher0.blocks) == (t_features, t_blocks),
+          f"the distillation resolves {pir.NET}@{sstep} and {name} {teacher0.features}/{teacher0.blocks}")
+    tpool = trained["tpool"]
+    didx = np.random.default_rng(SEED + 6).integers(0, tpool.xs.shape[0], size=(2, t["batch"]))
+    dlosses, students = {}, {}
+    for where, d in (("card", dev), ("cpu", cpu)):
+        student, teacher = copy.deepcopy(student0).to(d), copy.deepcopy(teacher0).to(d)
+        step = pel.make_step(student, pel.adam(student, lr),
+                             lambda xb, yb, s_=student, t_=teacher: pir.refine_loss(s_, xb, yb, t_, 0.5))
+        seen = []
+        for i in range(2):
+            xb, yb = (torch.from_numpy(a[didx[i]]).to(d) for a in (tpool.xs, tpool.ys))
+            (_, _, lv), got = launches_of(lambda: step(xb, yb))
+            check(not ran(got), f"the distillation step launched a kernel: {got}")
+            seen.append(float(lv))
+        dlosses[where], students[where] = seen, student
+    rel = abs(dlosses["card"][0] - dlosses["cpu"][0]) / dlosses["cpu"][0]
+    within, max_d = param_diffs(students["card"], students["cpu"])
+    second_rel = abs(dlosses["card"][1] - dlosses["cpu"][1]) / dlosses["cpu"][1]
+    report["distill_interp_ref4w"] = {"student": f"{pir.NET}@{sstep}", "teacher": f"{name}@{tstep}",
+                                      "losses_card": dlosses["card"], "losses_cpu": dlosses["cpu"],
+                                      "first_loss_rel": rel, "second_loss_rel": second_rel,
+                                      "params_within_1e-6": within, "params_max_abs_diff": max_d}
+    say(f"4n teachers, card vs CPU [{card}]: " + json.dumps({k: report[k] for k in ("teacher_tpu4_x2",
+                                                                                    "distill_interp_ref4w")}))
+    check(report["teacher_tpu4_x2"]["max_abs_diff"] <= TEACHER_GATE, f"tpu4 teacher: {report['teacher_tpu4_x2']}")
+    check(rel <= 1e-5, f"interp_ref4w distillation, first loss: card vs CPU relative {rel:.3g}")
+
+    # (e) the stride-8 archs on their committed weights
+    for arch in ("tpu8", "tpu8w"):
+        model, meta = pel.load_model(arch, 2)
+        serving = pel.make_serving_fn(model, IN_H, IN_W, OUT_H, OUT_W, dev)
+        out, got = launches_of(lambda: serving(x)[0].cpu().numpy())
+        plain = pel.make_serving_fn(model, IN_H, IN_W, OUT_H, OUT_W, dev, conv=cc.conv3x3_plain)(x)[0].cpu().numpy()
+        twin = u8(pel.make_twin(model, OUT_H, OUT_W)(x01)[0])
+        rep = {"step": meta["step"], "features": model.features, "base": model.base_impl,
+               "graph": type(serving).__name__, "launches": got, "vs_plain_conv_db": psnr(out, plain),
+               "alpha_equal": bool(np.array_equal(out[..., 3], plain[..., 3])), "vs_twin_db": psnr(out, twin)}
+        report[f"{arch}_x2"] = rep
+        say(f"4n {arch}@{meta['step']} x2 from {pel.WEIGHTS_DIR} at 1080p -> 4K [{card}]: " + json.dumps(rep))
+        check(isinstance(serving, pel.FusedServing) and ran(got) == {"conv3x3": serving.convs_per_frame}
+              and serving.convs_per_frame == 9, f"{arch}: {rep}")
+        check(out.shape == (OUT_H, OUT_W, 4) and rep["vs_plain_conv_db"] >= LEARNED_GATE_DB and rep["alpha_equal"],
+              f"{arch} vs its plain conv: {rep}")
+        check(rep["vs_twin_db"] >= RUNG_TWIN_GATE_DB, f"{arch} vs its fp32 twin: {rep['vs_twin_db']:.2f} dB")
+    say(f"serving after training on the card [{card}]: launches {json.dumps(launches_of.total)}")
+    return launches_of.total
+
+
 def main() -> int:
     import torch
 
@@ -1775,6 +2054,18 @@ def main() -> int:
 
     # plain versions and goldens in full fp32 / fp64: no TF32 anywhere
     set_tf32(torch, False)
+    # every phase serves from an empty trainer's root, so a checkpoints_torch/
+    # left on the machine changes nothing a phase serves (phase 4n's (a));
+    # what a training phase writes goes into a root of its own
+    import tempfile
+    from pathlib import Path
+
+    from nu_scaler_tpu_torch.models import train as ptrain
+
+    repo_root = Path(__file__).resolve().parent
+    guarded = guarded_listing(repo_root, pel.WEIGHTS_DIR)
+    run_root = tempfile.TemporaryDirectory(prefix="nu_scaler_run_")
+    ptrain.CKPT_ROOT = Path(run_root.name)
 
     with Phase("1 card"):
         kind = torch.cuda.get_device_name(0)
@@ -3221,8 +3512,8 @@ def main() -> int:
     with Phase("4k training"):
         # the port's trainers at full width on the card, their checkpoints
         # in a temporary CKPT_ROOT, served through the port's kernels
-        k4_counts, train_steps, pool = training_on_the_card(torch, card, dev, learned_in[2],
-                                                            (on_dev["a"], on_dev["b"]))
+        k4_counts, train_steps, pool, trained = training_on_the_card(torch, card, dev, learned_in[2],
+                                                                     (on_dev["a"], on_dev["b"]))
 
     with Phase("4l mesh"):
         # the mesh functions on shards that share the card (and on every card
@@ -3236,6 +3527,12 @@ def main() -> int:
         # across four cards when they are visible), a 1 x 1 NCCL world, and
         # the gathered weights served through conv3x3.cu
         m4_counts, _ = sharded_training_on_the_card(torch, card, torch.device("cuda", 0), pool, learned_in[2])
+
+    with Phase("4n serving after training"):
+        # what the API serves once phase 4k's trainers wrote (the loaders'
+        # caches cleared), tpu4 x2 resumed from 80000, both distillation
+        # teachers, and tpu8 / tpu8w x2 on their committed weights
+        n4_counts = serving_after_training(torch, card, dev, learned_in[2], pool, trained)
 
     with Phase("5 times"):
         flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
@@ -3272,7 +3569,8 @@ def main() -> int:
         }
         rows = []
         launched = {name: counts[name] + flow_counts.get(name, 0) + g4_counts.get(name, 0)
-                    + h4_counts.get(name, 0) + j4_counts.get(name, 0) + k4_counts.get(name, 0) for name in counts}
+                    + h4_counts.get(name, 0) + j4_counts.get(name, 0) + k4_counts.get(name, 0)
+                    + n4_counts.get(name, 0) for name in counts}
         for name, (kernel, plain, n, n_ts) in cases.items():
             b_ms, b_by = bound(n, n_ts)
             ms, plain_ms = time_ms(torch, kernel, flush), time_ms(torch, plain, flush)
@@ -3346,9 +3644,10 @@ def main() -> int:
             "name": "soft_warp_blend", "route": "cuda", "source": SOFT_SOURCE,
             "replaces": REPLACES["soft_warp_blend"],
             "launches": flow_counts["soft_warp_blend"] + h4_counts["soft_warp_blend"]
-            + j4_counts["soft_warp_blend"] + k4_counts["soft_warp_blend"],
+            + j4_counts["soft_warp_blend"] + k4_counts["soft_warp_blend"] + n4_counts["soft_warp_blend"],
             "launches_flow_soft_ref": h4_counts["soft_warp_blend"], "launches_app": j4_counts["soft_warp_blend"],
             "launches_training": k4_counts["soft_warp_blend"],
+            "launches_serving_after_training": n4_counts["soft_warp_blend"],
             "max_abs_err": errs["soft_warp_blend"], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "ptxas": soft_regs,
             # no single PyTorch call computes the 4-corner candidate blend
@@ -3485,8 +3784,9 @@ def main() -> int:
         rows.append({
             "name": "conv3x3", "route": "cuda", "source": CONV_SOURCE, "replaces": REPLACES["conv3x3"],
             "launches": learned_counts["conv3x3"] + h4_counts["conv3x3"] + j4_counts["conv3x3"]
-            + k4_counts["conv3x3"] + m4_counts["conv3x3"], "launches_training": k4_counts["conv3x3"],
-            "launches_sharded_training": m4_counts["conv3x3"],
+            + k4_counts["conv3x3"] + m4_counts["conv3x3"] + n4_counts["conv3x3"],
+            "launches_training": k4_counts["conv3x3"], "launches_sharded_training": m4_counts["conv3x3"],
+            "launches_serving_after_training": n4_counts["conv3x3"],
             "max_abs_err": errs["conv3x3"], **main,
             # phase 4h: the refinement net's convs (4 a refined mid) and their times
             "launches_flow_soft_ref": h4_counts["conv3x3"], "refinement_shapes": refine_conv_ms,
@@ -3536,9 +3836,10 @@ def main() -> int:
                           "bound_by": b_by}
         rows.append({
             "name": "conv3x3_q", "route": "cuda", "source": CONV_SOURCE, "replaces": REPLACES["conv3x3_q"],
-            "launches": int8_launches + j4_counts["conv3x3_q"] + k4_counts["conv3x3_q"],
+            "launches": int8_launches + j4_counts["conv3x3_q"] + k4_counts["conv3x3_q"] + n4_counts["conv3x3_q"],
             "max_abs_err": errs["conv3x3_q"],
             "launches_app": j4_counts["conv3x3_q"], "launches_training": k4_counts["conv3x3_q"],
+            "launches_serving_after_training": n4_counts["conv3x3_q"],
             **q_ms[f"x2 block 1x{th2}x{tw2} 128->128"],
             "inputs": f"the committed tpu4b2 block0.conv2 int8 weights on quantised activations, "
                       f"1x{th2}x{tw2}x128 -> 128 (the quality x2 trunk grid)",
@@ -3692,6 +3993,12 @@ def main() -> int:
     for row in rows:
         row["launches_mesh"] = l4_counts.get(row["name"], 0)
         row["launches"] += row["launches_mesh"]
+    # (a) no phase wrote into the run's root, or under checkpoints/, the
+    # committed weights or checkpoints_torch/
+    check(not any(Path(run_root.name).iterdir()), "a phase wrote into the run's CKPT_ROOT")
+    check(guarded_listing(repo_root, pel.WEIGHTS_DIR) == guarded,
+          "the run wrote under checkpoints/, the committed weights or checkpoints_torch/")
+    run_root.cleanup()
     say(f"total {time.perf_counter() - T_START:.1f} s")
     say(json.dumps({"kernels": rows}))
     say(card)

@@ -16,11 +16,12 @@ port serves on the card:
 | Fallback | the basic upscaler with the quality → algorithm map |
 
 The support probes are real: a classical tier is supported when its device
-resolves (the card, or "cpu" when asked for); a learned tier when the
-ladder's weights are committed (a sidecar `weights/esrgan_{arch}_x2_*.json`
-of one of its archs). The chains' order follows the reference's (an
-unsupported XeSS → FSR → DLSS → basic, `mod.rs:140-173`; and so on). Every
-factory takes `device` (the card unless "cpu").
+resolves (the card, or "cpu" when asked for); a learned tier when weights of
+one of its ladder's archs at ×2 serve (a sidecar `esrgan_{arch}_x2_*.json`
+in the trainer's `CKPT_ROOT` or the committed `weights/`,
+`esrgan_lite.learned_tier_available`). The chains' order follows the
+reference's (an unsupported XeSS → FSR → DLSS → basic, `mod.rs:140-173`; and
+so on). Every factory takes `device` (the card unless "cpu").
 """
 
 from __future__ import annotations

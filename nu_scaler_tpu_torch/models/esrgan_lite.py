@@ -49,12 +49,16 @@ zero-padded once at load (`conv_cuda.pad_weights`), which is exact.
 `make_quant_apply` is the int8 graph's fp32 twin.
 
 Weights and int8 scales come from the files under
-`nu_scaler_tpu_torch/weights/`, written from the orbax checkpoints (and
-ESRGANLite's seed-0 initialisations) by `tools/export_torch_weights.py`; the
-loaders take a `directory` for the checkpoints the port's trainer writes in
-that format (`write_weights`, `models/train.py` `CKPT_ROOT`).
-`make_pretrained_upscaler` walks JAX's ladder (`_build_pretrained`,
-`:591-649`) and serves every request the JAX package serves.
+`nu_scaler_tpu_torch/weights/`, written from every orbax checkpoint the JAX
+package reads (and ESRGANLite's seed-0 initialisations) by
+`tools/export_torch_weights.py`, and from the checkpoints the port's trainer
+writes in that format into `models/train.py` `CKPT_ROOT` (`write_weights`).
+The serving ladders read, per arch and scale, the newest step in `CKPT_ROOT`
+when it holds one, else the committed export (`weights_directory`), as JAX's
+read the step its trainer's ``latest.txt`` names; the int8 scales come only
+from the sidecar of the weights that serve. `make_pretrained_upscaler` walks
+JAX's ladder (`_build_pretrained`, `:591-649`) and serves every request the
+JAX package serves.
 """
 
 from __future__ import annotations
@@ -403,10 +407,25 @@ def params_from_flax(tree) -> dict:
     return out
 
 
+def weights_directory(arch: str, upscale: int) -> Optional[Path]:
+    """Where the weights of `arch` at `upscale` that serve live: the
+    trainer's `CKPT_ROOT` (`models/train.py`, read at call time) when it
+    holds any, else the committed `WEIGHTS_DIR` when it does, else None.
+    The newest step there serves: the trainer saves at start + steps, so it
+    is the step JAX's ``latest.txt`` names."""
+    from nu_scaler_tpu_torch.models import train
+
+    for directory in (Path(train.CKPT_ROOT), WEIGHTS_DIR):
+        if any(directory.glob(f"esrgan_{arch}_x{upscale}_*.json")):
+            return directory
+    return None
+
+
 def learned_tier_available(prefer: str) -> bool:
-    """True when the committed weights hold an arch of the `prefer` ladder
-    at ×2 (the role of the reference's library probe)."""
-    return any(any(WEIGHTS_DIR.glob(f"esrgan_{arch}_x2_*.json")) for arch, _, _ in ARCH_LADDER.get(prefer, ()))
+    """True when the trainer's `CKPT_ROOT` or the committed weights hold an
+    arch of the `prefer` ladder at ×2 (the role of the reference's library
+    probe; `nu_scaler_core/technologies.py:63-73`)."""
+    return any(weights_directory(arch, 2) is not None for arch, _, _ in ARCH_LADDER.get(prefer, ()))
 
 
 def newest_sidecar(directory: Path, pattern: str) -> Optional[dict]:
@@ -915,12 +934,12 @@ def make_quant_apply(model: ESRGANLiteTPU, scales: dict) -> Callable[[torch.Tens
 
 class LearnedUpscaler:
     """``u8 [H, W, 4] → u8 [OH, OW, 4]``, or a batch ``[N, H, W, 4]`` through
-    the same graph in one pass. Outputs stay on the device. `arch` and `step`
-    say what serves (JAX's ``fn.arch``), and `quantized` whether the int8
-    graph serves."""
+    the same graph in one pass. Outputs stay on the device. `arch`, `step`
+    and `directory` say what serves (JAX's ``fn.arch``) and from where, and
+    `quantized` whether the int8 graph serves."""
 
-    def __init__(self, serving: Serving, arch: str, step: int) -> None:
-        self.serving, self.arch, self.step = serving, arch, step
+    def __init__(self, serving: Serving, arch: str, step: int, directory: Path) -> None:
+        self.serving, self.arch, self.step, self.directory = serving, arch, step, Path(directory)
         self.device = serving.device
         self.quantized = serving.quantized
 
@@ -934,16 +953,22 @@ class LearnedUpscaler:
 
 
 @functools.lru_cache(maxsize=16)
-def _cached_model(arch: str, upscale: int):
-    return load_model(arch, upscale)
+def _cached_model(arch: str, upscale: int) -> Optional[tuple[nn.Module, dict, Path]]:
+    """(module, sidecar, directory) of the weights of `arch` at `upscale`
+    that serve (`weights_directory`), or None. Cached: a process keeps
+    serving what it loaded first, as JAX's cached factories do."""
+    directory = weights_directory(arch, upscale)
+    loaded = None if directory is None else load_model(arch, upscale, directory)
+    return None if loaded is None else (*loaded, directory)
 
 
 @functools.lru_cache(maxsize=16)
 def _build_pretrained(in_h, in_w, out_h, out_w, prefer, device, trunk_impl) -> LearnedUpscaler:
     """JAX's `_build_pretrained` (`esrgan_lite.py:591-649`): the first entry
-    of the ladder whose stride divides the frame, whose weights the port
-    carries and, for a "quant" entry, whose scales match; else ESRGANLite at
-    the stage count. `make_serving_fn` then picks the graph."""
+    of the ladder whose stride divides the frame, whose weights serve (the
+    newest in the trainer's `CKPT_ROOT`, else the committed export) and, for
+    a "quant" entry, whose own sidecar carries scales at their step; else
+    ESRGANLite at the stage count. `make_serving_fn` then picks the graph."""
     stages = scale_to_stages(in_h, out_h)
     u = 2 ** stages
     for arch, kw, mode in ARCH_LADDER[prefer]:
@@ -952,23 +977,23 @@ def _build_pretrained(in_h, in_w, out_h, out_w, prefer, device, trunk_impl) -> L
             continue  # the s2d front end needs stride-divisible frames
         loaded = _cached_model(arch, u)
         if loaded is None:
-            continue  # the port carries no weights of this arch at this scale
-        scales = load_act_scales(arch, u)  # None unless calibrated at the weights' step
+            continue  # no weights of this arch at this scale
+        model, meta, directory = loaded
+        scales = sidecar_scales(meta)  # None unless calibrated at the weights' step
         if mode == "quant" and scales is None:
             continue  # an int8 entry without its calibration
-        model, meta = loaded
         # "ultra" serves bf16; the other ladders serve int8 whenever the
         # served checkpoint's scales match and the fused graph serves
         serving = make_serving_fn(model, in_h, in_w, out_h, out_w, device, trunk_impl=trunk_impl,
                                   quant_scales=None if prefer == "ultra" else scales)
-        return LearnedUpscaler(serving, arch, meta["step"])
+        return LearnedUpscaler(serving, arch, meta["step"], directory)
     loaded = _cached_model(LITE, u)
     if loaded is None:
         raise ValueError(f"no learned weights serve x{u}: the port carries ESRGANLite at "
                          f"x2, x4 and x8, as the JAX ladder's reach")
-    model, meta = loaded
+    model, meta, directory = loaded
     return LearnedUpscaler(make_serving_fn(model, in_h, in_w, out_h, out_w, device,
-                                           trunk_impl=trunk_impl), LITE, meta["step"])
+                                           trunk_impl=trunk_impl), LITE, meta["step"], directory)
 
 
 def make_pretrained_upscaler(in_h: int, in_w: int, out_h: int, out_w: int,

@@ -36,13 +36,18 @@ to 128, which is exact. With int8 scales (a sidecar's ``act_scales`` at the
 weights' step, or ``quant_scales``) the convs the scales name run on the int8
 grid (`conv_cuda.conv3x3_q`, the counterpart of `_conv_i8`), as `mk_conv`
 does (`:548-568`). The committed step has no calibration, so the bf16 graph
-serves.
+serves it.
 
-The weights are `nu_scaler_tpu_torch/weights/interp_ref4_{step}.npz` and its
-JSON sidecar, written from the orbax checkpoint at the step its latest.txt
-names by `tools/export_torch_weights.py`. A missing npz, or one whose sha256
-differs from its sidecar's, raises: the port carries the weights, so their
-absence is a fault, not JAX's fallback to plain flow_soft.
+The serving net's weights are the newest step the port's trainer saved under
+`models/train.py` `CKPT_ROOT`/interp_ref4/ (`save_checkpoint`), else the
+committed `nu_scaler_tpu_torch/weights/interp_ref4_{step}.npz` and its JSON
+sidecar, written from the orbax checkpoint at the step its latest.txt names
+by `tools/export_torch_weights.py`, as JAX serves the step its latest.txt
+names; its int8 scales come only from the sidecar of those weights. The
+wide distillation teacher interp_ref4w is committed the same way and never
+serves. A missing npz, or one whose sha256 differs from its sidecar's,
+raises: the port carries the weights, so their absence is a fault, not
+JAX's fallback to plain flow_soft.
 """
 
 from __future__ import annotations
@@ -79,7 +84,7 @@ from nu_scaler_tpu_torch.models.esrgan_lite import (
     write_weights,
 )
 
-NET = "interp_ref4"  # the serving net; its wide teacher is not carried
+NET = "interp_ref4"  # the serving net; its wide teacher "interp_ref4w" never serves
 FRAMES = 3  # a, b and the mid, concatenated on the channels
 STRIDE = 4  # the serving net's s2d stride (InterpRefineTPU.stride)
 
@@ -112,35 +117,50 @@ class InterpRefine(nn.Module):
 # ---------------------------------------------------------------------------
 
 
-def _sidecar() -> Optional[dict]:
-    return newest_sidecar(WEIGHTS_DIR, f"{NET}_*.json")
+def _newest(name: str = NET) -> Optional[tuple[dict, Path]]:
+    """(sidecar, directory) of the newest weights of the net `name`: the
+    newest step under `_ckpt_dir(name)` (the trainer's `CKPT_ROOT`, read at
+    call time) when it holds one, else its committed export in `WEIGHTS_DIR`
+    (interp_ref4 and its teacher interp_ref4w); None when neither does. The
+    trainer saves at start + steps, so the newest step is the one JAX's
+    ``latest.txt`` names."""
+    for directory in (_ckpt_dir(name), WEIGHTS_DIR):
+        meta = newest_sidecar(directory, f"{name}_*.json")
+        if meta is not None:
+            return meta, directory
+    return None
 
 
 def refine_available() -> bool:
-    """True when the port carries the refinement net's weights (a sidecar)."""
-    return _sidecar() is not None
+    """True when weights of the serving net exist (`_newest`): the role of
+    JAX's check for its latest.txt."""
+    return _newest() is not None
 
 
-def load_weights() -> tuple[dict, dict]:
-    """(nested flax-named numpy tree, sidecar metadata) of the committed
-    refinement net. Raises FileNotFoundError without a sidecar or its npz,
-    ValueError when the npz's sha256 is not its sidecar's."""
-    meta = _sidecar()
-    if meta is None:
-        raise FileNotFoundError(f"no {NET}_*.json sidecar under {WEIGHTS_DIR}")
-    return read_weights(WEIGHTS_DIR / f"{NET}_{meta['step']}.npz", meta["sha256"]), meta
+def load_weights(name: str = NET) -> tuple[dict, dict]:
+    """(nested flax-named numpy tree, sidecar metadata) of the newest weights
+    of the net `name` (`_newest`). Raises FileNotFoundError without a
+    sidecar or its npz, ValueError when the npz's sha256 is not its
+    sidecar's: a corrupt checkpoint never gives way to the export."""
+    found = _newest(name)
+    if found is None:
+        raise FileNotFoundError(f"no {name}_*.json sidecar under {_ckpt_dir(name)} or {WEIGHTS_DIR}")
+    meta, directory = found
+    return read_weights(directory / f"{name}_{meta['step']}.npz", meta["sha256"]), meta
 
 
 def load_act_scales() -> Optional[dict]:
-    """The int8 activation scales of the committed net (its sidecar's
-    ``act_scales`` at the weights' step), or None."""
-    return sidecar_scales(_sidecar())
+    """The int8 activation scales of the newest weights of the serving net
+    (their sidecar's ``act_scales`` at their step), or None."""
+    found = _newest()
+    return None if found is None else sidecar_scales(found[0])
 
 
 @functools.lru_cache(maxsize=1)
 def load_model() -> tuple[InterpRefine, dict]:
-    """The fp32 `InterpRefine` with the committed weights, and its metadata.
-    Cached: do not modify the module."""
+    """The fp32 `InterpRefine` with the newest weights of the serving net,
+    and their metadata. Cached: a process keeps serving what it loaded
+    first, as JAX's cached graphs do; do not modify the module."""
     tree, meta = load_weights()
     model = InterpRefine(**meta["model"])
     model.load_state_dict(params_from_flax(tree))
@@ -325,14 +345,16 @@ class RefineGraph:
 
 @functools.lru_cache(maxsize=16)
 def _refine_graph(in_h: int, in_w: int, dev: torch.device) -> RefineGraph:
-    return RefineGraph(load_model()[0], in_h, in_w, dev, quant_scales=load_act_scales())
+    model, meta = load_model()
+    return RefineGraph(model, in_h, in_w, dev, quant_scales=sidecar_scales(meta))
 
 
 def get_refine_graph(in_h: int, in_w: int, device=None) -> RefineGraph:
-    """The serving graph of the committed net at this frame size on `device`
-    (the card unless "cpu"), int8 where its sidecar carries scales at its
-    step; cached. Raises when the weights are missing or corrupt, or the
-    size is not a multiple of the stride."""
+    """The serving graph of the serving net (`load_model`: the newest step in
+    the trainer's `CKPT_ROOT`, else the committed one) at this frame size on
+    `device` (the card unless "cpu"), int8 where the sidecar of those
+    weights carries scales at their step; cached. Raises when the weights
+    are missing or corrupt, or the size is not a multiple of the stride."""
     return _refine_graph(in_h, in_w, resolve_device(device))
 
 
@@ -360,8 +382,9 @@ def make_model(features: int = 128, blocks: int = 1, seed: int = 0) -> InterpRef
 
 def _ckpt_dir(name: str = NET) -> Path:
     """The checkpoints of the net `name`: `train.CKPT_ROOT`/<name>/, beside
-    the SR tier's (`interp_refine.py:73`). Serving reads only the committed
-    weights (`_sidecar`), never this directory."""
+    the SR tier's (`interp_refine.py:73`). Serving reads the newest step of
+    the serving net here before the committed one (`_newest`); other names
+    (the teacher interp_ref4w) never serve."""
     from nu_scaler_tpu_torch.models import train
 
     return Path(train.CKPT_ROOT) / name
@@ -376,28 +399,15 @@ def save_checkpoint(model: InterpRefine, step: int, name: str = NET) -> Path:
 
 
 def load_checkpoint(name: str = NET) -> Optional[tuple[InterpRefine, int]]:
-    """(fp32 module, step) of the newest checkpoint of `name` under
-    `_ckpt_dir(name)`, or None."""
-    meta = newest_sidecar(_ckpt_dir(name), f"{name}_*.json")
-    if meta is None:
+    """(fp32 module, step) of the newest weights of `name` (`_newest`: under
+    `_ckpt_dir(name)`, else its committed export), or None. A fresh module:
+    the cached `load_model` one is never modified."""
+    if _newest(name) is None:
         return None
+    tree, meta = load_weights(name)
     model = InterpRefine(**meta["model"])
-    model.load_state_dict(params_from_flax(read_weights(_ckpt_dir(name) / f"{name}_{meta['step']}.npz",
-                                                        meta["sha256"])))
+    model.load_state_dict(params_from_flax(tree))
     return model, int(meta["step"])
-
-
-def load_latest(name: str = NET) -> Optional[tuple[InterpRefine, int]]:
-    """The newest checkpoint of `name`, else for the serving net its
-    committed weights (a fresh module: the cached `load_model` one is never
-    modified), else None."""
-    restored = load_checkpoint(name)
-    if restored is None and name == NET and refine_available():
-        tree, meta = load_weights()
-        model = InterpRefine(**meta["model"])
-        model.load_state_dict(params_from_flax(tree))
-        restored = model, int(meta["step"])
-    return restored
 
 
 def save_act_scales(scales: dict, step: int, name: str = NET) -> Path:
@@ -479,8 +489,8 @@ def train(steps: int = 8000, batch: int = 8, lr: float = 2e-4, seed: int = 0, cr
           name: str = NET, distill: Optional[tuple] = None, distill_w: float = 0.5, device=None,
           frames_per_clip: int = 8) -> float:
     """One training leg of the refinement net `name` on `device` (the card
-    unless "cpu"); returns the final loss. Resumes from `load_latest(name)`
-    (the committed weights for the serving net), else a fresh
+    unless "cpu"); returns the final loss. Resumes from `load_checkpoint(name)`
+    (the newest under `_ckpt_dir(name)`, else the committed export), else a fresh
     `make_model(features, blocks)`; `distill` = (teacher name, features,
     blocks) adds distill_w·|student − frozen teacher|. The pool
     (`TripletPool`) moves to the device once and each step takes only its
@@ -491,7 +501,7 @@ def train(steps: int = 8000, batch: int = 8, lr: float = 2e-4, seed: int = 0, cr
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     start = 0
-    restored = load_latest(name)
+    restored = load_checkpoint(name)
     model = make_model(features, blocks)
     if restored is not None:
         model.load_state_dict(restored[0].state_dict())
@@ -537,11 +547,11 @@ def calibrate_scales(model: Optional[InterpRefine] = None, crops=None, n_clips: 
     """Per-conv-input activation maxima of the int8 graph (`interp_refine.py:138`),
     in the [0, 1] domain of the fp32 forward, on `device`: on `crops` [N, h,
     w, 9], else on a `TripletPool` of the training seeds drawn with
-    `default_rng(7)`. `model` defaults to `load_latest()`. Returns {"head"
+    `default_rng(7)`. `model` defaults to `load_checkpoint()`. Returns {"head"
     (with `include_head`), "block{i}/conv1", "block{i}/conv2", "tail"}."""
     dev = resolve_device(device)
     if model is None:
-        restored = load_latest()
+        restored = load_checkpoint()
         if restored is None:
             raise ValueError(f"no {NET} checkpoint")
         model = restored[0]
@@ -566,7 +576,7 @@ def calibrate_scales(model: Optional[InterpRefine] = None, crops=None, n_clips: 
 
 def eval_refine_float(name: str = NET, features: int = 128, blocks: int = 1, seeds=(900, 901, 902),
                       frames: int = 5, height: int = 1080, width: int = 1920, device=None) -> dict:
-    """Held-out mid-frame quality of the named net (`load_latest(name)`)
+    """Held-out mid-frame quality of the named net (`load_checkpoint(name)`)
     through its fp32 forward (mid + net(A, B, mid), rounded to u8) against
     the production soft warp (`interp_refine.py:389`), on `device`: odd
     frames from their even neighbours, seeds 900+."""
@@ -575,7 +585,7 @@ def eval_refine_float(name: str = NET, features: int = 128, blocks: int = 1, see
     from nu_scaler_tpu_torch.ops.metrics import psnr, ssim
 
     dev = resolve_device(device)
-    restored = load_latest(name)
+    restored = load_checkpoint(name)
     if restored is None:
         raise ValueError(f"no checkpoint {name!r}")
     model, step = restored

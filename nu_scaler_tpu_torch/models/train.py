@@ -22,21 +22,28 @@ port's committed ``nu_scaler_tpu_torch/weights/``:
                                                       once calibrated, act_scales
     CKPT_ROOT/esrgan_{arch}_x{upscale}_{step}_opt.pt  Adam's state
 
-the format of `tools/export_torch_weights.py`, so
-``esrgan_lite.load_model(arch, upscale, directory=CKPT_ROOT)`` and
-``load_act_scales(…, directory=CKPT_ROOT)`` read them for
-`make_serving_fn(…, quant_scales=…)`.
+the format of `tools/export_torch_weights.py`. The API serves them: for each
+arch and scale the learned ladders read the newest step in `CKPT_ROOT`
+before the committed export (`esrgan_lite.weights_directory`), as JAX's read
+the step its ``latest.txt`` names, so the next process (or one whose
+loaders' caches are cleared) serves what a run saved; a "quant" ladder entry
+serves int8 only when that step's sidecar holds its calibration
+(``--calibrate``).
 
 Resume follows JAX's: the newest checkpoint of the arch in `CKPT_ROOT` (with
 its Adam state), else the committed export of the arch in
-``nu_scaler_tpu_torch/weights/`` (JAX resumes from the committed orbax
-checkpoint, e.g. tpu4b2 ×2 at 76000), else for tpu4b2 / tpu4b1 the next
-deeper arch's weights with its last block dropped, else a seeded
-initialisation; a run saves at start + steps. A resume from the export
-restores Adam's moments from the export's ``_opt.npz`` where it has one
-(tpu4b2 ×2, tpu4b1 ×2, tpu4 ×4: optax's ``count``, ``mu``, ``nu``, written by
-`tools/export_torch_weights.py` from the orbax ``{step}_opt`` tree that
-JAX's resume restores), checked against the sidecar's ``opt_sha256``.
+``nu_scaler_tpu_torch/weights/``, which carries every checkpoint JAX
+resumes from (tpu4b2 ×2 at 76000, tpu4 ×2 at 80000 and ×4 at 52000, tpu4b1
+×2 at 40000, tpu8 ×2 at 40000, tpu8w ×2 at 60000, tpu ×2 at 12000, lite ×2 at
+6000), else for tpu4b2 / tpu4b1 the next deeper arch's weights with its last
+block dropped, else a seeded initialisation; a run saves at start + steps. A
+resume from the export restores Adam's moments from the export's
+``_opt.npz`` where it has one (tpu4b2 ×2, tpu4 ×2, tpu4b1 ×2, tpu4 ×4:
+optax's ``count``, ``mu``, ``nu``, written by `tools/export_torch_weights.py`
+from the orbax ``{step}_opt`` tree that JAX's resume restores), checked
+against the sidecar's ``opt_sha256``. A distillation teacher (``--distill
+tpu4``) resolves the same way: tpu4 ×2 at 80000 unless `CKPT_ROOT` holds a
+tpu4 ×2 checkpoint.
 
 Run (the card by default; ``--device cpu`` for the CPU):
 
@@ -358,14 +365,16 @@ def main(argv=None) -> int:
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--stages", type=int, default=1)
     p.add_argument("--lr", type=float, default=2e-4)
-    p.add_argument("--arch", default="lite", choices=sorted(ARCHS))
+    p.add_argument("--arch", default="lite", choices=sorted(ARCHS), help="resumes from the newest "
+                   "checkpoint of the arch under CKPT_ROOT, else its committed export")
     p.add_argument("--data", default="video", choices=["video", "synthetic"])
     p.add_argument("--crop", type=int, default=96)
     p.add_argument("--loss", default="l1", choices=["l1", "l1_grad"])
     p.add_argument("--clips", type=int, default=12, help="clip-pool width (seeds 100..100+N-1; "
                    "eval seeds 900+ stay held out)")
     p.add_argument("--pool", type=int, default=4096, help="crop-pool size")
-    p.add_argument("--distill", default=None, help="teacher arch to distill from (e.g. tpu4); adds "
+    p.add_argument("--distill", default=None, help="teacher arch to distill from (e.g. tpu4: its newest "
+                   "checkpoint under CKPT_ROOT, else the committed export, tpu4 x2 at 80000); adds "
                    "w*loss(student, teacher(LR))")
     p.add_argument("--distill-w", type=float, default=0.5)
     p.add_argument("--down-mix", type=float, default=0.0, help="fraction of the clip pool rendered at "

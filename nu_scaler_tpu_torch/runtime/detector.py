@@ -104,9 +104,10 @@ class DeviceDetector:
         """Availability per technology string, with the JAX package's keys
         (`nu_scaler_tpu/runtime/detector.py:124-152`): "wgpu" (the resample
         kernel) and "fsr" (the FSR kernel) on any device; "dlss" (the learned
-        tier) when the port's committed weights of the "quality" ladder are
-        present (`models.esrgan_lite.learned_tier_available`, the sidecar
-        probe); no Intel SDK ("xess") and no Vulkan; "fallback" always."""
+        tier) when weights of the "quality" ladder serve, trained ones in
+        the trainer's `CKPT_ROOT` or the committed ones
+        (`models.esrgan_lite.learned_tier_available`, the sidecar probe); no
+        Intel SDK ("xess") and no Vulkan; "fallback" always."""
         return {
             "wgpu": True,
             "fsr": True,

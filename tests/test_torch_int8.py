@@ -131,7 +131,7 @@ def test_helpers_and_ladders_equal_jax(restored):
     for (arch, up), (_, step, scales) in restored.items():
         assert pel.load_act_scales(arch, up) == scales and scales
         assert INT8[(arch, up)][1] == step
-    assert pel.load_act_scales("tpu8w", 2) is None  # no weights carried
+    assert pel.load_act_scales("tpu8w", 2) is None  # carried without a calibration, as in checkpoints/
     scale = cc.qgrid_scale(np.float32([0.5, 3e-3]), 0.7)
     want = np.float32([0.5, 3e-3]) * np.float32(0.7 / 127.0)
     assert scale.dtype == torch.float32 and np.array_equal(scale.numpy(), want)

@@ -189,8 +189,9 @@ def test_named_checkpoints_and_distill_leg(ckpt_root, monkeypatch):
               features=8, blocks=1, name="t_student", distill=("t_teacher", 16, 2), distill_w=0.5, device="cpu")
     model, step = pir.load_checkpoint("t_student")
     assert step == 2 and (model.features, model.blocks) == (8, 1)
-    # the serving net's loaders never see the named nets
-    assert pir.load_checkpoint() is None
+    # the serving net's loaders never see the named nets: CKPT_ROOT holds no
+    # interp_ref4, so its committed export resolves
+    assert pir.load_checkpoint()[1] == 112000
     assert pir.load_model()[1]["step"] == 112000 and pir.load_act_scales() is None
     with pytest.raises(ValueError, match="not 9/1"):
         pir.train(steps=1, batch=2, pool_size=8, crop=16, features=8, blocks=1, name="t_student2",

@@ -289,15 +289,16 @@ def test_checkpoint_round_trip_resume_calibrate_serve(ckpt_root, capsys):
 def test_warm_start_and_fresh_init(ckpt_root, capsys):
     """tpu4b2 x4 has no weights of its own: it warm-starts from tpu4 x4
     (52000) with the last block dropped and saves at 0 + steps; an arch
-    without donor or export (tpu8 x2) starts from the seeded init."""
+    without donor or export (tpu8 x4; tpu8 x2 resumes from its export)
+    starts from the seeded init."""
     ptrain.train(steps=0, arch="tpu4b2", stages=2, data="synthetic", device="cpu")
     assert "warm-started for tpu4b2 from tpu4 step 52000" in capsys.readouterr().out
     model, step = ptrain.load_checkpoint("tpu4b2", 2)
     donor = el.load_model("tpu4", 4)[0].state_dict()
     assert step == 0 and all(torch.equal(v, donor[k]) for k, v in model.state_dict().items())
-    ptrain.train(steps=1, batch=1, arch="tpu8", data="synthetic", device="cpu")
+    ptrain.train(steps=1, batch=1, arch="tpu8", stages=2, data="synthetic", device="cpu")
     assert "resumed" not in capsys.readouterr().out
-    assert (ckpt_root / "esrgan_tpu8_x2_1.json").exists()
+    assert (ckpt_root / "esrgan_tpu8_x4_1.json").exists()
 
 
 def test_evaluate_reports_lanczos3_delta(ckpt_root):

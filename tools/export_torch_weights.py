@@ -12,12 +12,13 @@ checkpoint,
     nu_scaler_tpu_torch/weights/esrgan_{arch}_x{upscale}_{step}.json
 
 (arch "lite" for ESRGANLite; step 0 and ``"init": "flax seed 0"`` in the
-sidecar for an initialisation), and the learned interpolation refinement net
-that mode "flow_soft_ref" serves (`nu_scaler_tpu.models.interp_refine`
-`load_checkpoint`: the step `checkpoints/interp_ref4/latest.txt` names) as
+sidecar for an initialisation), and the learned interpolation refinement
+nets (`nu_scaler_tpu.models.interp_refine` `load_checkpoint`: the step
+`checkpoints/{net}/latest.txt` names): "interp_ref4", which mode
+"flow_soft_ref" serves, and its wide distillation teacher "interp_ref4w", as
 
-    nu_scaler_tpu_torch/weights/interp_ref4_{step}.npz
-    nu_scaler_tpu_torch/weights/interp_ref4_{step}.json
+    nu_scaler_tpu_torch/weights/{net}_{step}.npz
+    nu_scaler_tpu_torch/weights/{net}_{step}.json
 
 The npz holds every parameter as float32 under its flax path joined by "/"
 (``head/kernel``, ``block0/conv1/bias``, ...), exactly as restored. The JSON
@@ -59,18 +60,25 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 OUT_DIR = ROOT / "nu_scaler_tpu_torch" / "weights"
 
-# (arch, stages, step the JAX package serves, model kwargs): the checkpoints
-# of the "ultra", "quality" and "performance" ladders (esrgan_lite.py
-# _ARCH_LADDER): tpu4b2 at x2, tpu4 at x4 (there is no tpu4b2 x4 checkpoint),
-# tpu4b1 at x2 (the head of "performance"), the stride-2 tpu at x2 (frames
-# stride 4 does not divide), and ESRGANLite ("lite"), the ladder's last
-# resort: its checkpoint at x2, its seed-0 initialisations at x4 and x8
-# (step 0). The stride-8 archs (tpu8, tpu8w: x2 only) are not exported: no
-# request reaches them, since tpu4b1 x2 serves every frame stride 8 divides.
+# (arch, stages, step the JAX package serves, model kwargs): every
+# checkpoint under checkpoints/ that the JAX package reads. The "ultra",
+# "quality" and "performance" ladders (esrgan_lite.py _ARCH_LADDER) serve
+# tpu4b2 at x2, tpu4 at x2 (the "quality" ladder's int8 entry when tpu4b2 has
+# no calibration at its step, and the teacher of `train --distill tpu4`) and
+# x4 (there is no tpu4b2 x4 checkpoint), tpu4b1 at x2 (the head of
+# "performance"), the stride-8 tpu8w and tpu8 at x2 (the "performance"
+# ladder's next entries, and what `train --arch tpu8 / tpu8w` resumes from),
+# the stride-2 tpu at x2 (frames stride 4 does not divide), and ESRGANLite
+# ("lite"), the ladder's last resort: its checkpoint at x2, its seed-0
+# initialisations at x4 and x8 (step 0). Each arch's kwargs are its orbax
+# tree's shapes.
 EXPORTS = (
     ("tpu4b2", 1, 76000, dict(stride=4, features=128, blocks=2)),
+    ("tpu4", 1, 80000, dict(stride=4, features=128, blocks=3)),
     ("tpu4", 2, 52000, dict(stride=4, features=128, blocks=3)),
     ("tpu4b1", 1, 40000, dict(stride=4, features=128, blocks=1)),
+    ("tpu8", 1, 40000, dict(stride=8, features=128, blocks=3)),
+    ("tpu8w", 1, 60000, dict(stride=8, features=192, blocks=3)),
     ("tpu", 1, 12000, dict(stride=2, features=64, blocks=3)),
     ("lite", 1, 6000, dict(features=32, blocks=4)),
     ("lite", 2, 0, dict(features=32, blocks=4)),
@@ -78,10 +86,13 @@ EXPORTS = (
 )
 INIT = "flax seed 0"  # the sidecar's note on a step-0 export
 # (net, step the JAX package serves, model kwargs): the refinement net of mode
-# "flow_soft_ref". Its serving step is the one latest.txt names; the wide
-# distillation teacher "interp_ref4w" is not exported (no serving graph reads
-# it).
-REFINE_EXPORTS = (("interp_ref4", 112000, dict(features=128, blocks=1, stride=4)),)
+# "flow_soft_ref" at the step its latest.txt names, and the wide distillation
+# teacher its trainer reads (`train(distill=("interp_ref4w", 192, 2))`, the
+# CLI's --distill-features / --distill-blocks defaults).
+REFINE_EXPORTS = (
+    ("interp_ref4", 112000, dict(features=128, blocks=1, stride=4)),
+    ("interp_ref4w", 32000, dict(features=192, blocks=2, stride=4)),
+)
 
 
 def flatten(tree, prefix: str = "") -> dict:
@@ -200,7 +211,9 @@ def export_refine(net: str, step: int, kwargs: dict, out_dir: Path = OUT_DIR) ->
     if got_step != step:
         raise ValueError(f"{net}: latest step is {got_step}, expected {step}")
     meta = {"net": net, "model": kwargs, "step": step}
-    return write(out_dir / f"{net}_{step}", params, meta, interp_refine.load_act_scales(step))
+    # act_scales.json lives beside the serving net only (interp_refine.CKPT_DIR)
+    scales = interp_refine.load_act_scales(step) if net == "interp_ref4" else None
+    return write(out_dir / f"{net}_{step}", params, meta, scales)
 
 
 def main() -> int:
