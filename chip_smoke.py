@@ -8,14 +8,17 @@ Run from the root of a checkout:
 Phases, each printed on its own line with its seconds:
 
 1. the card: its name, and its power limit as nvidia-smi reports it;
-2. the build: one nvcc call per source under nu_scaler_tpu_torch/kernels/csrc/
-   (resample_fused.cu, soft_warp.cu, fsr.cu, conv3x3.cu, trunk_fused.cu,
-   resample_twopass.cu) and one g++ call per host library under
-   nu_scaler_tpu_torch/runtime/native/ (framering.cpp, y4m.cpp), all started
-   together, into build/nu_scaler_tpu_torch/;
+2. the build, through its command line (python -m
+   nu_scaler_tpu_torch.kernels._build, run in process): one nvcc call per
+   source under nu_scaler_tpu_torch/kernels/csrc/ (resample_fused.cu,
+   soft_warp.cu, fsr.cu, conv3x3.cu, trunk_fused.cu, resample_twopass.cu) and
+   one g++ call per host library under nu_scaler_tpu_torch/runtime/native/
+   (framering.cpp, y4m.cpp), all started together, into
+   build/nu_scaler_tpu_torch/, each library's path printed;
 3. each kernel wrapper against its plain PyTorch version on the card, at
-   1080p→4K: lanczos3, bilinear and nearest single frames (nearest bit-exact,
-   the others ≤1 LSB), a batch of 4, and the blend epilogue with t = 0.5 and
+   1080p→4K: lanczos3, bilinear, nearest, bicubic, lanczos2, mitchell and
+   area single frames (0 differing bytes; bicubic also ≥ 50 dB against its
+   float64 golden, as bench.py gates it), a batch of 4, and the blend epilogue with t = 0.5 and
    t = (1/3, 2/3); the soft warp at 1080p (≤1 LSB) with K = 4 and 8,
    t = 0.5 and (1/3, 2/3), tiles (8, 128) and (8, 32), and K = 1 and 8
    under a tile (8, 12) whose cell boundaries fall inside runs of pixels,
@@ -224,6 +227,22 @@ Phases, each printed on its own line with its seconds:
    a checkpoints_torch/ on the machine changes nothing served; at the end
    nothing may have been written there, under checkpoints/, the committed
    weights or checkpoints_torch/;
+4o. the command lines on the card, in process through their main([...]),
+   with CKPT_ROOT an empty temporary directory and the loaders' caches
+   cleared, at the serving net's full width (128 features, 1 block, 1080p;
+   the pools' depths cut and printed), each call's launches read on its own:
+   `interp_refine --calibrate` copies the committed interp_ref4@112000 into
+   the root and writes its scales (card vs CPU within CLI_SCALE_GATE), and
+   "flow_soft_ref" at 1080p then serves 112000 in int8 (4 conv3x3_q, 1
+   soft_warp_blend; >= 42 dB against make_quant_apply); a 20-step leg
+   resumed from it (losses finite, the step's CUDA-event ms), served in
+   bf16 (4 conv3x3); a 2-step distillation from interp_ref4w, the first loss
+   card vs CPU within 1e-5; --eval with JAX's protocol at 1080p (its dB and
+   SSIM printed) and eval_refine_float card vs CPU at 540p within EVAL_GATE;
+   `train --arch tpu4b2 --calibrate --io` copies the committed 76000 and
+   "quality" x2 at 1080p -> 4K serves it from the copy on 8 conv3x3_q
+   (phase 4d's gates). Nothing written under checkpoints/, the committed
+   weights or checkpoints_torch/;
 5. times: per kernel the median of 20 CUDA-event timings after 3 warm-ups,
    the plain version's time, and the bound (the larger of bytes moved over
    the memory rate and operations over the rate of their type: fp32, or
@@ -360,6 +379,14 @@ TEACHER_GATE = 1e-4
 DISTILL_TEACHER = ("interp_ref4w", 192, 2)
 REFINE_TRAIN = dict(n_clips=1, frames_per_clip=4, pool_size=256, steps=20)
 EVAL_GATE = (0.05, 1e-3)  # eval_vs_lanczos3 card vs CPU: dB, SSIM
+# phase 4o, the command lines: --calibrate's pool cut to CLI_CLIPS clips of 12
+# (8 frames each at 1080p, 256 crops); its scales card vs CPU within a relative
+# CLI_SCALE_GATE, set before the first run (the same crops: the soft warp
+# kernel is bit-equal to its plain version; fp32 convs summed in another
+# order); the distillation leg's steps; eval_refine_float card vs CPU on the
+# cut protocol (one seed, 3 frames at 540p), within EVAL_GATE
+CLI_CLIPS, CLI_SCALE_GATE, CLI_DISTILL_STEPS = 1, 1e-5, 2
+CLI_EVAL_CUT = dict(seeds=(900,), frames=3, height=540, width=960)
 # phase 4l, the mesh: shards of the virtual mesh on cuda:0, the dp batch (6:
 # padded to 8), the dp pairs, the sp flow_soft_ref mesh (1080 / 4 rows is no
 # multiple of the net's stride) and the esrgan_infer_spatial mesh (540p: H
@@ -756,6 +783,27 @@ class Launches:
         return result, got
 
 
+def ran(got: dict) -> dict:
+    """The kernels a call launched, with their counts."""
+    return {k: v for k, v in got.items() if v}
+
+
+def u8(t01) -> np.ndarray:
+    """A [0, 1] tensor rounded to u8 on the host."""
+    import torch
+
+    return torch.clamp(torch.round(t01 * 255.0), 0, 255).to(torch.uint8).cpu().numpy()
+
+
+def param_diffs(a, b) -> tuple[float, float]:
+    """(share of parameters within 1e-6, max |d|) of two modules."""
+    import torch
+
+    d = torch.cat([(p.detach().cpu() - q.detach().cpu()).abs().flatten()
+                   for p, q in zip(a.parameters(), b.parameters())])
+    return float((d <= 1e-6).float().mean()), float(d.max())
+
+
 def app_on_the_port(torch, clip_frames, wv, wh, card) -> dict:
     """Phase 4j: the app (nu_scaler/), unmodified, on the port through the
     launcher's finder (`nu_scaler_tpu_torch.run.serve_port`), in this
@@ -1059,11 +1107,6 @@ def training_on_the_card(torch, card, dev, frame, pair) -> tuple[dict, dict]:
             end.synchronize()
             times.append(start.elapsed_time(end))
         return float(np.median(times))
-
-    def param_diffs(a, b) -> tuple[float, float]:
-        d = torch.cat([(p.detach().cpu() - q.detach().cpu()).abs().flatten()
-                       for p, q in zip(a.parameters(), b.parameters())])
-        return float((d <= 1e-6).float().mean()), float(d.max())
 
     root = Path(__file__).resolve().parent
     before = guarded_listing(root, pel.WEIGHTS_DIR)
@@ -1773,6 +1816,19 @@ def sharded_training_on_the_card(torch, card, dev, pool, frame) -> tuple[dict, d
     return launches_of.total, report
 
 
+def clear_loader_caches() -> None:
+    """Empty every loader's cache, as a new process has them: the API then
+    serves what the trainer's CKPT_ROOT (else the committed export) holds."""
+    from nu_scaler_tpu_torch.models import esrgan_lite as pel
+    from nu_scaler_tpu_torch.models import interp_refine as pir
+    from nu_scaler_tpu_torch.ops import interpolate as interp
+
+    for fn in (pel._cached_model, pel._build_pretrained, pir.load_model, pir._refine_graph,
+               interp._interpolator, interp._multi_interpolator, interp._refined_mid_upscaler,
+               interp._refined_multi_upscaler):
+        fn.cache_clear()
+
+
 def serving_after_training(torch, card, dev, frame, pool, trained) -> dict:
     """Phase 4n: train -> serve -> resume at full width, seed 0, through the
     entry points a user calls, after phase 4k's trainers wrote into its
@@ -1821,7 +1877,6 @@ def serving_after_training(torch, card, dev, frame, pool, trained) -> dict:
     from nu_scaler_tpu_torch.models import esrgan_lite as pel
     from nu_scaler_tpu_torch.models import interp_refine as pir
     from nu_scaler_tpu_torch.models import train as ptrain
-    from nu_scaler_tpu_torch.ops import interpolate as interp
 
     launches_of = Launches(torch, (rc, swc, cc))
     t, lr = TRAIN, TRAIN["lr"]
@@ -1829,12 +1884,6 @@ def serving_after_training(torch, card, dev, frame, pool, trained) -> dict:
     report = {"card": card}
     x = torch.from_numpy(frame[None]).to(dev)
     x01 = torch.from_numpy(frame[None, ..., :3].astype(np.float32) / 255.0).to(dev)
-
-    def clear_caches() -> None:
-        for fn in (pel._cached_model, pel._build_pretrained, pir.load_model, pir._refine_graph,
-                   interp._interpolator, interp._multi_interpolator, interp._refined_mid_upscaler,
-                   interp._refined_multi_upscaler):
-            fn.cache_clear()
 
     def served(prefer: str):
         """(the learned fn, its 4K output, its launches) of the API's learned
@@ -1848,21 +1897,9 @@ def serving_after_training(torch, card, dev, frame, pool, trained) -> dict:
             f"launches {json.dumps(got)}")
         return fn, np.frombuffer(out, np.uint8).reshape(OUT_H, OUT_W, 4), got
 
-    def ran(got: dict) -> dict:
-        """The kernels a call launched, with their counts."""
-        return {k: v for k, v in got.items() if v}
-
-    def u8(t01) -> np.ndarray:
-        return torch.clamp(torch.round(t01 * 255.0), 0, 255).to(torch.uint8).cpu().numpy()
-
-    def param_diffs(a, b) -> tuple[float, float]:
-        d = torch.cat([(p.detach().cpu() - q.detach().cpu()).abs().flatten()
-                       for p, q in zip(a.parameters(), b.parameters())])
-        return float((d <= 1e-6).float().mean()), float(d.max())
-
     run_root = ptrain.CKPT_ROOT
     ptrain.CKPT_ROOT = Path(trained["tmp"].name)
-    clear_caches()
+    clear_loader_caches()
     try:
         # (b) serve what 4k's trainers wrote
         fn, out, got = served("quality")
@@ -1879,7 +1916,7 @@ def serving_after_training(torch, card, dev, frame, pool, trained) -> dict:
                            "--data", "synthetic"]) == 0, "the CLI's further step failed")
         check(pel.sidecar_scales(pel._sidecar(t["arch"], 2, ptrain.CKPT_ROOT)) is None,
               "the further step carries a calibration")
-        clear_caches()
+        clear_loader_caches()
         fn, out, got = served("quality")
         model, meta = pel.load_model("tpu4", 2)
         scales = pel.sidecar_scales(meta)
@@ -1933,7 +1970,7 @@ def serving_after_training(torch, card, dev, frame, pool, trained) -> dict:
               f"flow_soft_ref after 4k's leg: {report['flow_soft_ref_trained']}")
     finally:
         ptrain.CKPT_ROOT = run_root
-        clear_caches()
+        clear_loader_caches()
         trained["tmp"].cleanup()
 
     # (c) resume tpu4 x2 from the committed 80000 with Adam's moments
@@ -2020,6 +2057,265 @@ def serving_after_training(torch, card, dev, frame, pool, trained) -> dict:
     return launches_of.total
 
 
+def clis_on_the_card(torch, card, dev, frame, pair) -> dict:
+    """Phase 4o: the trainers' command lines on the card, in process through
+    their `main([...])`, at the serving net's full width (128 features, 1
+    block, 1080p frames; the pools' depths cut as REFINE_TRAIN and CLI_CLIPS
+    print them), with CKPT_ROOT (and so the refinement net's checkpoint
+    directory) an empty temporary directory and the loaders' caches cleared
+    before and after:
+
+    - (a) `interp_refine --calibrate --clips CLI_CLIPS` copies the committed
+      interp_ref4@112000 into the empty root and writes its scales there
+      (6 soft_warp_blend launches a clip: the pool's mids); the same
+      `calibrate_scales` on the CPU (the plain soft warp's mids) within a
+      relative CLI_SCALE_GATE; `WgpuFrameInterpolator("flow_soft_ref")` at
+      1080p then serves 112000 in int8 from the copy (4 conv3x3_q, 1
+      soft_warp_blend), its mid `RefineGraph`'s and >= INT8_LEARNED's x2
+      gate against `make_quant_apply` (phase 4n's);
+    - (b) `interp_refine --steps N` resumes from the calibrated 112000 and
+      saves 112000 + N: every loss finite, the step's CUDA-event ms on the
+      leg's pool; the new step carries no calibration, so "flow_soft_ref"
+      serves it in bf16 (4 conv3x3, 1 soft_warp_blend);
+    - (c) `--distill-name interp_ref4w --steps CLI_DISTILL_STEPS` from that
+      step, on the card and on the CPU (the card's saved step removed
+      first): the first loss within a relative 1e-5 (phase 4n's bound);
+    - (d) `--eval` with JAX's protocol (seeds 900-902, 5 frames, 1080p):
+      its dB and SSIM printed, 6 soft_warp_blend launches; then
+      `eval_refine_float` on CLI_EVAL_CUT, card against CPU, within
+      EVAL_GATE;
+    - (e) `train --arch tpu4b2 --calibrate --io` copies the committed 76000
+      (npz, sidecar, Adam moments) and writes its scales; "quality" x2 at
+      1080p -> 4K serves it from the copy on 8 conv3x3_q launches: equal to
+      the committed step's served bytes where the scales are the committed
+      ones, else phase 4d's gates (bit-equal to the plain path, >= 42 dB
+      against `make_quant_apply`).
+
+    No module of the JAX side loaded; nothing written under checkpoints/,
+    the committed weights or checkpoints_torch/. Returns the launches of the
+    phase by kernel."""
+    import contextlib
+    import tempfile
+    from pathlib import Path
+
+    from nu_scaler_tpu_torch.core import WgpuFrameInterpolator, create_advanced_upscaler
+    from nu_scaler_tpu_torch.kernels import conv_cuda as cc
+    from nu_scaler_tpu_torch.kernels import resample_cuda as rc
+    from nu_scaler_tpu_torch.kernels import soft_warp_cuda as swc
+    from nu_scaler_tpu_torch.models import esrgan_lite as pel
+    from nu_scaler_tpu_torch.models import interp_refine as pir
+    from nu_scaler_tpu_torch.models import train as ptrain
+    from nu_scaler_tpu_torch.ops import interpolate as interp
+
+    launches_of = Launches(torch, (rc, swc, cc))
+    root = Path(__file__).resolve().parent
+    before = guarded_listing(root, pel.WEIGHTS_DIR)
+    r, cpu = REFINE_TRAIN, torch.device("cpu")
+    mids_a_clip = 8 - 2  # TripletPool: 8 frames a clip, a mid between each pair two frames apart
+    report = {"card": card, "reduced": {"calibrate_clips": f"{CLI_CLIPS} of 12", "train_clips": f"{r['n_clips']} of 12",
+                                        "pool": f"{r['pool_size']} of 4096", "steps": f"{r['steps']} of 8000",
+                                        "distill_steps": CLI_DISTILL_STEPS, "eval_cut": CLI_EVAL_CUT}}
+    say("4o command lines, depths cut (widths full: 128 features, 1 block, 1080p): " + json.dumps(report["reduced"]))
+
+    @contextlib.contextmanager
+    def recording(module, name: str):
+        """`module.name` wrapped to record what each call returns."""
+        seen, fn = [], getattr(module, name)
+
+        def wrapped(*args, **kw):
+            seen.append(fn(*args, **kw))
+            return seen[-1]
+
+        setattr(module, name, wrapped)
+        try:
+            yield seen
+        finally:
+            setattr(module, name, fn)
+
+    @contextlib.contextmanager
+    def step_losses():
+        """Every loss of the refinement trainer's steps (`pir.make_step`'s)."""
+        seen, make = [], pir.make_step
+
+        def recording_make(*args, **kw):
+            step = make(*args, **kw)
+
+            def rec(*batch):
+                out = step(*batch)
+                seen.append(float(out[2]))
+                return out
+
+            return rec
+
+        pir.make_step = recording_make
+        try:
+            yield seen
+        finally:
+            pir.make_step = make
+
+    def serve_refined():
+        """(the mid "flow_soft_ref" serves at 1080p, its launches, the graph
+        and sidecar that serve)."""
+        fr = WgpuFrameInterpolator(mode="flow_soft_ref")
+        ab = (pair[0].cpu().numpy().tobytes(), pair[1].cpu().numpy().tobytes())
+        mid, got = launches_of(lambda: fr.interpolate_py(*ab, IN_W, IN_H))
+        return (np.frombuffer(mid, np.uint8).reshape(IN_H, IN_W, 4), got, pir.get_refine_graph(IN_H, IN_W, dev),
+                pir.load_model()[1])
+
+    size = ["--height", str(IN_H), "--width", str(IN_W)]  # the CLI's defaults at 1080p
+    tmp = tempfile.TemporaryDirectory(prefix="nu_scaler_4o_")
+    ckpt = Path(tmp.name)
+    run_root = ptrain.CKPT_ROOT
+    ptrain.CKPT_ROOT = ckpt
+    clear_loader_caches()
+    try:
+        # (a) --calibrate of the committed step on the empty root
+        with recording(pir, "calibrate_scales") as cal:
+            code, got = launches_of(lambda: pir.main(["--calibrate", "--clips", str(CLI_CLIPS), *size]))
+        scales = cal[0]
+        sidecar = ckpt / pir.NET / f"{pir.NET}_{REFINE_STEP}.json"
+        check(code == 0 and sorted(p.name for p in (ckpt / pir.NET).iterdir())
+              == [sidecar.name, sidecar.with_suffix(".npz").name], "--calibrate did not copy the committed step")
+        check(pel.sidecar_scales(json.loads(sidecar.read_text())) == scales, "--calibrate's sidecar")
+        check(ran(got) == {"soft_warp_blend": mids_a_clip * CLI_CLIPS}, f"--calibrate launches {got}")
+        cpu_scales = pir.calibrate_scales(pir.load_checkpoint()[0], n_clips=CLI_CLIPS, height=IN_H, width=IN_W,
+                                          device="cpu")
+        rel = {k: abs(scales[k] - cpu_scales[k]) / abs(cpu_scales[k]) for k in cpu_scales}
+        clear_loader_caches()
+        mid, got, graph, meta = serve_refined()
+        model = pir.load_model()[0]
+        a, b = pair
+        soft = interp.soft_interp_fast(a, b, 0.5)
+        twin = u8(pir.make_quant_apply(model, scales)(*(t[None, ..., :3].float() / 255.0 for t in (a, b, soft)))[0])
+        report["calibrate"] = {"step": meta["step"], "scales": scales, "cpu_scales": cpu_scales,
+                               "scales_rel_diff": rel, "launches": got, "directory": str(pir._newest()[1]),
+                               "int8": graph.quantized, "equals_graph": bool(np.array_equal(
+                                   mid, graph(a, b, soft).cpu().numpy())), "vs_int8_twin_db": psnr(mid, twin)}
+        say(f"4o interp_refine --calibrate of {pir.NET}@{REFINE_STEP} on an empty root, then flow_soft_ref at 1080p "
+            f"[{card}]: " + json.dumps(report["calibrate"]))
+        check(max(rel.values()) <= CLI_SCALE_GATE, f"--calibrate's scales, card vs CPU: {rel}")
+        check(meta["step"] == REFINE_STEP and graph.quantized and graph.quant_scales == scales
+              and pir._newest()[1] == ckpt / pir.NET and ran(got) == {"conv3x3_q": 4, "soft_warp_blend": 1}
+              and report["calibrate"]["equals_graph"], f"flow_soft_ref after --calibrate: {report['calibrate']}")
+        check(report["calibrate"]["vs_int8_twin_db"] >= INT8_LEARNED[0][6],
+              f"the calibrated mid vs make_quant_apply: {report['calibrate']['vs_int8_twin_db']:.2f} dB")
+
+        # (b) a leg from the calibrated step; the new step serves in bf16
+        args = ["--steps", str(r["steps"]), "--clips", str(r["n_clips"]), "--pool", str(r["pool_size"]), *size]
+        with step_losses() as losses, recording(pir, "TripletPool") as pools:
+            code, got = launches_of(lambda: pir.main(args))
+        trained, tstep = pir.load_checkpoint()
+        check(code == 0 and tstep == REFINE_STEP + r["steps"] and len(losses) == r["steps"]
+              and all(np.isfinite(losses)), f"the leg saved {tstep}, losses {losses}")
+        check(ran(got) == {"soft_warp_blend": mids_a_clip * r["n_clips"]}, f"the leg's launches {got}")
+        xs, ys = (torch.from_numpy(v).to(dev) for v in (pools[0].xs, pools[0].ys))
+        idx = torch.from_numpy(np.random.default_rng(1).integers(0, r["pool_size"], size=TRAIN["batch"])).to(dev)
+        rm = copy.deepcopy(trained).to(dev)
+        step = pel.make_step(rm, pel.adam(rm, 2e-4), lambda xb, yb: pir.refine_loss(rm, xb, yb))
+        step_ms, host_ms = step_times(torch, step, (xs[idx], ys[idx]), TRAIN_TIMED)
+        clear_loader_caches()
+        _, served_got, graph, meta = serve_refined()
+        report["leg"] = {"from": REFINE_STEP, "saved": tstep, "first_loss": losses[0], "final_loss": losses[-1],
+                         "launches": got, "step_device_ms": step_ms, "step_host_ms": host_ms,
+                         "crops_per_s": TRAIN["batch"] / step_ms * 1e3,
+                         "served": {"step": meta["step"], "int8": graph.quantized, "launches": served_got}}
+        say(f"4o interp_refine --steps {r['steps']} from the calibrated {REFINE_STEP}, batch {TRAIN['batch']} x 96^2 "
+            f"[{card}]: " + json.dumps(report["leg"]))
+        check(meta["step"] == tstep and not graph.quantized and ran(served_got) == {"conv3x3": 4, "soft_warp_blend": 1},
+              f"flow_soft_ref after the leg: {report['leg']['served']}")
+
+        # (c) distillation from interp_ref4w, card against CPU, each from tstep
+        dargs = ["--distill-name", DISTILL_TEACHER[0], "--distill-features", str(DISTILL_TEACHER[1]),
+                 "--distill-blocks", str(DISTILL_TEACHER[2]), "--steps", str(CLI_DISTILL_STEPS),
+                 "--clips", str(r["n_clips"]), "--pool", str(r["pool_size"]), *size]
+        saved = ckpt / pir.NET / f"{pir.NET}_{tstep + CLI_DISTILL_STEPS}"
+        dlosses, students, dgot = {}, {}, {}
+        for where, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+            with step_losses() as losses:
+                code, dgot[where] = launches_of(lambda: pir.main(dargs + extra))
+            students[where], dstep = pir.load_checkpoint()
+            check(code == 0 and dstep == tstep + CLI_DISTILL_STEPS and len(losses) == CLI_DISTILL_STEPS,
+                  f"the {where} distillation saved {dstep}, losses {losses}")
+            dlosses[where] = losses
+            if where == "card":  # the CPU leg starts from tstep too
+                for suffix in (".npz", ".json"):
+                    saved.with_suffix(suffix).unlink()
+        rel = abs(dlosses["card"][0] - dlosses["cpu"][0]) / dlosses["cpu"][0]
+        within, max_d = param_diffs(students["card"], students["cpu"])
+        report["distill"] = {"student": f"{pir.NET}@{tstep}", "teacher": f"{DISTILL_TEACHER[0]}@"
+                             f"{pir.load_checkpoint(DISTILL_TEACHER[0])[1]}", "losses_card": dlosses["card"],
+                             "losses_cpu": dlosses["cpu"], "first_loss_rel": rel, "params_within_1e-6": within,
+                             "params_max_abs_diff": max_d, "launches": dgot["card"]}
+        say(f"4o interp_refine --distill-name {DISTILL_TEACHER[0]}, card vs CPU [{card}]: "
+            + json.dumps(report["distill"]))
+        check(rel <= 1e-5, f"the distillation's first loss: card vs CPU relative {rel:.3g}")
+        check(ran(dgot["card"]) == {"soft_warp_blend": mids_a_clip * r["n_clips"]} and not ran(dgot["cpu"]),
+              f"the distillation's launches {dgot}")
+
+        # (d) --eval with JAX's protocol, then the cut protocol card vs CPU
+        with recording(pir, "eval_refine_float") as evals:
+            code, got = launches_of(lambda: pir.main(["--eval", *size]))
+        card_cut = pir.eval_refine_float(**CLI_EVAL_CUT, device=dev)
+        cpu_cut = pir.eval_refine_float(**CLI_EVAL_CUT, device="cpu")
+        report["eval"] = {"jax_protocol": evals[0], "launches": got, "cut_card": card_cut, "cut_cpu": cpu_cut}
+        say(f"4o interp_refine --eval at 1080p (3 seeds x 5 frames) [{card}]: {evals[0]['ref_psnr_db']:.4f} dB / "
+            f"{evals[0]['ref_ssim']:.4f} SSIM vs soft {evals[0]['soft_psnr_db']:.4f} / {evals[0]['soft_ssim']:.4f}; "
+            + json.dumps(report["eval"]))
+        check(code == 0 and ran(got) == {"soft_warp_blend": 6}, f"--eval launches {got}")
+        for k in ("soft_psnr_db", "ref_psnr_db", "soft_ssim", "ref_ssim"):
+            bound = EVAL_GATE[0] if k.endswith("_db") else EVAL_GATE[1]
+            check(abs(card_cut[k] - cpu_cut[k]) <= bound, f"eval {k}: card {card_cut[k]} vs CPU {cpu_cut[k]}")
+
+        # (e) the SR command line's --calibrate --io of the committed step
+        arch, sr_step = TRAIN["arch"], TRAIN["step"]
+        code, got = launches_of(lambda: ptrain.main(["--arch", arch, "--calibrate", "--io"]))
+        stem = f"esrgan_{arch}_x2_{sr_step}"
+        names = sorted(p.name for p in ckpt.iterdir() if p.is_file())
+        sr_scales = pel.load_act_scales(arch, 2, ckpt)
+        check(code == 0 and not ran(got) and names == [f"{stem}.json", f"{stem}.npz", f"{stem}_opt.npz"]
+              and sr_scales["head"] == sr_scales["base"] == 1.0, f"train --calibrate --io wrote {names}: {sr_scales}")
+        clear_loader_caches()
+        up = create_advanced_upscaler("ultra")
+        up.learned_prefer = "quality"
+        up.initialize(IN_W, IN_H, OUT_W, OUT_H)
+        fn = up._fn
+        out, got = launches_of(lambda: np.frombuffer(up.upscale(frame.tobytes()), np.uint8).reshape(OUT_H, OUT_W, 4))
+        model, meta = pel.load_model(arch, 2)  # the committed export
+        committed = pel.sidecar_scales(meta)
+        x = torch.from_numpy(frame[None]).to(dev)
+        rep = {"arch": fn.arch, "step": fn.step, "directory": str(fn.directory), "quantized": fn.quantized,
+               "launches": got, "scales": sr_scales, "scales_equal_committed": sr_scales == committed,
+               "scales_rel_diff_committed": {k: abs(sr_scales[k] - v) / abs(v) for k, v in committed.items()}}
+        if rep["scales_equal_committed"]:
+            want = pel.make_serving_fn_fused(model, IN_H, IN_W, dev, quant_scales=committed)(x)[0].cpu().numpy()
+            rep["equals_committed_served"] = bool(np.array_equal(out, want))
+        else:
+            plain = pel.make_serving_fn_fused(model, IN_H, IN_W, dev, conv=cc.conv3x3_plain, quant_scales=sr_scales,
+                                              conv_q=cc.conv3x3_q_plain)(x)[0].cpu().numpy()
+            x01 = torch.from_numpy(frame[None, ..., :3].astype(np.float32) / 255.0).to(dev)
+            rep["vs_plain_path_equal"] = float((out == plain).mean())
+            rep["vs_int8_twin_db"] = psnr(out, u8(pel.make_quant_apply(model, sr_scales)(x01)[0]))
+        report["sr_calibrate"] = rep
+        say(f"4o train --arch {arch} --calibrate --io on an empty root, then quality x2 1080p -> 4K [{card}]: "
+            + json.dumps(rep))
+        check((fn.arch, fn.step, fn.directory, fn.quantized) == (arch, sr_step, ckpt, True)
+              and ran(got) == {"conv3x3_q": 8}, f"quality after the SR --calibrate: {rep}")
+        check(rep.get("equals_committed_served", False) or (rep["vs_plain_path_equal"] == 1.0
+                                                            and rep["vs_int8_twin_db"] >= INT8_LEARNED[0][6]),
+              f"the calibrated committed step served: {rep}")
+
+        jax_side = jax_side_modules(root)
+        check(not jax_side, f"modules of the JAX side loaded: {jax_side}")
+    finally:
+        ptrain.CKPT_ROOT = run_root
+        clear_loader_caches()
+        tmp.cleanup()
+    check(guarded_listing(root, pel.WEIGHTS_DIR) == before,
+          "phase 4o wrote under checkpoints/, the committed weights or checkpoints_torch/")
+    say(f"the command lines on the card [{card}]: launches {json.dumps(launches_of.total)}")
+    return launches_of.total
+
+
 def main() -> int:
     import torch
 
@@ -2083,14 +2379,17 @@ def main() -> int:
             f"{bf16_rate:.3g} bf16 FLOP/s")
 
     with Phase("2 build"):
+        # the build's command line (python -m nu_scaler_tpu_torch.kernels._build):
         # one nvcc per kernel source and one g++ per host library (the frame
-        # ring and the Y4M demuxer of phase 4j), all started together
-        built = _build.build((*_build.SIGNATURES, *_build.HOST_SIGNATURES))
-        for name in (*_build.SIGNATURES, *_build.HOST_SIGNATURES):
+        # ring and the Y4M demuxer of phase 4j), all started together, each
+        # library's path printed
+        libraries = (*_build.SIGNATURES, *_build.HOST_SIGNATURES)
+        cached = {name for name in libraries if _build.library_path(name).is_file()}
+        check(_build.main([]) == 0, "the build's command line failed")
+        for name in libraries:
             _build.load_library(name)
             kind_ = "host library" if name in _build.HOST_SIGNATURES else "kernel library"
-            say(f"{kind_} {_build.library_path(name).name} "
-                f"({'built in %.2f s' % built[name] if name in built else 'cached'})")
+            say(f"{kind_} {_build.library_path(name).name} ({'cached' if name in cached else 'built'})")
 
     rng = np.random.default_rng(SEED)
     frames = make_frames(rng)
@@ -2121,7 +2420,11 @@ def main() -> int:
         }
         for shape_key, (plan, (ih, iw)) in other_plans.items():
             on_dev[shape_key] = torch.from_numpy(rng.integers(0, 256, (ih, iw, 4), np.uint8)).to(dev)
-        fused_cases = [(f"{algo} 1080p->4K", plan, key) for algo, plan in plans.items() for key in ("a", "n1")]
+        # the other four algorithms the port accepts, at the main path's 1080p→4K
+        more_plans = {algo: resample.make_resampler(IN_H, IN_W, OUT_H, OUT_W, algo, dev).plan
+                      for algo in ("bicubic", "lanczos2", "mitchell", "area")}
+        fused_cases = [(f"{algo} 1080p->4K", plan, key) for algo, plan in (plans | more_plans).items()
+                       for key in ("a", "n1")]
         fused_cases += [(name, plan, name) for name, (plan, _) in other_plans.items()]
         for name, plan, key in fused_cases:
             k = rc.resample_fused(on_dev[key], plan)
@@ -2133,6 +2436,13 @@ def main() -> int:
                 f"{n_diff} bytes differ, max {max_d} LSB, exact {exact:.7f}")
             check(n_diff == 0, f"resample_fused {name}: {n_diff} bytes differ")
             errs["resample_fused"] = max(errs["resample_fused"], max_d)
+        # bicubic 1080p→4K against its float64 golden, as bench.py:729-737 gates it
+        wv_b, wh_b = (torch.from_numpy(ref.filter_weights(n, m, "bicubic")).cuda().double()
+                      for n, m in ((IN_H, OUT_H), (IN_W, OUT_W)))
+        bicubic_db = psnr(rc.resample_fused(on_dev["a"], more_plans["bicubic"]).cpu().numpy(),
+                          golden(torch, frames["a"], wv_b, wh_b).cpu().numpy())
+        say(f"resample_fused bicubic 1080p->4K vs the float64 golden: {bicubic_db:.2f} dB (gate {PSNR_GATE_DB})")
+        check(bicubic_db >= PSNR_GATE_DB, f"bicubic vs its golden: {bicubic_db:.2f} dB")
         batch = torch.stack([on_dev[k] for k in ("a", "b", "n1", "n2")])
         k = rc.resample_fused_batched(batch, lz)
         p = rc.resample_plain(batch, lz)
@@ -3534,6 +3844,12 @@ def main() -> int:
         # teachers, and tpu8 / tpu8w x2 on their committed weights
         n4_counts = serving_after_training(torch, card, dev, learned_in[2], pool, trained)
 
+    with Phase("4o the command lines"):
+        # the refinement net's command line (--calibrate of the committed
+        # step, a leg, a distillation, --eval) and the SR trainer's
+        # --calibrate --io, in process, on an empty CKPT_ROOT
+        o4_counts = clis_on_the_card(torch, card, dev, learned_in[2], (on_dev["a"], on_dev["b"]))
+
     with Phase("5 times"):
         flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
         tables = 4 * (OUT_H * (1 + lz.kv) + OUT_W * (1 + lz.kh))
@@ -3570,7 +3886,7 @@ def main() -> int:
         rows = []
         launched = {name: counts[name] + flow_counts.get(name, 0) + g4_counts.get(name, 0)
                     + h4_counts.get(name, 0) + j4_counts.get(name, 0) + k4_counts.get(name, 0)
-                    + n4_counts.get(name, 0) for name in counts}
+                    + n4_counts.get(name, 0) + o4_counts.get(name, 0) for name in counts}
         for name, (kernel, plain, n, n_ts) in cases.items():
             b_ms, b_by = bound(n, n_ts)
             ms, plain_ms = time_ms(torch, kernel, flush), time_ms(torch, plain, flush)
@@ -3644,10 +3960,12 @@ def main() -> int:
             "name": "soft_warp_blend", "route": "cuda", "source": SOFT_SOURCE,
             "replaces": REPLACES["soft_warp_blend"],
             "launches": flow_counts["soft_warp_blend"] + h4_counts["soft_warp_blend"]
-            + j4_counts["soft_warp_blend"] + k4_counts["soft_warp_blend"] + n4_counts["soft_warp_blend"],
+            + j4_counts["soft_warp_blend"] + k4_counts["soft_warp_blend"] + n4_counts["soft_warp_blend"]
+            + o4_counts["soft_warp_blend"],
             "launches_flow_soft_ref": h4_counts["soft_warp_blend"], "launches_app": j4_counts["soft_warp_blend"],
             "launches_training": k4_counts["soft_warp_blend"],
             "launches_serving_after_training": n4_counts["soft_warp_blend"],
+            "launches_command_lines": o4_counts["soft_warp_blend"],
             "max_abs_err": errs["soft_warp_blend"], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "ptxas": soft_regs,
             # no single PyTorch call computes the 4-corner candidate blend
@@ -3784,9 +4102,9 @@ def main() -> int:
         rows.append({
             "name": "conv3x3", "route": "cuda", "source": CONV_SOURCE, "replaces": REPLACES["conv3x3"],
             "launches": learned_counts["conv3x3"] + h4_counts["conv3x3"] + j4_counts["conv3x3"]
-            + k4_counts["conv3x3"] + m4_counts["conv3x3"] + n4_counts["conv3x3"],
+            + k4_counts["conv3x3"] + m4_counts["conv3x3"] + n4_counts["conv3x3"] + o4_counts["conv3x3"],
             "launches_training": k4_counts["conv3x3"], "launches_sharded_training": m4_counts["conv3x3"],
-            "launches_serving_after_training": n4_counts["conv3x3"],
+            "launches_serving_after_training": n4_counts["conv3x3"], "launches_command_lines": o4_counts["conv3x3"],
             "max_abs_err": errs["conv3x3"], **main,
             # phase 4h: the refinement net's convs (4 a refined mid) and their times
             "launches_flow_soft_ref": h4_counts["conv3x3"], "refinement_shapes": refine_conv_ms,
@@ -3836,10 +4154,12 @@ def main() -> int:
                           "bound_by": b_by}
         rows.append({
             "name": "conv3x3_q", "route": "cuda", "source": CONV_SOURCE, "replaces": REPLACES["conv3x3_q"],
-            "launches": int8_launches + j4_counts["conv3x3_q"] + k4_counts["conv3x3_q"] + n4_counts["conv3x3_q"],
+            "launches": int8_launches + j4_counts["conv3x3_q"] + k4_counts["conv3x3_q"] + n4_counts["conv3x3_q"]
+            + o4_counts["conv3x3_q"],
             "max_abs_err": errs["conv3x3_q"],
             "launches_app": j4_counts["conv3x3_q"], "launches_training": k4_counts["conv3x3_q"],
             "launches_serving_after_training": n4_counts["conv3x3_q"],
+            "launches_command_lines": o4_counts["conv3x3_q"],
             **q_ms[f"x2 block 1x{th2}x{tw2} 128->128"],
             "inputs": f"the committed tpu4b2 block0.conv2 int8 weights on quantised activations, "
                       f"1x{th2}x{tw2}x128 -> 128 (the quality x2 trunk grid)",

@@ -17,10 +17,17 @@ Nothing here runs at import time: the first CUDA launch of a kernel, or the
 first use of a host library, calls `load_library(name)`. `build()` starts one
 compiler per source at once, for a caller that wants every library ready
 before its first use. The CPU paths of the kernels never reach this module.
+
+From the command line (the counterpart of ``python -m
+nu_scaler_tpu.runtime.native.build``), every library, or the ones named,
+built ahead of first use, each path printed; ``--force`` rebuilds:
+
+    python -m nu_scaler_tpu_torch.kernels._build [--force] [name ...]
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import functools
 import hashlib
@@ -28,6 +35,7 @@ import os
 import re
 import shutil
 import subprocess
+import sys
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -245,11 +253,12 @@ def _compile(compiler: str, name: str) -> float:
     return seconds
 
 
-def build(names: Iterable[str] = tuple(SIGNATURES)) -> dict:
-    """Compile every named library that is not built yet, one compiler
-    process per source, all started together. Returns {name: seconds} for
-    the ones built; raises with the compiler's errors if any build fails."""
-    todo = [n for n in names if not library_path(n).is_file()]
+def build(names: Iterable[str] = tuple(SIGNATURES), force: bool = False) -> dict:
+    """Compile every named library that is not built yet (every one with
+    `force`), one compiler process per source, all started together.
+    Returns {name: seconds} for the ones built; raises with the compiler's
+    errors if any build fails."""
+    todo = [n for n in names if force or not library_path(n).is_file()]
     if not todo:
         return {}
     compilers = {name: _compiler(name) for name in todo}
@@ -278,3 +287,26 @@ def load_library(name: str) -> ctypes.CDLL:
     lib.nu_cuda_error_string.argtypes = [_INT]
     lib.nu_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def main(argv=None) -> int:
+    """Build the named libraries (all of `SIGNATURES` and `HOST_SIGNATURES`
+    by default) into `BUILD_DIR` and print each one's path."""
+    every = (*SIGNATURES, *HOST_SIGNATURES)
+    p = argparse.ArgumentParser(description="Build the port's CUDA kernel libraries (nvcc) and host "
+                                "libraries (g++) ahead of first use; print each library's path.")
+    p.add_argument("names", nargs="*", metavar="name", help=f"the libraries to build (default: all of {every})")
+    p.add_argument("--force", action="store_true", help="rebuild even where the library is built")
+    args = p.parse_args(argv)
+    unknown = [n for n in args.names if n not in every]
+    if unknown:
+        p.error(f"unknown libraries {unknown}; known: {every}")
+    names = args.names or every
+    build(names, force=args.force)
+    for name in names:
+        print(library_path(name), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -68,6 +68,7 @@ import copy
 import functools
 import hashlib
 import json
+import shutil
 from pathlib import Path
 from typing import Callable, NamedTuple, Optional, Union
 
@@ -539,6 +540,28 @@ def write_sidecar_scales(sidecar: Path, scales: dict) -> Path:
     meta["act_scales"] = {"step": meta["step"], "scales": {k: float(v) for k, v in scales.items()}}
     sidecar.write_text(json.dumps(meta, indent=1) + "\n")
     return sidecar
+
+
+def copy_export(stem: str, directory: Path) -> Path:
+    """Copy the committed export `stem` from `WEIGHTS_DIR` into `directory`
+    at its step: its npz, its Adam moments (``{stem}_opt.npz``) where its
+    sidecar names them, then its sidecar. Every npz is checked against its
+    sidecar's sha256 (`read_weights`) before anything is written. A
+    calibration of the committed step writes into this copy, which the
+    loaders then read first, since the committed files are never written
+    (the role of JAX's ``act_scales.json`` written beside the committed
+    orbax step). Returns the copy's sidecar."""
+    meta = json.loads((WEIGHTS_DIR / f"{stem}.json").read_text())
+    files = [(f"{stem}.npz", meta["sha256"])]
+    if "opt_sha256" in meta:
+        files.append((f"{stem}_opt.npz", meta["opt_sha256"]))
+    for name, sha256 in files:
+        read_weights(WEIGHTS_DIR / name, sha256)
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    for name in [n for n, _ in files] + [f"{stem}.json"]:  # the sidecar last: the loaders glob for it
+        shutil.copyfile(WEIGHTS_DIR / name, directory / name)
+    return directory / f"{stem}.json"
 
 
 def make_twin(model: nn.Module, out_h: int, out_w: int) -> Callable[[torch.Tensor], torch.Tensor]:

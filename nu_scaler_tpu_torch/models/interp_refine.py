@@ -48,11 +48,26 @@ wide distillation teacher interp_ref4w is committed the same way and never
 serves. A missing npz, or one whose sha256 differs from its sidecar's,
 raises: the port carries the weights, so their absence is a fault, not
 JAX's fallback to plain flow_soft.
+
+The command line is JAX's (`interp_refine.py:742-818`), with ``--device``
+in place of ``--cpu`` (the card unless ``--device cpu``). It trains a leg of
+``--name`` (resumed from its newest weights), distills one from a teacher
+(``--distill-name``), calibrates the serving net's int8 scales
+(``--calibrate``: always interp_ref4, whatever ``--name`` says, as JAX's;
+the committed step is first copied into `CKPT_ROOT`, `save_act_scales`), or
+evaluates a named net on the held-out clips (``--eval``):
+
+    python -m nu_scaler_tpu_torch.models.interp_refine --steps 2000 --clips 12
+    python -m nu_scaler_tpu_torch.models.interp_refine --calibrate
+    python -m nu_scaler_tpu_torch.models.interp_refine --name s --features 96 --distill-name interp_ref4w
+    python -m nu_scaler_tpu_torch.models.interp_refine --eval --name interp_ref4w --features 192 --blocks 2
 """
 
 from __future__ import annotations
 
+import argparse
 import functools
+import sys
 import time
 from pathlib import Path
 from typing import Callable, Optional
@@ -73,6 +88,7 @@ from nu_scaler_tpu_torch.models.esrgan_lite import (
     adam,
     amax,
     conv_f32,
+    copy_export,
     fp32_training,
     init_module,
     make_step,
@@ -412,8 +428,16 @@ def load_checkpoint(name: str = NET) -> Optional[tuple[InterpRefine, int]]:
 
 def save_act_scales(scales: dict, step: int, name: str = NET) -> Path:
     """Record the int8 activation scales in the sidecar of the checkpoint
-    `name` at `step` (step-gated, as `sidecar_scales` reads them)."""
-    return write_sidecar_scales(_ckpt_dir(name) / f"{name}_{step}.json", scales)
+    `name` at `step` under `_ckpt_dir(name)` (step-gated, as `sidecar_scales`
+    reads them); returns the sidecar. When that step is the committed
+    export's and `_ckpt_dir(name)` does not hold it, the export is first
+    copied there (`esrgan_lite.copy_export`, its sha256 checked): the
+    loaders read that directory first and serve the step in int8, as JAX
+    serves its committed step once ``act_scales.json`` lies beside it."""
+    sidecar = _ckpt_dir(name) / f"{name}_{step}.json"
+    if not sidecar.exists() and (WEIGHTS_DIR / sidecar.name).exists():
+        copy_export(sidecar.stem, sidecar.parent)
+    return write_sidecar_scales(sidecar, scales)
 
 
 class TripletPool:
@@ -619,3 +643,66 @@ def eval_refine_float(name: str = NET, features: int = 128, blocks: int = 1, see
           f"{out['soft_psnr_db']:.2f} / {out['soft_ssim']:.4f} (Δ {out['psnr_delta_db']:+.2f} dB / "
           f"{out['ssim_delta']:+.4f})", flush=True)
     return out
+
+
+def main(argv=None) -> int:
+    """JAX's ``__main__`` (`interp_refine.py:742-818`): the same flags and
+    defaults, ``--device`` in place of ``--cpu``, the same dispatch."""
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--steps", type=int, default=8000)
+    p.add_argument("--batch", type=int, default=8)
+    p.add_argument("--lr", type=float, default=2e-4)
+    p.add_argument("--clips", type=int, default=12)
+    p.add_argument("--pool", type=int, default=4096)
+    p.add_argument("--height", type=int, default=1080)
+    p.add_argument("--width", type=int, default=1920)
+    p.add_argument("--device", default=None, choices=["cuda", "cpu"],
+                   help="the card unless cpu (JAX's --cpu)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="pool-render + batch-order seed (vary per leg to draw fresh clips/crops)")
+    p.add_argument("--factors", type=int, nargs="+", default=[2],
+                   help="frame-rate factors for the triplet pool: 2 = t=0.5 only; '2 3' adds t=1/3, 2/3 triplets")
+    p.add_argument("--sources", nargs="+", default=["native"], choices=["native", "down4k"],
+                   help="clip provenance mix (round-robin per clip): 'native down4k' trains on both "
+                        "render-res and downsampled-from-2x sources")
+    p.add_argument("--calibrate", action="store_true",
+                   help="calibrate the int8 activation scales of the serving net's newest checkpoint "
+                        "(training clips only) into its sidecar under CKPT_ROOT; the committed step is "
+                        "copied there first")
+    p.add_argument("--no-head", action="store_true", help="with --calibrate: leave the head conv in bf16")
+    p.add_argument("--features", type=int, default=128, help="net width (the serving net is 128)")
+    p.add_argument("--blocks", type=int, default=1, help="residual blocks (the serving net is 1)")
+    p.add_argument("--name", default=NET, help="checkpoint name; non-default names (e.g. the "
+                   "distillation teacher interp_ref4w) never serve")
+    p.add_argument("--distill-name", default=None, help="teacher checkpoint name to distill from")
+    p.add_argument("--distill-features", type=int, default=192)
+    p.add_argument("--distill-blocks", type=int, default=2)
+    p.add_argument("--distill-w", type=float, default=0.5)
+    p.add_argument("--eval", action="store_true",
+                   help="held-out float-domain eval of --name at --features/--blocks vs the soft warp, "
+                        "then exit (teacher gating; the serving eval is data.eval_interp_refinement)")
+    args = p.parse_args(argv)
+    if args.eval:
+        eval_refine_float(args.name, args.features, args.blocks, height=args.height, width=args.width,
+                          device=args.device)
+        return 0
+    if args.calibrate:
+        # the serving net, whatever --name says: JAX's load_checkpoint() with no name
+        restored = load_checkpoint()
+        if restored is None:
+            raise SystemExit(f"no {NET} checkpoint to calibrate")
+        model, step = restored
+        scales = calibrate_scales(model, n_clips=args.clips, include_head=not args.no_head, height=args.height,
+                                  width=args.width, device=args.device)
+        print(f"saved {save_act_scales(scales, step)}: {scales}", flush=True)
+        return 0
+    train(steps=args.steps, batch=args.batch, lr=args.lr, seed=args.seed, n_clips=args.clips, pool_size=args.pool,
+          height=args.height, width=args.width, factors=tuple(args.factors), sources=tuple(args.sources),
+          features=args.features, blocks=args.blocks, name=args.name,
+          distill=(args.distill_name, args.distill_features, args.distill_blocks) if args.distill_name else None,
+          distill_w=args.distill_w, device=args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -21,6 +21,8 @@ port's committed ``nu_scaler_tpu_torch/weights/``:
                                                       kwargs, step, sha256 and,
                                                       once calibrated, act_scales
     CKPT_ROOT/esrgan_{arch}_x{upscale}_{step}_opt.pt  Adam's state
+    CKPT_ROOT/esrgan_{arch}_x{upscale}_{step}_opt.npz a copied export's Adam
+                                                      moments (``--calibrate``)
 
 the format of `tools/export_torch_weights.py`. The API serves them: for each
 arch and scale the learned ladders read the newest step in `CKPT_ROOT`
@@ -28,7 +30,11 @@ before the committed export (`esrgan_lite.weights_directory`), as JAX's read
 the step its ``latest.txt`` names, so the next process (or one whose
 loaders' caches are cleared) serves what a run saved; a "quant" ladder entry
 serves int8 only when that step's sidecar holds its calibration
-(``--calibrate``).
+(``--calibrate``). ``--calibrate`` of the committed step first copies its
+export (npz, sidecar and Adam moments) into `CKPT_ROOT` at that step and
+writes the scales there, so the API serves that step in int8, as JAX serves
+its committed step after its ``--calibrate``; the committed files are never
+written.
 
 Resume follows JAX's: the newest checkpoint of the arch in `CKPT_ROOT` (with
 its Adam state), else the committed export of the arch in
@@ -152,17 +158,20 @@ def load_opt_state(optimizer: torch.optim.Optimizer, arch: str, stages: int, ste
 
 
 def load_export_opt_state(optimizer: torch.optim.Optimizer, model: nn.Module, arch: str,
-                          stages: int, step: int) -> bool:
-    """Restore Adam's state of the committed export at `step` into
-    `optimizer` (Adam over `model`'s parameters, `esrgan_lite.adam`): optax's
-    ``ScaleByAdamState`` mapped onto PyTorch's, ``count`` → each
-    parameter's ``step``, ``mu`` → ``exp_avg``, ``nu`` → ``exp_avg_sq``, by
-    the parameters' flax names. False when the export carries no moments;
-    raises ValueError when the file's sha256 is not the sidecar's."""
-    meta = el._sidecar(arch, 2 ** stages, el.WEIGHTS_DIR)
+                          stages: int, step: int, directory=None) -> bool:
+    """Restore Adam's state of the committed export at `step` (in
+    `directory`: the committed `WEIGHTS_DIR` by default, or `CKPT_ROOT`
+    holding its copy, `esrgan_lite.copy_export`) into `optimizer` (Adam over
+    `model`'s parameters, `esrgan_lite.adam`): optax's ``ScaleByAdamState``
+    mapped onto PyTorch's, ``count`` → each parameter's ``step``, ``mu`` →
+    ``exp_avg``, ``nu`` → ``exp_avg_sq``, by the parameters' flax names.
+    False when the export carries no moments; raises ValueError when the
+    file's sha256 is not the sidecar's."""
+    directory = el.WEIGHTS_DIR if directory is None else Path(directory)
+    meta = el._sidecar(arch, 2 ** stages, directory)
     if meta is None or meta["step"] != step or "opt_sha256" not in meta:
         return False
-    path = el.WEIGHTS_DIR / f"esrgan_{arch}_x{2 ** stages}_{step}_opt.npz"
+    path = directory / f"esrgan_{arch}_x{2 ** stages}_{step}_opt.npz"
     tree = el.read_weights(path, meta["opt_sha256"])
     count = float(tree.pop("count"))
     moments = {m: el.params_from_flax(tree[m]) for m in ("mu", "nu")}
@@ -271,7 +280,8 @@ def train(steps: int = 200, batch: int = 8, stages: int = 1, lr: float = 2e-4, s
     opt = el.adam(model, lr)
     if own and load_opt_state(opt, arch, stages, start):
         print("restored optimizer state")
-    elif restored is not None and not own and load_export_opt_state(opt, model, arch, stages, start):
+    elif restored is not None and load_export_opt_state(opt, model, arch, stages, start, CKPT_ROOT if own else None):
+        # the export's moments, or those of its copy in CKPT_ROOT (`calibrate`)
         print("restored optimizer state (the committed export's)")
     if distill is not None:
         step_fn = make_distill_step(model, opt, loss_kind, distill_w)
@@ -339,23 +349,30 @@ def evaluate(stages: int = 1, arch: str = "tpu", device=None) -> dict:
 
 def calibrate(arch: str, stages: int = 1, io: bool = False, device=None) -> tuple[Path, dict]:
     """Calibrate the int8 activation scales of the newest checkpoint of
-    `arch` in `CKPT_ROOT` on training clips
-    (`default_trunk_scales`) and write them into its sidecar. With `io`, the
-    head and base entries too (1.0 each: [0, 1] inputs), which the serving
-    graph's int8 head and base read. Returns (the sidecar, the scales)."""
+    `arch` (`load_latest`: in `CKPT_ROOT`, else the committed export, the
+    step JAX's ``--calibrate`` calibrates) on training clips
+    (`default_trunk_scales`) and write them into its sidecar in `CKPT_ROOT`.
+    The committed export is first copied there at its step
+    (`esrgan_lite.copy_export`, with its Adam moments, so a later resume is
+    unchanged): the loaders then serve that step in int8 with these scales.
+    With `io`, the head and base entries too (1.0 each: [0, 1] inputs),
+    which the serving graph's int8 head and base read. Returns (the
+    sidecar, the scales)."""
     if arch == el.LITE:
         raise ValueError("int8 calibration serves the s2d archs, not ESRGANLite")
-    restored = load_checkpoint(arch, stages)
+    restored = load_latest(arch, stages)
     if restored is None:
-        raise FileNotFoundError(f"no checkpoint of {arch} x{2 ** stages} under {CKPT_ROOT} "
-                                f"(train(steps=0) copies the committed export there)")
-    model, step = restored
+        raise FileNotFoundError(f"no checkpoint of {arch} x{2 ** stages} under {CKPT_ROOT} or {el.WEIGHTS_DIR}")
+    model, step, own = restored
     model.to(resolve_device(device))
     scales = el.default_trunk_scales(model)
     if io:
         scales["head"] = 1.0
         scales["base"] = 1.0
-    path = el.write_sidecar_scales(ckpt_stem(arch, stages, step).with_suffix(".json"), scales)
+    stem = ckpt_stem(arch, stages, step)
+    if not own:
+        el.copy_export(stem.name, CKPT_ROOT)
+    path = el.write_sidecar_scales(stem.with_suffix(".json"), scales)
     return path, scales
 
 
@@ -383,7 +400,8 @@ def main(argv=None) -> int:
     p.add_argument("--eval", action="store_true", help="evaluate the newest checkpoint against "
                    "lanczos3 on held-out clips and exit")
     p.add_argument("--calibrate", action="store_true", help="calibrate the int8 activation scales of "
-                   "the newest checkpoint under CKPT_ROOT (training clips only) into its sidecar")
+                   "the newest checkpoint (training clips only) into its sidecar under CKPT_ROOT; the "
+                   "committed export is copied there first")
     p.add_argument("--io", action="store_true", help="with --calibrate: also write the head and base "
                    "entries (the int8 head and base of the serving graph)")
     p.add_argument("--device", default=None, choices=["cuda", "cpu"], help="the card unless cpu")

@@ -8,6 +8,7 @@ and the demuxer give the same frames and counts as JAX's, byte for byte;
 the demuxer is within 1 LSB of the pure-Python reader (it converts in
 float64 where numpy converts in float32)."""
 
+import shutil
 import threading
 from pathlib import Path
 
@@ -58,6 +59,27 @@ def test_libraries_build_under_build_dir():
         assert _build.source_path(name) == Path(pfr.__file__).parent / "native" / f"{name}.cpp"
     assert "-march=native" not in _build.GXX_FLAGS and "-pthread" in _build.GXX_FLAGS
     assert _files(JAX_PKG) <= before
+
+
+@pytest.mark.skipif(shutil.which("g++") is None, reason="no g++ to build the host library")
+def test_build_cli_builds_the_host_library(monkeypatch, tmp_path, capsys):
+    """`python -m nu_scaler_tpu_torch.kernels._build framering` (the host
+    half; the CUDA half runs in chip_smoke.py): built once and its path
+    printed, reused on a second call, rebuilt with --force; an unknown name
+    is refused."""
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    path = _build.library_path("framering")
+    assert path.parent == tmp_path and not path.exists()
+    for argv, built in ((["framering"], True), (["framering"], False), (["--force", "framering"], True)):
+        before = path.stat().st_mtime_ns if path.exists() else None
+        assert _build.main(argv) == 0
+        out = capsys.readouterr().out
+        assert out.splitlines()[-1] == str(path) and path.is_file()
+        assert (f"g++ built {path.name}" in out) == built
+        assert (path.stat().st_mtime_ns != before) == built
+    with pytest.raises(SystemExit):
+        _build.main(["framering", "nope"])
+    assert sorted(p.name for p in tmp_path.iterdir()) == [path.name]
 
 
 def test_host_library_key_follows_its_source(monkeypatch, tmp_path):
