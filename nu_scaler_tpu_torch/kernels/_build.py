@@ -42,6 +42,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Iterable, Optional
 
+from nu_scaler_tpu_torch.utils.tracing import span
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 NATIVE = Path(__file__).resolve().parents[1] / "runtime" / "native"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "nu_scaler_tpu_torch"
@@ -271,22 +273,24 @@ def build(names: Iterable[str] = tuple(SIGNATURES), force: bool = False) -> dict
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load one kernel or host library, with every
-    function's argtypes and restype declared."""
-    build([name])
-    lib = ctypes.CDLL(str(library_path(name)))
-    if name in HOST_SIGNATURES:
-        for fn_name, (restype, argtypes) in HOST_SIGNATURES[name].items():
+    function's argtypes and restype declared. Traced as ``nu.setup.kernels``
+    (`library`, and `compiled`: whether a compiler ran)."""
+    with span("nu.setup.kernels", library=name) as s:
+        s.set(compiled=bool(build([name])))
+        lib = ctypes.CDLL(str(library_path(name)))
+        if name in HOST_SIGNATURES:
+            for fn_name, (restype, argtypes) in HOST_SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = restype
+            return lib
+        for fn_name, argtypes in SIGNATURES[name].items():
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
-            fn.restype = restype
+            fn.restype = _INT
+        lib.nu_cuda_error_string.argtypes = [_INT]
+        lib.nu_cuda_error_string.restype = ctypes.c_char_p
         return lib
-    for fn_name, argtypes in SIGNATURES[name].items():
-        fn = getattr(lib, fn_name)
-        fn.argtypes = argtypes
-        fn.restype = _INT
-    lib.nu_cuda_error_string.argtypes = [_INT]
-    lib.nu_cuda_error_string.restype = ctypes.c_char_p
-    return lib
 
 
 def main(argv=None) -> int:

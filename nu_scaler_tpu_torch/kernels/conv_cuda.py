@@ -51,6 +51,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from nu_scaler_tpu_torch.utils.tracing import span
+
 # Launches since the last `reset_launches()`; the wrapper adds one where it
 # launches its kernel and nowhere else.
 launches = {"conv3x3": 0, "conv3x3_q": 0}
@@ -330,7 +332,8 @@ def conv3x3_q(xq: torch.Tensor, kq: torch.Tensor, scale: torch.Tensor,
     check_inputs(xq, kq, b, scale)
     if xq.device.type == "cpu":
         return conv3x3_q_plain(xq, kq, scale, b, relu)
-    out = _launch_q(xq, kq, scale, b, relu)
+    with span("nu.kernels.conv3x3_q"):
+        out = _launch_q(xq, kq, scale, b, relu)
     launches["conv3x3_q"] += 1
     return out
 

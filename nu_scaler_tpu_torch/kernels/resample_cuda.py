@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from nu_scaler_tpu_torch.device import resolve_device
+from nu_scaler_tpu_torch.utils.tracing import span
 
 # Launches per wrapper since the last `reset_launches()`; a wrapper adds one
 # where it launches its kernel and nowhere else.
@@ -371,7 +372,8 @@ def resample_fused(src: torch.Tensor, plan: ResamplePlan) -> torch.Tensor:
     _check_u8(src, (plan.in_h, plan.in_w, 4), "src", plan)
     if src.device.type == "cpu":
         return resample_plain(src, plan)
-    out = _launch(src, 1, plan)[0]
+    with span("nu.kernels.resample_fused"):
+        out = _launch(src, 1, plan)[0]
     launches["resample_fused"] += 1
     return out
 
@@ -399,7 +401,8 @@ def resample_fused_blend(
     _check_u8(prev, (plan.out_h, plan.out_w, 4), "prev", plan)
     if src.device.type == "cpu":
         return resample_blend_plain(src, prev, plan, ts)
-    outs = _launch(src, 1, plan, prev, ts)
+    with span("nu.kernels.resample_fused"):
+        outs = _launch(src, 1, plan, prev, ts)
     launches["resample_fused_blend"] += 1
     return tuple(outs)
 

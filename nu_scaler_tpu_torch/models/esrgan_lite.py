@@ -83,6 +83,7 @@ from nu_scaler_tpu_torch.kernels import conv_cuda, trunk_cuda
 from nu_scaler_tpu_torch.ops.image_resize import image_resize
 from nu_scaler_tpu_torch.ops.resample import to_device_u8
 from nu_scaler_tpu_torch.parallel import tp
+from nu_scaler_tpu_torch.utils.tracing import span
 
 WEIGHTS_DIR = Path(__file__).resolve().parents[1] / "weights"
 
@@ -638,70 +639,71 @@ class FusedServing:
     def __init__(self, model: ESRGANLiteTPU, in_h: int, in_w: int, device,
                  conv: Optional[ConvFn] = None, trunk_impl: str = "layers",
                  quant_scales: Optional[dict] = None, conv_q: Optional[ConvQFn] = None) -> None:
-        _check_trunk_impl(trunk_impl)
-        if quant_scales is not None and trunk_impl != "layers":
-            raise ValueError("trunk_impl='fused' serves bf16 only: the int8 ladders run "
-                             "trunk_impl='layers'")
-        st, up = model.stride, model.upscale
-        if in_h % st or in_w % st:
-            raise ValueError(f"{in_w}x{in_h} is not a multiple of the stride {st}")
-        self.device = resolve_device(device)
-        self.in_hw = (in_h, in_w)
-        self.stride, self.upscale, self.r = st, up, st * up
-        self.base_impl = model.base_impl
-        self.conv = conv or conv_cuda.conv3x3
-        self.conv_q = conv_q or conv_cuda.conv3x3_q
-        self.trunk_impl = trunk_impl
+        with span("nu.setup.weights"):
+            _check_trunk_impl(trunk_impl)
+            if quant_scales is not None and trunk_impl != "layers":
+                raise ValueError("trunk_impl='fused' serves bf16 only: the int8 ladders run "
+                                 "trunk_impl='layers'")
+            st, up = model.stride, model.upscale
+            if in_h % st or in_w % st:
+                raise ValueError(f"{in_w}x{in_h} is not a multiple of the stride {st}")
+            self.device = resolve_device(device)
+            self.in_hw = (in_h, in_w)
+            self.stride, self.upscale, self.r = st, up, st * up
+            self.base_impl = model.base_impl
+            self.conv = conv or conv_cuda.conv3x3
+            self.conv_q = conv_q or conv_cuda.conv3x3_q
+            self.trunk_impl = trunk_impl
 
-        def bf16(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device).to(torch.bfloat16)
+            def bf16(a: np.ndarray) -> torch.Tensor:
+                return torch.from_numpy(np.ascontiguousarray(a)).to(self.device).to(torch.bfloat16)
 
-        # the head's s2d lanes, and the RGBA-interleaved phases the tail emits
-        self.head_lanes = conv_cuda.lanes(st * st * 4)
-        self.phases = self.r * self.r * 4
-        head_k, head_b = conv_cuda.pad_weights(_expand_in_rgba(_np32(model.head.kernel), st, 1 / 255.0),
-                                               _np32(model.head.bias))
-        blocks = [tuple(conv_cuda.pad_weights(_np32(c.kernel), _np32(c.bias)) for c in (blk.conv1, blk.conv2))
-                  for blk in model.res_blocks()]
-        trunk_k, trunk_b = conv_cuda.pad_weights(_np32(model.trunk.kernel), _np32(model.trunk.bias))
-        tail_k, tail_b = conv_cuda.pad_weights(*_expand_out_rgba(_np32(model.tail.kernel),
-                                                                 _np32(model.tail.bias), self.r, 255.0))
-        self.head = (bf16(head_k), bf16(head_b))
-        self.blocks = [tuple((bf16(k), bf16(b)) for k, b in blk) for blk in blocks]
-        self.trunk = (bf16(trunk_k), bf16(trunk_b))
-        self.tail = (bf16(tail_k), bf16(tail_b))
-        # the fused kernel's flat params: head, block convs, trunk, tail
-        self.trunk_params = (*self.head, *(t for blk in self.blocks for kb in blk for t in kb),
-                             *self.trunk, *self.tail)
-        # each bf16 conv's (Cin, Cout) in JAX's graph, before the padding to
-        # the kernel's widths (JAX pads a 64-lane head input to 128 itself)
-        f, cin = model.features, st * st * 4
-        self.widths = ((128 if cin == 64 else cin, f), *[(f, f)] * (2 * len(blocks) + 1), (f, self.phases))
+            # the head's s2d lanes, and the RGBA-interleaved phases the tail emits
+            self.head_lanes = conv_cuda.lanes(st * st * 4)
+            self.phases = self.r * self.r * 4
+            head_k, head_b = conv_cuda.pad_weights(_expand_in_rgba(_np32(model.head.kernel), st, 1 / 255.0),
+                                                   _np32(model.head.bias))
+            blocks = [tuple(conv_cuda.pad_weights(_np32(c.kernel), _np32(c.bias)) for c in (blk.conv1, blk.conv2))
+                      for blk in model.res_blocks()]
+            trunk_k, trunk_b = conv_cuda.pad_weights(_np32(model.trunk.kernel), _np32(model.trunk.bias))
+            tail_k, tail_b = conv_cuda.pad_weights(*_expand_out_rgba(_np32(model.tail.kernel),
+                                                                     _np32(model.tail.bias), self.r, 255.0))
+            self.head = (bf16(head_k), bf16(head_b))
+            self.blocks = [tuple((bf16(k), bf16(b)) for k, b in blk) for blk in blocks]
+            self.trunk = (bf16(trunk_k), bf16(trunk_b))
+            self.tail = (bf16(tail_k), bf16(tail_b))
+            # the fused kernel's flat params: head, block convs, trunk, tail
+            self.trunk_params = (*self.head, *(t for blk in self.blocks for kb in blk for t in kb),
+                                 *self.trunk, *self.tail)
+            # each bf16 conv's (Cin, Cout) in JAX's graph, before the padding to
+            # the kernel's widths (JAX pads a 64-lane head input to 128 itself)
+            f, cin = model.features, st * st * 4
+            self.widths = ((128 if cin == 64 else cin, f), *[(f, f)] * (2 * len(blocks) + 1), (f, self.phases))
 
-        self.quant_scales = quant_scales
-        if quant_scales is None:
-            return
-        q = quant_scales
+            self.quant_scales = quant_scales
+            if quant_scales is None:
+                return
+            q = quant_scales
 
-        def qconv(k: np.ndarray, b: Optional[np.ndarray], ax: float, dc: bool = False) -> QConv:
-            # a padded row or column is zero: kq 0, and its channel's scale 1
-            kq, dq = (_quant_kernel_i8_dc if dc else _quant_kernel_i8)(k)
-            return QConv(bf16(kq.astype(np.float32)), conv_cuda.qgrid_scale(dq, ax).to(self.device),
-                         None if b is None else torch.from_numpy(b).to(self.device), float(ax))
+            def qconv(k: np.ndarray, b: Optional[np.ndarray], ax: float, dc: bool = False) -> QConv:
+                # a padded row or column is zero: kq 0, and its channel's scale 1
+                kq, dq = (_quant_kernel_i8_dc if dc else _quant_kernel_i8)(k)
+                return QConv(bf16(kq.astype(np.float32)), conv_cuda.qgrid_scale(dq, ax).to(self.device),
+                             None if b is None else torch.from_numpy(b).to(self.device), float(ax))
 
-        self.q_blocks = [tuple(qconv(k, b, q[f"block{i}/{name}"]) for (k, b), name in zip(blk, ("conv1", "conv2")))
-                         for i, blk in enumerate(blocks)]
-        self.q_trunk = qconv(trunk_k, trunk_b, q["trunk"])
-        # the EXPANDED tail (×255, RGBA-interleaved) is quantised, as JAX does
-        self.q_tail = qconv(tail_k, tail_b, q["tail"])
-        # head and base: normalised-domain maxima, ×255 for the raw u8 input
-        self.q_head = qconv(head_k, head_b, 255.0 * q["head"]) if "head" in q else None
-        self.q_base = None
-        if "base" in q and self.base_impl == "conv":
-            # on the head's padded input: the padded rows are zero, and the
-            # zero lanes edge-pad to zero
-            base_k = conv_cuda.pad_weights(_bilinear_base_kernel(4, up, st))
-            self.q_base = qconv(base_k, None, 255.0 * q["base"], dc=True)
+            self.q_blocks = [tuple(qconv(k, b, q[f"block{i}/{name}"]) for (k, b), name in zip(blk, ("conv1", "conv2")))
+                             for i, blk in enumerate(blocks)]
+            self.q_trunk = qconv(trunk_k, trunk_b, q["trunk"])
+            # the EXPANDED tail (×255, RGBA-interleaved) is quantised, as JAX does
+            self.q_tail = qconv(tail_k, tail_b, q["tail"])
+            # head and base: normalised-domain maxima, ×255 for the raw u8 input
+            self.q_head = qconv(head_k, head_b, 255.0 * q["head"]) if "head" in q else None
+            self.q_base = None
+            if "base" in q and self.base_impl == "conv":
+                # on the head's padded input: the padded rows are zero, and the
+                # zero lanes edge-pad to zero
+                base_k = conv_cuda.pad_weights(_bilinear_base_kernel(4, up, st))
+                self.q_base = qconv(base_k, None, 255.0 * q["base"], dc=True)
 
     @property
     def quantized(self) -> bool:
@@ -729,28 +731,33 @@ class FusedServing:
     def run_int8(self, s2d: torch.Tensor, s2d_head: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """The int8 branch: (tail, base), bf16 [N, h, w, r²·4] each."""
         xq_head = None
-        if self.q_head is not None:
-            xq_head = conv_cuda.quantize_act(s2d_head, self.q_head.ax)
-            feat = self.conv_q(xq_head, self.q_head.kq, self.q_head.scale, self.q_head.b, False)
-        else:
-            feat = self.conv(s2d_head, *self.head, False, True)
-        c02 = torch.tensor(0.2, dtype=torch.bfloat16, device=feat.device)  # bf16(0.2), as JAX's
-        h = feat
-        for c1, c2 in self.q_blocks:
-            h = h + c02 * self._qconv(c2, self._qconv(c1, h, relu=True))
-        h = self._qconv(self.q_trunk, h) + feat
-        tail = self._qconv(self.q_tail, h)[..., : self.phases]
-        if self.q_base is None:
-            return tail, self.base(s2d)
-        # VALID on the edge-padded input: SAME over the padded tensor, the
-        # interior kept (it reads no zero padding). Quantising commutes with
-        # the edge padding, so the head's quantised input serves when the
-        # scales agree.
-        if xq_head is None or self.q_base.ax != self.q_head.ax:
-            xq_head = conv_cuda.quantize_act(s2d_head, self.q_base.ax)
-        base = self.conv_q(_edge_pad(xq_head).contiguous(), self.q_base.kq, self.q_base.scale,
-                           None, False)
-        return tail, base[:, 1:-1, 1:-1, : self.phases]
+        with span("nu.models.learned.head"):
+            if self.q_head is not None:
+                xq_head = conv_cuda.quantize_act(s2d_head, self.q_head.ax)
+                feat = self.conv_q(xq_head, self.q_head.kq, self.q_head.scale, self.q_head.b, False)
+            else:
+                feat = self.conv(s2d_head, *self.head, False, True)
+        with span("nu.models.learned.blocks"):
+            c02 = torch.tensor(0.2, dtype=torch.bfloat16, device=feat.device)  # bf16(0.2), as JAX's
+            h = feat
+            for c1, c2 in self.q_blocks:
+                h = h + c02 * self._qconv(c2, self._qconv(c1, h, relu=True))
+        with span("nu.models.learned.trunk"):
+            h = self._qconv(self.q_trunk, h) + feat
+        with span("nu.models.learned.tail"):
+            tail = self._qconv(self.q_tail, h)[..., : self.phases]
+        with span("nu.models.learned.base"):
+            if self.q_base is None:
+                return tail, self.base(s2d)
+            # VALID on the edge-padded input: SAME over the padded tensor, the
+            # interior kept (it reads no zero padding). Quantising commutes with
+            # the edge padding, so the head's quantised input serves when the
+            # scales agree.
+            if xq_head is None or self.q_base.ax != self.q_head.ax:
+                xq_head = conv_cuda.quantize_act(s2d_head, self.q_base.ax)
+            base = self.conv_q(_edge_pad(xq_head).contiguous(), self.q_base.kq, self.q_base.scale,
+                               None, False)
+            return tail, base[:, 1:-1, 1:-1, : self.phases]
 
     def base(self, s2d: torch.Tensor) -> torch.Tensor:
         """The fixed bilinear base on the raw RGBA s2d, bf16."""
@@ -766,14 +773,23 @@ class FusedServing:
         return s2d, conv_cuda.pad_lanes(s2d, self.head_lanes)
 
     def __call__(self, img: torch.Tensor) -> torch.Tensor:
-        s2d, s2d_head = self.trunk_input(img)
-        if self.quantized:
-            tail, base = self.run_int8(s2d, s2d_head)
-        else:
-            tail, base = self.run_trunk(s2d_head), self.base(s2d)
-        phases = tail + base  # [N, h, w, r²·4] raw-scale RGBA-interleaved
-        ph_u8 = torch.clamp(torch.round(phases), 0, 255).to(torch.uint8)
-        return _d2s(ph_u8, self.r)
+        """Traced as ``nu.models.learned``, its stages under it: ``.s2d``,
+        then int8 ``.head``, ``.blocks``, ``.trunk``, ``.tail``, ``.base``
+        (bf16: ``.layers``, ``.base``), then ``.assemble``."""
+        with span("nu.models.learned"):
+            with span("nu.models.learned.s2d"):
+                s2d, s2d_head = self.trunk_input(img)
+            if self.quantized:
+                tail, base = self.run_int8(s2d, s2d_head)
+            else:
+                with span("nu.models.learned.layers"):
+                    tail = self.run_trunk(s2d_head)
+                with span("nu.models.learned.base"):
+                    base = self.base(s2d)
+            with span("nu.models.learned.assemble"):
+                phases = tail + base  # [N, h, w, r²·4] raw-scale RGBA-interleaved
+                ph_u8 = torch.clamp(torch.round(phases), 0, 255).to(torch.uint8)
+                return _d2s(ph_u8, self.r)
 
 
 class UnfusedServing:
@@ -980,8 +996,9 @@ def _cached_model(arch: str, upscale: int) -> Optional[tuple[nn.Module, dict, Pa
     """(module, sidecar, directory) of the weights of `arch` at `upscale`
     that serve (`weights_directory`), or None. Cached: a process keeps
     serving what it loaded first, as JAX's cached factories do."""
-    directory = weights_directory(arch, upscale)
-    loaded = None if directory is None else load_model(arch, upscale, directory)
+    with span("nu.setup.weights"):
+        directory = weights_directory(arch, upscale)
+        loaded = None if directory is None else load_model(arch, upscale, directory)
     return None if loaded is None else (*loaded, directory)
 
 

@@ -32,6 +32,7 @@ import torch
 from nu_scaler_tpu_torch.device import resolve_device
 from nu_scaler_tpu_torch.ops import resample
 from nu_scaler_tpu_torch.ops.resample import to_device_u8
+from nu_scaler_tpu_torch.utils.tracing import span
 
 # BT.601 full-swing (capture/video.py)
 _KR, _KG, _KB = 0.299, 0.587, 0.114
@@ -63,18 +64,19 @@ def _yuv420_to_rgba(h: int, w: int, dev: torch.device):
     _check_even(h, w)
 
     def fn(y, u, v) -> torch.Tensor:
-        y, u, v = (to_device_u8(p, dev) for p in (y, u, v))
-        _check_shape(y, (h, w))
-        _check_shape(u, (h // 2, w // 2))
-        _check_shape(v, (h // 2, w // 2))
-        yf = y.to(torch.float32)
-        uf = _up2(u.to(torch.float32) - 128.0)
-        vf = _up2(v.to(torch.float32) - 128.0)
-        r = yf + vf * 1.402
-        g = yf - uf * 0.344136 - vf * 0.714136
-        b = yf + uf * 1.772
-        out = torch.stack([r, g, b, torch.full_like(yf, 255.0)], dim=-1)
-        return torch.clamp(out, 0.0, 255.0).to(torch.uint8)
+        with span("nu.ops.color.ingest"):
+            y, u, v = (to_device_u8(p, dev) for p in (y, u, v))
+            _check_shape(y, (h, w))
+            _check_shape(u, (h // 2, w // 2))
+            _check_shape(v, (h // 2, w // 2))
+            yf = y.to(torch.float32)
+            uf = _up2(u.to(torch.float32) - 128.0)
+            vf = _up2(v.to(torch.float32) - 128.0)
+            r = yf + vf * 1.402
+            g = yf - uf * 0.344136 - vf * 0.714136
+            b = yf + uf * 1.772
+            out = torch.stack([r, g, b, torch.full_like(yf, 255.0)], dim=-1)
+            return torch.clamp(out, 0.0, 255.0).to(torch.uint8)
 
     return fn
 
@@ -129,10 +131,11 @@ def _delivery_fn(out_h: int, out_w: int, fmt: str, preview_h: int, dev: torch.de
         return None
 
     def fn(rgba):
-        out = rgba
-        for s in steps:
-            out = s(out)
-        return out
+        with span("nu.ops.color.deliver"):
+            out = rgba
+            for s in steps:
+                out = s(out)
+            return out
 
     fn.out_hw = (h, w)
     fn.fmt = fmt

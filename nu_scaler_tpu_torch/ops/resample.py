@@ -30,6 +30,7 @@ from nu_scaler_tpu_torch.kernels.resample_cuda import (
     resample_twopass,
     taps_from_matrix,
 )
+from nu_scaler_tpu_torch.utils.tracing import span
 
 # Algorithms the string-typed API accepts. "nearest"/"bilinear" are the live
 # set of the reference; the rest are its legacy tiers. Unknown strings fall
@@ -203,10 +204,11 @@ class FusedBlendStep:
         self.device = self.resampler.device
 
     def __call__(self, cur, prev_up=None) -> tuple[torch.Tensor, ...]:
-        x = to_device_u8(cur, self.device)
-        if prev_up is None:
-            return (resample_fused(x, self.resampler.plan),)
-        return resample_fused_blend(x, prev_up, self.resampler.plan, self.ts)
+        with span("nu.ops.blend_step"):
+            x = to_device_u8(cur, self.device)
+            if prev_up is None:
+                return (resample_fused(x, self.resampler.plan),)
+            return resample_fused_blend(x, prev_up, self.resampler.plan, self.ts)
 
 
 def make_fused_blend(

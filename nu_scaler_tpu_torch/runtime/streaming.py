@@ -11,6 +11,15 @@ an `ingest_fn` that turns a planar 4:2:0 capture frame, fed as a (y, u, v)
 tuple, into RGBA on the device, and a `deliver_fn` that turns every output
 frame into its host payload on the device (4:2:0 planes and / or a preview
 size). The uploads and downloads stay pageable and on the current stream.
+
+`LivePipeline.put` is traced (`utils/tracing`): ``nu.runtime.put`` a frame,
+and under it ``nu.runtime.upload``, ``nu.runtime.step``,
+``nu.runtime.deliver`` and ``nu.runtime.fetch`` (of the frame `depth` puts
+back). With tracing on, the fetch first waits for that frame's own work
+(``.wait_own``, a CUDA event recorded at the end of its `put`), then for the
+newer frames' work queued ahead of it (``.wait_behind``), then copies on an
+idle stream (``.copy``): the pageable ``.cpu()`` waits for both anyway, so
+the split adds no wait. With tracing off the fetch is the plain ``.cpu()``.
 """
 
 from __future__ import annotations
@@ -23,6 +32,8 @@ import torch
 
 from nu_scaler_tpu_torch.device import resolve_device
 from nu_scaler_tpu_torch.ops.resample import to_device_u8
+from nu_scaler_tpu_torch.utils import tracing
+from nu_scaler_tpu_torch.utils.tracing import span
 
 
 def _fetch(payload):
@@ -31,6 +42,21 @@ def _fetch(payload):
     if isinstance(payload, tuple):
         return tuple(p.cpu().numpy() for p in payload)
     return payload.cpu().numpy()
+
+
+def _fetch_traced(ready: list, frame: int, done, device: torch.device) -> list:
+    """`_fetch` of one frame's payloads, its waits split out (tracing on)."""
+    with span("nu.runtime.fetch", frame=frame, bytes=ready):
+        with span("nu.runtime.fetch.wait_own"):
+            if done is not None:
+                done.synchronize()
+        with span("nu.runtime.fetch.wait_behind"):
+            if device.type == "cuda":
+                behind = torch.cuda.Event()
+                behind.record(torch.cuda.current_stream(device))
+                behind.synchronize()
+        with span("nu.runtime.fetch.copy"):
+            return [_fetch(o) for o in ready]
 
 
 class FramePipeline:
@@ -107,52 +133,74 @@ class LivePipeline:
         self.deliver_fn = deliver_fn
         self._prev: Optional[torch.Tensor] = None
         self._prev_up: Optional[torch.Tensor] = None
-        self._inflight: list[tuple] = []
+        self._inflight: list[tuple] = []  # (frame index, device payloads, CUDA event or None)
         self.frames_in = 0
         self.frames_out = 0
 
     def put(self, frame) -> list:
         """Feed one captured frame (RGBA, or a (y, u, v) tuple under an
         `ingest_fn`); returns 0+ completed host-side payloads."""
-        return [_fetch(o) for o in self.put_device(frame)]
+        with span("nu.runtime.put", frame=self.frames_in):
+            ready, index, done = self._enqueue(frame)
+            if not tracing.on or not ready:
+                return [_fetch(o) for o in ready]
+            return _fetch_traced(ready, index, done, self.device)
 
     def put_device(self, frame) -> list:
         """Like put(), but returns device payloads without a host sync."""
-        if self.ingest_fn is not None and isinstance(frame, tuple):
-            cur = self.ingest_fn(*(to_device_u8(p, self.device) for p in frame))
-        else:
-            cur = to_device_u8(frame, self.device)
-        outs: list = []
-        if self.fused_step_fn is not None:
-            if self._prev_up is None:
-                # pipeline fill: the first frame's upscale alone
-                (self._prev_up,) = self.fused_step_fn(cur, None)
-                outs.append(self._prev_up)
+        with span("nu.runtime.put", frame=self.frames_in):
+            return self._enqueue(frame)[0]
+
+    def _enqueue(self, frame) -> tuple:
+        """Launch one frame's work; returns the device payloads of the frame
+        `depth` puts back once that many are in flight, that frame's index
+        and the CUDA event recorded after its launches (tracing on, on the
+        card; else None)."""
+        planar = self.ingest_fn is not None and isinstance(frame, tuple)
+        with span("nu.runtime.upload", bytes=frame):
+            if planar:
+                cur = [to_device_u8(p, self.device) for p in frame]
             else:
-                cur_up, *mids = self.fused_step_fn(cur, self._prev_up)
-                outs.extend(mids)
+                cur = to_device_u8(frame, self.device)
+        if planar:
+            cur = self.ingest_fn(*cur)
+        outs: list = []
+        with span("nu.runtime.step"):
+            if self.fused_step_fn is not None:
+                if self._prev_up is None:
+                    # pipeline fill: the first frame's upscale alone
+                    (self._prev_up,) = self.fused_step_fn(cur, None)
+                    outs.append(self._prev_up)
+                else:
+                    cur_up, *mids = self.fused_step_fn(cur, self._prev_up)
+                    outs.extend(mids)
+                    outs.append(cur_up)
+                    self._prev_up = cur_up
+            elif self.amortize_blend and self.interp_fn is not None:
+                cur_up = self.upscale_fn(cur)
+                if self._prev_up is not None:
+                    outs.append(self.interp_fn(self._prev_up, cur_up, 0.5))
                 outs.append(cur_up)
                 self._prev_up = cur_up
-        elif self.amortize_blend and self.interp_fn is not None:
-            cur_up = self.upscale_fn(cur)
-            if self._prev_up is not None:
-                outs.append(self.interp_fn(self._prev_up, cur_up, 0.5))
-            outs.append(cur_up)
-            self._prev_up = cur_up
-        else:
-            if self.interp_fn is not None and self._prev is not None:
-                outs.append(self.upscale_fn(self.interp_fn(self._prev, cur, 0.5)))
-            outs.append(self.upscale_fn(cur))
+            else:
+                if self.interp_fn is not None and self._prev is not None:
+                    outs.append(self.upscale_fn(self.interp_fn(self._prev, cur, 0.5)))
+                outs.append(self.upscale_fn(cur))
         self._prev = cur
-        self.frames_in += 1
         if self.deliver_fn is not None:
-            outs = [self.deliver_fn(o) for o in outs]
-        self._inflight.append(tuple(outs))
-        ready: list = []
-        if len(self._inflight) > self.depth:
-            ready.extend(self._inflight.pop(0))
-            self.frames_out += len(ready)
-        return ready
+            with span("nu.runtime.deliver"):
+                outs = [self.deliver_fn(o) for o in outs]
+        done = None
+        if tracing.on and self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+        self._inflight.append((self.frames_in, tuple(outs), done))
+        self.frames_in += 1
+        if len(self._inflight) <= self.depth:
+            return [], None, None
+        index, ready, done = self._inflight.pop(0)
+        self.frames_out += len(ready)
+        return list(ready), index, done
 
     def drain(self) -> list:
         return [_fetch(o) for o in self.drain_device()]
@@ -160,7 +208,7 @@ class LivePipeline:
     def drain_device(self) -> list:
         ready = []
         while self._inflight:
-            ready.extend(self._inflight.pop(0))
+            ready.extend(self._inflight.pop(0)[1])
         self.frames_out += len(ready)
         return ready
 

@@ -1,58 +1,170 @@
-"""Tracing and timing of the port: the counterpart of
-`nu_scaler_tpu/utils/tracing.py`.
+"""Tracing and timing of the port.
 
-The reference exposes GPU timestamp-query durations
-(`get_last_gpu_duration_ms`), host timers around hot calls and an FPS EMA
-for the UI overlay. Here:
+Spans: the program marks its layers with `span(name, **attrs)` (``nu.``
+names: ``nu.runtime.*`` in `runtime/streaming.py`, ``nu.ops.*``,
+``nu.models.*``, ``nu.kernels.*``, ``nu.setup.*``). Tracing is off until
+`enable()`; a span site then costs one flag check and returns a shared
+no-op context (no clock, no CUDA event, no profiler range). On, each span
+records its name, start and end (`time.perf_counter_ns`), its id and its
+parent's (a stack per thread), the input frame it belongs to (`frame`, the
+index `LivePipeline` gives it, inherited from the parent when not given) and
+the bytes it moves (`bytes`: an int, or the tensors and arrays, counted when
+the span opens), into a bounded buffer that `drain()` empties. While a
+`torch.profiler` session is active, each span also opens a
+`record_function` range of its name, so it sits in the device trace on the
+profiler's clock and the device work launched under it carries its name.
+`drain()` also returns the anchor pair (`perf_counter_ns`, `time_ns`) taken
+at `enable()`: a chrome trace's ``ts + baseTimeNanoseconds / 1e3`` is
+`time.time_ns()` in microseconds, so an in-memory span can be laid over a
+trace.
 
-  * `device_timer`: the per-step device time of a chained state → state
-    function, from CUDA events on the card, the host's launches hidden;
-  * `trace_to`: a `torch.profiler` window that writes a Chrome trace;
-  * `fetch_overhead_s`: one device-to-host round trip of one element;
-  * `FrameClock`: FPS EMA with the reference's 0.95 / 0.05 smoothing plus
-    p50 / p99 windows;
-  * `Timer`: a scoped wall timer for host-side stages.
+`device_timer`: the per-step device time of a chained state → state
+function, from CUDA events on the card, the host's launches hidden.
 """
 
 from __future__ import annotations
 
-import contextlib
-import os
+import itertools
+import threading
 import time
-from collections import deque
-from typing import Callable, Optional
+from typing import Callable
 
 import numpy as np
 import torch
 
-from nu_scaler_tpu_torch.device import resolve_device
+CAPACITY = 1 << 20  # span records kept between drains; beyond, dropped and counted
+
+# Read by every span site (``tracing.on``); set only by enable() / disable().
+on = False
+_records: list = []
+_dropped = 0
+_capacity = CAPACITY
+_anchor = (0, 0)
+_ids = itertools.count(1)
+_local = threading.local()
+_lock = threading.Lock()
 
 
-@contextlib.contextmanager
-def trace_to(logdir: str, device=None):
-    """`torch.profiler` window over the body, written as a Chrome trace to
-    ``logdir/trace.json``; the card's activity is traced unless `device` is
-    "cpu". Yields the profiler."""
-    from torch.profiler import ProfilerActivity, profile
+class _Off:
+    """The span of a site while tracing is off: does nothing."""
 
-    activities = [ProfilerActivity.CPU]
-    if resolve_device(device).type == "cuda":
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+    def set(self, **attrs) -> None:
+        pass
 
 
-def fetch_overhead_s(reps: int = 10, device=None) -> float:
-    """Seconds of one device-to-host round trip of one element on `device`
-    (the card unless "cpu"), the mean of `reps` after a warm-up."""
-    t = torch.ones(1, device=resolve_device(device))
-    t.item()
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        t.item()
-    return (time.perf_counter() - t0) / reps
+OFF = _Off()
+
+
+def nbytes(obj) -> int:
+    """Bytes of a tensor or an array, of a (nested) tuple or list of them,
+    or of anything numpy takes as an array."""
+    if hasattr(obj, "nbytes"):
+        return int(obj.nbytes)
+    if isinstance(obj, (tuple, list)) and all(isinstance(o, (tuple, list)) or hasattr(o, "nbytes")
+                                              for o in obj):
+        return sum(nbytes(o) for o in obj)
+    return int(np.asarray(obj).nbytes)
+
+
+def _stack() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+class _Span:
+    __slots__ = ("name", "attrs", "id", "parent", "frame", "start", "range")
+
+    def __init__(self, name: str, attrs: dict) -> None:
+        self.name, self.attrs = name, attrs
+        if "bytes" in attrs and not isinstance(attrs["bytes"], int):
+            attrs["bytes"] = nbytes(attrs["bytes"])
+
+    def set(self, **attrs) -> None:
+        """Attributes known only once the span's work ran."""
+        self.attrs.update(attrs)
+
+    def __enter__(self):
+        stack = _stack()
+        up = stack[-1] if stack else None
+        self.id = next(_ids)
+        self.parent = up.id if up is not None else None
+        self.frame = self.attrs.pop("frame", up.frame if up is not None else None)
+        self.range = None
+        if torch.autograd._profiler_enabled():
+            self.range = torch.profiler.record_function(self.name)
+            self.range.__enter__()
+        stack.append(self)
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        end = time.perf_counter_ns()
+        _stack().pop()
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        _keep((self.name, self.start, end, self.id, self.parent, self.frame, self.attrs))
+        return False
+
+
+def _keep(record: tuple) -> None:
+    global _dropped
+    if len(_records) < _capacity:
+        _records.append(record)
+    else:
+        with _lock:
+            _dropped += 1
+
+
+def span(name: str, **attrs):
+    """A context manager timing the work of one layer under `name`; see the
+    module's docstring. ``with span(...) as s: ...; s.set(key=value)`` adds
+    an attribute after the work (a no-op while tracing is off)."""
+    if not on:
+        return OFF
+    return _Span(name, attrs)
+
+
+def enable(capacity: int = CAPACITY) -> None:
+    """Start recording spans into an empty buffer of `capacity` records, and
+    take the clock anchor."""
+    global on, _records, _dropped, _capacity, _anchor
+    if not torch.autograd._profiler_enabled():  # no range recorded: only its first use's cost paid
+        with torch.profiler.record_function("nu.enable"):
+            pass  # the range's first use resolves its operator: not inside a span
+    _records, _dropped, _capacity = [], 0, int(capacity)
+    _anchor = (time.perf_counter_ns(), time.time_ns())
+    on = True
+
+
+def disable() -> None:
+    """Stop recording; what was recorded stays until `drain()`."""
+    global on
+    on = False
+
+
+def drain() -> dict:
+    """The records since `enable()` or the last drain, and how many were
+    dropped, the buffer emptied: ``{"spans": [{"name", "start_ns", "end_ns",
+    "id", "parent", "frame", "bytes", ...attrs}], "dropped": n, "anchor":
+    {"perf_counter_ns", "time_ns"}}``, the spans in the order they ended."""
+    global _records, _dropped
+    records, dropped = _records, _dropped
+    _records, _dropped = [], 0
+    spans = [{"name": n, "start_ns": a, "end_ns": b, "id": i, "parent": p, "frame": f,
+              "bytes": attrs.get("bytes"), **{k: v for k, v in attrs.items() if k != "bytes"}}
+             for n, a, b, i, p, f, attrs in records]
+    return {"spans": spans, "dropped": dropped,
+            "anchor": {"perf_counter_ns": _anchor[0], "time_ns": _anchor[1]}}
 
 
 def _tensors(state) -> list:
@@ -127,46 +239,3 @@ def device_timer(body: Callable, state0, iters: int = 20) -> float:
         steps.append((start, end))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) / 1e3 for s, e in steps]))
-
-
-class FrameClock:
-    """FPS EMA (0.95/0.05) + windowed percentiles for overlay stats."""
-
-    def __init__(self, window: int = 240):
-        self.ema_fps = 0.0
-        self.frames = 0
-        self._last: Optional[float] = None
-        self._durations = deque(maxlen=window)
-
-    def tick(self) -> float:
-        now = time.perf_counter()
-        if self._last is not None:
-            dt = now - self._last
-            self._durations.append(dt)
-            inst = 1.0 / dt if dt > 0 else 0.0
-            self.ema_fps = 0.95 * self.ema_fps + 0.05 * inst if self.frames > 1 else inst
-        self._last = now
-        self.frames += 1
-        return self.ema_fps
-
-    def percentiles(self) -> dict:
-        if not self._durations:
-            return {"p50_ms": 0.0, "p99_ms": 0.0}
-        d = np.asarray(self._durations) * 1000.0
-        return {
-            "p50_ms": float(np.percentile(d, 50)),
-            "p99_ms": float(np.percentile(d, 99)),
-        }
-
-
-class Timer:
-    """Scoped wall timer: `with Timer() as t: ...; t.ms`."""
-
-    def __enter__(self):
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        self.seconds = time.perf_counter() - self._t0
-        self.ms = self.seconds * 1000.0
-        return False

@@ -1,7 +1,7 @@
-"""The port's timing and tracing (nu_scaler_tpu_torch.utils.tracing,
+"""The port's timing (nu_scaler_tpu_torch.utils.tracing.device_timer,
 `calibrated_step_ms` / `stage_timings_ms`, and WgpuFrameInterpolator's
 timing and array methods) on the CPU, against the JAX package's keys and
-values.
+values. The port's spans are tested in tests/test_torch_spans.py.
 
 Times measured here are host-clock times of PyTorch's CPU kernels: the tests
 check structure (keys, caching, chaining, fallbacks), never speed. The array
@@ -9,15 +9,12 @@ methods hold the JAX API's outputs: pyramids ≤ 1e-6, flows ≤ 1e-3 px, the
 mid frame ≤ 1 LSB (tests/test_torch_flow_modes.py states why).
 """
 
-import json
-
 import numpy as np
 import pytest
 import torch
 
 import nu_scaler_core as nsc
 from nu_scaler_tpu.ops import interpolate as J
-from nu_scaler_tpu.utils import tracing as jtracing
 from nu_scaler_tpu_torch import core as pc
 from nu_scaler_tpu_torch.ops import interpolate as P
 from nu_scaler_tpu_torch.utils import tracing as ptracing
@@ -58,35 +55,6 @@ def test_device_timer_takes_tuples_and_needs_a_tensor():
     assert secs > 0
     with pytest.raises(ValueError, match="at least one tensor"):
         ptracing.device_timer(lambda s: s, (1.0, 2.0))
-
-
-def test_fetch_overhead_and_timer():
-    assert ptracing.fetch_overhead_s(reps=3, device="cpu") > 0
-    with ptracing.Timer() as t:
-        sum(range(1000))
-    assert t.seconds > 0 and t.ms == pytest.approx(t.seconds * 1000.0)
-
-
-def test_frame_clock_matches_jax(monkeypatch):
-    """The EMA and the percentiles of the same tick times, as the JAX clock."""
-    times = iter([0.0, 0.010, 0.030, 0.045, 0.065, 0.080] * 2)
-    monkeypatch.setattr("time.perf_counter", lambda: next(times))
-    pcl, jcl = ptracing.FrameClock(window=4), jtracing.FrameClock(window=4)
-    for _ in range(6):
-        pcl.tick()
-    for _ in range(6):
-        jcl.tick()
-    assert pcl.ema_fps == jcl.ema_fps and pcl.frames == jcl.frames == 6
-    assert pcl.percentiles() == jcl.percentiles()
-    assert ptracing.FrameClock().percentiles() == {"p50_ms": 0.0, "p99_ms": 0.0}
-
-
-def test_trace_to_writes_a_chrome_trace(tmp_path):
-    with ptracing.trace_to(str(tmp_path / "trace"), device="cpu") as prof:
-        torch.ones(64).add_(1).sum()
-    assert prof is not None
-    events = json.loads((tmp_path / "trace" / "trace.json").read_text())["traceEvents"]
-    assert any("add" in str(e.get("name", "")) for e in events)
 
 
 @pytest.mark.parametrize("mode", sorted(JAX_STAGE_KEYS))
