@@ -236,7 +236,10 @@ class PyAdvancedWgpuUpscaler(PyWgpuUpscaler):
     frame stride 4 divides, tpu4b2 / tpu4 (int8 on "quality", tpu4b1 int8
     at ×2 on "performance", bf16 on "ultra"); on a frame only stride 2
     divides, the stride-2 tpu at ×2; at another ratio the same nets' bf16
-    output resized to the target; where none serves, ESRGANLite. There is
+    output resized to the target; where none serves, ESRGANLite.
+    `learned_prefer = "realesrgan"` serves Real-ESRGAN's RRDBNet ×2 in fp16
+    (`models/rrdbnet.py`) from the weights in the trainer's `CKPT_ROOT` or
+    the committed ones, and raises without them. There is
     no classical fallback. Other qualities run the classical resample
     kernel."""
 

@@ -1045,7 +1045,15 @@ def make_pretrained_upscaler(in_h: int, in_w: int, out_h: int, out_w: int,
     serves "quality"), bf16 for "ultra", int8 for the others where the
     served checkpoint's scales match and the ratio is exact. Cached per
     (sizes, prefer, device, trunk_impl); `trunk_impl="fused"` with the int8
-    graph or ESRGANLite raises ValueError."""
+    graph or ESRGANLite raises ValueError. "realesrgan" serves Real-ESRGAN's
+    RRDBNet ×2 (`models/rrdbnet.py`), which JAX's ladders do not hold, and
+    raises ValueError without its weights."""
+    if prefer == "realesrgan":
+        from nu_scaler_tpu_torch.models import rrdbnet
+
+        if trunk_impl != "layers":
+            raise ValueError(f"trunk_impl={trunk_impl!r}: RRDBNet has no fused trunk")
+        return rrdbnet.make_upscaler(in_h, in_w, out_h, out_w, device)
     if prefer not in ARCH_LADDER:
         prefer = "quality"
     return _build_pretrained(in_h, in_w, out_h, out_w, prefer, resolve_device(device), trunk_impl)

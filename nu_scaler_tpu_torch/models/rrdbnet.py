@@ -1,0 +1,325 @@
+"""Real-ESRGAN's RRDBNet, served as the learned tier's "realesrgan" ladder.
+
+`RealESRGAN_x2plus` (https://github.com/xinntao/Real-ESRGAN,
+arXiv:2107.10833) is `RRDBNet(num_in_ch=3, num_out_ch=3, num_feat=64,
+num_block=23, num_grow_ch=32, scale=2)` of BasicSR's
+`basicsr/archs/rrdbnet_arch.py`. On NCHW in [0, 1], with ``c`` a 3×3 SAME
+conv with bias and ``lr`` LeakyReLU of slope 0.2:
+
+- front end: ``f0 = c_first(pixel_unshuffle(x, 2))``, 12 → 64 channels, the
+  channel order ``c·4 + dy·2 + dx`` of `F.pixel_unshuffle` (×4 reads the
+  RGB planes as they are; ×1 unshuffles by 4);
+- RDB(x): ``x1 = lr(c1(x))``, ``x2 = lr(c2([x, x1]))``, … ``x4``, reading
+  64, 96, 128 and 160 channels and writing 32 each; ``x5 = c5([x, …, x4])``,
+  192 → 64; it returns ``0.2·x5 + x``;
+- RRDB(x) = ``0.2·RDB3(RDB2(RDB1(x))) + x``;
+- body: ``f = f0 + c_body(RRDB_23(…RRDB_1(f0)))``;
+- upsampling: ``f = lr(c_up1(nearest×2(f)))``, ``f = lr(c_up2(nearest×2(f)))``,
+  then ``y = c_last(lr(c_hr(f)))``, 64 → 3.
+
+`RRDBNet` holds the layers under BasicSR's parameter names, so a published
+``params_ema`` state dict loads as it is. `RRDBServing` computes the
+equations above, u8 RGBA [N, H, W, 4] → u8 RGBA [N, OH, OW, 4], as
+Real-ESRGAN's `inference_realesrgan.py` runs it by default (``--tile 0``,
+``--pre_pad 0``, half precision): RGB / 255 into fp16 (an odd side
+reflect-padded to even and the output cropped back, as
+`RealESRGANer.pre_process` does), every conv through `F.conv2d` in fp16 at
+its real widths (cuDNN sums in fp32), then ``round(clamp(y, 0, 1)·255)`` to
+u8, half to even. A ratio other than the model's resizes its output to the
+target (`ops.image_resize`), as the learned tier's `UnfusedServing` does.
+The alpha plane is resized on its own, as `UnfusedServing` resizes it, where
+upstream runs a second upscaler (``--alpha_upsampler``); the links' frames
+are opaque.
+
+The dense connections concatenate every prefix (`torch.cat`) in
+channels-last. Of the three forms timed on an H100 (PERF.md §5: this one; one
+NCHW growth buffer per RDB that each LeakyReLU writes its 32 channels into
+and the next conv reads a prefix of in place; the same buffer in
+channels-last) it is the fastest: cuDNN's NCHW convs lose more than the
+copies cost, and a channels-last prefix is copied anyway.
+`tools/rrdb_probe.py` times the other two.
+
+Weights are the port's npz + JSON sidecar format (`esrgan_lite.read_weights`)
+under BasicSR's names (OIHW), ``esrgan_rrdbnet_x{scale}_{step}.npz``, found
+by `esrgan_lite.weights_directory` in the trainer's `CKPT_ROOT` or the
+committed ``weights/``. Nothing is committed yet: the published
+``RealESRGAN_x2plus.pth`` is not in the repository, so the ladder raises
+ValueError until weights are written there (`write_weights`).
+
+Spans (`utils.tracing`, off by default): ``nu.models.rrdb`` (the frame's
+bytes) with ``.unshuffle``, ``.first``, ``.body`` (``.rrdb`` with its
+``index``, then ``.conv_body``), ``.upsample`` (``.up1``, ``.up2``, ``.hr``,
+``.last``) and ``.pack``. Counters: `launches` (``"conv"``: `F.conv2d`
+calls) and `glue_bytes` (bytes the dense connections' concatenations
+write), both zeroed by `reset_launches()`.
+"""
+
+from __future__ import annotations
+
+import functools
+import hashlib
+import io
+import json
+import zipfile
+from pathlib import Path
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from nu_scaler_tpu_torch.device import resolve_device
+from nu_scaler_tpu_torch.models import esrgan_lite
+from nu_scaler_tpu_torch.ops.image_resize import image_resize
+from nu_scaler_tpu_torch.utils.tracing import span
+
+LADDER = "realesrgan"  # `learned_prefer` / `make_pretrained_upscaler`'s prefer
+ARCH = "rrdbnet"  # the weights' arch name: esrgan_rrdbnet_x{scale}_{step}.npz
+X2PLUS = dict(num_in_ch=3, num_out_ch=3, num_feat=64, num_block=23, num_grow_ch=32, scale=2)
+SLOPE = 0.2  # LeakyReLU's negative slope
+RES = 0.2  # the RDB's and the RRDB's residual scale
+
+# Since the last `reset_launches()`: `F.conv2d` calls, and the bytes the dense
+# connections' concatenations write.
+launches = {"conv": 0}
+glue_bytes = 0
+
+
+def reset_launches() -> None:
+    global glue_bytes
+    launches["conv"] = 0
+    glue_bytes = 0
+
+
+def _concat(feats: list) -> torch.Tensor:
+    """The channels of `feats` side by side (counted in `glue_bytes`)."""
+    global glue_bytes
+    if len(feats) == 1:
+        return feats[0]
+    cat = torch.cat(feats, 1)
+    glue_bytes += cat.numel() * cat.element_size()
+    return cat
+
+
+def _conv(cin: int, cout: int) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, 3, 1, 1)
+
+
+class ResidualDenseBlock(nn.Module):
+    def __init__(self, num_feat: int = 64, num_grow_ch: int = 32) -> None:
+        super().__init__()
+        for k in range(1, 5):
+            setattr(self, f"conv{k}", _conv(num_feat + (k - 1) * num_grow_ch, num_grow_ch))
+        self.conv5 = _conv(num_feat + 4 * num_grow_ch, num_feat)
+
+
+class RRDB(nn.Module):
+    def __init__(self, num_feat: int, num_grow_ch: int = 32) -> None:
+        super().__init__()
+        self.rdb1 = ResidualDenseBlock(num_feat, num_grow_ch)
+        self.rdb2 = ResidualDenseBlock(num_feat, num_grow_ch)
+        self.rdb3 = ResidualDenseBlock(num_feat, num_grow_ch)
+
+
+class RRDBNet(nn.Module):
+    """BasicSR's `RRDBNet`: its layers under its parameter names (a state
+    dict loads as it is); `RRDBServing` runs them."""
+
+    def __init__(self, num_in_ch: int = 3, num_out_ch: int = 3, num_feat: int = 64,
+                 num_block: int = 23, num_grow_ch: int = 32, scale: int = 4) -> None:
+        super().__init__()
+        if scale not in (1, 2, 4):
+            raise ValueError(f"RRDBNet serves x1, x2 or x4, not x{scale}")
+        self.scale = scale
+        self.unshuffle = {4: 1, 2: 2, 1: 4}[scale]
+        self.conv_first = _conv(num_in_ch * self.unshuffle ** 2, num_feat)
+        self.body = nn.Sequential(*(RRDB(num_feat, num_grow_ch) for _ in range(num_block)))
+        self.conv_body = _conv(num_feat, num_feat)
+        self.conv_up1 = _conv(num_feat, num_feat)
+        self.conv_up2 = _conv(num_feat, num_feat)
+        self.conv_hr = _conv(num_feat, num_feat)
+        self.conv_last = _conv(num_feat, num_out_ch)
+
+
+# ---------------------------------------------------------------------------
+# weights: the port's npz + sidecar format under BasicSR's names
+# ---------------------------------------------------------------------------
+
+
+def npz_bytes(state: dict) -> bytes:
+    """The npz of `state` (name → array, written as float32 in the dict's
+    order), byte for byte the same for the same arrays: stored members with a
+    fixed date, so its sha256 names the weights."""
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w", zipfile.ZIP_STORED) as z:
+        for name, arr in state.items():
+            member = io.BytesIO()
+            np.lib.format.write_array(member, np.ascontiguousarray(arr, np.float32), version=(1, 0))
+            info = zipfile.ZipInfo(f"{name}.npy", date_time=(1980, 1, 1, 0, 0, 0))
+            info.external_attr = 0o644 << 16
+            z.writestr(info, member.getvalue())
+    return buf.getvalue()
+
+
+def write_weights(directory: Path, state: dict, step: int, model: Optional[dict] = None,
+                  **meta) -> Path:
+    """``esrgan_rrdbnet_x{scale}_{step}.npz`` (`npz_bytes` of `state`, a
+    BasicSR state dict of arrays or tensors) and its sidecar in `directory`:
+    the arch, step, model widths (`X2PLUS` by default), parameter count, the
+    npz's sha256 and `meta`. The sidecar is written last (the loaders glob
+    for it). Returns the npz's path."""
+    model = dict(X2PLUS if model is None else model)
+    arrays = {k: (v.detach().cpu().float().numpy() if isinstance(v, torch.Tensor) else np.asarray(v))
+              for k, v in state.items()}
+    blob = npz_bytes(arrays)
+    directory = Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    stem = directory / f"esrgan_{ARCH}_x{model['scale']}_{step}"
+    npz = stem.with_suffix(".npz")
+    npz.write_bytes(blob)
+    sidecar = {"arch": ARCH, "step": int(step), "model": model, **meta,
+               "parameters": int(sum(a.size for a in arrays.values())),
+               "sha256": hashlib.sha256(blob).hexdigest()}
+    stem.with_suffix(".json").write_text(json.dumps(sidecar, indent=1) + "\n")
+    return npz
+
+
+@functools.lru_cache(maxsize=2)
+def _load(directory: Path, step: int, sha256: str, scale: int) -> tuple[RRDBNet, dict]:
+    with span("nu.setup.weights"):
+        meta = json.loads((directory / f"esrgan_{ARCH}_x{scale}_{step}.json").read_text())
+        tree = esrgan_lite.read_weights(directory / f"esrgan_{ARCH}_x{scale}_{step}.npz", sha256)
+        model = RRDBNet(**meta["model"])
+        model.load_state_dict({k: torch.from_numpy(np.asarray(v, np.float32)) for k, v in tree.items()})
+    return model.eval(), meta
+
+
+# ---------------------------------------------------------------------------
+# the serving graph
+# ---------------------------------------------------------------------------
+
+
+class RRDBServing:
+    """u8 RGBA [N, H, W, 4] → u8 RGBA [N, out_h, out_w, 4] through `model` in
+    `dtype` (fp16 by default), channels-last; see the module's docstring."""
+
+    def __init__(self, model: RRDBNet, in_h: int, in_w: int, out_h: int, out_w: int, device,
+                 dtype: torch.dtype = torch.float16) -> None:
+        self.device = resolve_device(device)
+        self.in_hw, self.out_hw = (in_h, in_w), (out_h, out_w)
+        self.scale, self.unshuffle, self.dtype = model.scale, model.unshuffle, dtype
+        self.quantized = False  # `LearnedUpscaler` reports it: no int8 graph here
+
+        def wb(c: nn.Conv2d) -> tuple[torch.Tensor, torch.Tensor]:
+            w = c.weight.detach().to(self.device, dtype).contiguous(memory_format=torch.channels_last)
+            return w, c.bias.detach().to(self.device, dtype)
+
+        with span("nu.setup.weights"):
+            self.first = wb(model.conv_first)
+            self.rrdbs = [[[wb(getattr(rdb, f"conv{k}")) for k in range(1, 6)]
+                           for rdb in (blk.rdb1, blk.rdb2, blk.rdb3)] for blk in model.body]
+            self.conv_body, self.up1, self.up2, self.hr, self.last = (
+                wb(c) for c in (model.conv_body, model.conv_up1, model.conv_up2, model.conv_hr,
+                                model.conv_last))
+
+    def _c(self, x: torch.Tensor, p: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+        launches["conv"] += 1
+        return F.conv2d(x, p[0], p[1], padding=1)
+
+    def rdb(self, x: torch.Tensor, convs: list) -> torch.Tensor:
+        """``x + 0.2·c5([x, x1..x4])``, ``x_k = lr(c_k([x, x1..x_{k-1}]))``."""
+        feats = [x]
+        for p in convs[:4]:
+            feats.append(F.leaky_relu(self._c(_concat(feats), p), SLOPE, inplace=True))
+        return torch.add(x, self._c(_concat(feats), convs[4]), alpha=RES)
+
+    def body(self, f0: torch.Tensor) -> torch.Tensor:
+        """The RRDBs on `f0` [N, num_feat, h, w]: ``x + 0.2·RDB3(RDB2(RDB1(x)))``
+        each."""
+        x = f0
+        for i, rdbs in enumerate(self.rrdbs):
+            with span("nu.models.rrdb.rrdb", index=i):
+                y = x
+                for convs in rdbs:
+                    y = self.rdb(y, convs)
+                x = torch.add(x, y, alpha=RES)
+        return x
+
+    # -- the frame ----------------------------------------------------------
+
+    def net(self, x: torch.Tensor) -> torch.Tensor:
+        """The model on x [N, 3, H, W] in `dtype` (H, W even at ×2) →
+        [N, 3, sH, sW] in `dtype`."""
+        with span("nu.models.rrdb.first"):
+            f0 = self._c(x, self.first)
+        with span("nu.models.rrdb.body"):
+            trunk = self.body(f0)
+            with span("nu.models.rrdb.conv_body"):
+                f = f0 + self._c(trunk, self.conv_body)
+        with span("nu.models.rrdb.upsample"):
+            with span("nu.models.rrdb.up1"):
+                f = F.leaky_relu(self._c(F.interpolate(f, scale_factor=2, mode="nearest"), self.up1),
+                                 SLOPE, inplace=True)
+            with span("nu.models.rrdb.up2"):
+                f = F.leaky_relu(self._c(F.interpolate(f, scale_factor=2, mode="nearest"), self.up2),
+                                 SLOPE, inplace=True)
+            with span("nu.models.rrdb.hr"):
+                f = F.leaky_relu(self._c(f, self.hr), SLOPE, inplace=True)
+            with span("nu.models.rrdb.last"):
+                return self._c(f, self.last)
+
+    def prepare(self, img: torch.Tensor) -> torch.Tensor:
+        """u8 RGBA [N, H, W, 4] → the net's input in `dtype`: RGB / 255, an
+        odd side reflect-padded to even (RealESRGANer's mod pad), pixel
+        unshuffled (channel ``c·4 + dy·2 + dx`` at ×2)."""
+        h, w = img.shape[1], img.shape[2]
+        x = (img[..., :3].permute(0, 3, 1, 2).float() / 255.0).to(self.dtype)
+        m = self.unshuffle
+        ph, pw = -h % m, -w % m
+        if ph or pw:
+            x = F.pad(x, (0, pw, 0, ph), mode="reflect")
+        if m > 1:
+            x = F.pixel_unshuffle(x, m)
+        return x.contiguous(memory_format=torch.channels_last)
+
+    def __call__(self, img: torch.Tensor) -> torch.Tensor:
+        if tuple(img.shape[1:3]) != self.in_hw or img.shape[3] != 4 or img.dtype != torch.uint8:
+            raise ValueError(f"expected u8 [N, {self.in_hw[0]}, {self.in_hw[1]}, 4], "
+                             f"got {img.dtype} {tuple(img.shape)}")
+        n, (h, w) = img.shape[0], self.in_hw
+        with span("nu.models.rrdb", bytes=img):
+            with span("nu.models.rrdb.unshuffle"):
+                x = self.prepare(img)
+            y = self.net(x)
+            with span("nu.models.rrdb.pack"):
+                s = self.scale
+                rgb = y[:, :, : h * s, : w * s].float().permute(0, 2, 3, 1)
+                if (h * s, w * s) != self.out_hw:
+                    rgb = image_resize(rgb, (n, *self.out_hw, 3))
+                rgb = torch.round(rgb.clamp(0.0, 1.0) * 255.0)
+                alpha = image_resize(img[..., 3:].float() * esrgan_lite.INV_255, (n, *self.out_hw, 1))
+                alpha = torch.clamp(torch.round(alpha * 255.0), 0, 255)
+                return torch.cat([rgb, alpha], dim=-1).to(torch.uint8)
+
+
+@functools.lru_cache(maxsize=4)
+def _build(in_h, in_w, out_h, out_w, device, directory, step, sha256, scale):
+    model, meta = _load(directory, step, sha256, scale)
+    serving = RRDBServing(model, in_h, in_w, out_h, out_w, device)
+    return esrgan_lite.LearnedUpscaler(serving, ARCH, meta["step"], directory)
+
+
+def make_upscaler(in_h: int, in_w: int, out_h: int, out_w: int, device=None) -> esrgan_lite.LearnedUpscaler:
+    """The "realesrgan" ladder: RRDBNet ×2 from the newest weights that serve
+    (the trainer's `CKPT_ROOT`, else the committed ``weights/``), fp16, as a
+    `LearnedUpscaler` (``arch`` "rrdbnet"). Cached per sizes, device and
+    weights. With no such weights it raises ValueError: no other model
+    stands in."""
+    directory = esrgan_lite.weights_directory(ARCH, X2PLUS["scale"])
+    if directory is None:
+        raise ValueError(f"no {ARCH} x{X2PLUS['scale']} weights serve the {LADDER!r} ladder: write "
+                         f"them with rrdbnet.write_weights into the trainer's CKPT_ROOT")
+    meta = esrgan_lite.newest_sidecar(directory, f"esrgan_{ARCH}_x{X2PLUS['scale']}_*.json")
+    return _build(in_h, in_w, out_h, out_w, resolve_device(device), Path(directory), meta["step"],
+                  meta["sha256"], X2PLUS["scale"])
