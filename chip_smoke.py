@@ -11,9 +11,10 @@ Phases, each printed on its own line with its seconds:
 2. the build, through its command line (python -m
    nu_scaler_tpu_torch.kernels._build, run in process): one nvcc call per
    source under nu_scaler_tpu_torch/kernels/csrc/ (resample_fused.cu,
-   soft_warp.cu, fsr.cu, conv3x3.cu, trunk_fused.cu, resample_twopass.cu) and
-   one g++ call per host library under nu_scaler_tpu_torch/runtime/native/
-   (framering.cpp, y4m.cpp), all started together, into
+   soft_warp.cu, fsr.cu, conv3x3.cu, trunk_fused.cu, resample_twopass.cu,
+   rrdb_conv.cu) and one g++ call per host library under
+   nu_scaler_tpu_torch/runtime/native/ (framering.cpp, y4m.cpp), all
+   started together, into
    build/nu_scaler_tpu_torch/, each library's path printed;
 3. each kernel wrapper against its plain PyTorch version on the card, at
    1080p→4K: lanczos3, bilinear, nearest, bicubic, lanczos2, mitchell and
@@ -243,6 +244,17 @@ Phases, each printed on its own line with its seconds:
    "quality" x2 at 1080p -> 4K serves it from the copy on 8 conv3x3_q
    (phase 4d's gates). Nothing written under checkpoints/, the committed
    weights or checkpoints_torch/;
+4p. RRDBNet's dense-block conv (rrdb_conv.cu) at the shapes Real-ESRGAN
+   x2plus serves 1080p → 4K with: conv1–4 into their slices of a
+   192-channel growth buffer, conv5 with the RDB's residual and with the
+   RRDB's too, conv_body with f0 (540×960), conv_up1 (1080p), conv_up2 and
+   conv_hr (4K), each against rrdb_conv_plain within
+   rrdb_conv_cuda.ulp_tolerance (under 2% of values differing, the
+   buffers' other channels untouched), timed beside its plain version,
+   F.conv2d and its bound, with ptxas' registers and spill stores; then one
+   1080p → 4K frame through RRDBServing on seeded weights, its launches
+   read on their own (349 rrdb_conv, 2 F.conv2d), against
+   rrdbnet_reference in fp32 (≤ 2 LSB, under 15% of bytes differing);
 5. times: per kernel the median of 20 CUDA-event timings after 3 warm-ups,
    the plain version's time, and the bound (the larger of bytes moved over
    the memory rate and operations over the rate of their type: fp32, or
@@ -303,6 +315,7 @@ FSR_SOURCE = "nu_scaler_tpu_torch/kernels/csrc/fsr.cu"
 CONV_SOURCE = "nu_scaler_tpu_torch/kernels/csrc/conv3x3.cu"
 TRUNK_SOURCE = "nu_scaler_tpu_torch/kernels/csrc/trunk_fused.cu"
 TWOPASS_SOURCE = "nu_scaler_tpu_torch/kernels/csrc/resample_twopass.cu"
+RRDB_SOURCE = "nu_scaler_tpu_torch/kernels/csrc/rrdb_conv.cu"
 REPLACES = {
     "resample_fused": "nu_scaler_tpu/kernels/resample_pallas.py:268",
     "resample_fused_batched": "nu_scaler_tpu/kernels/resample_pallas.py:139",
@@ -409,6 +422,12 @@ SHARD_SERVE_GATE_DB = 45.0
 # and reordering one card's own sums moves it measurably (the phase prints
 # that spread)
 SHARD_GRAD_BOUND, SHARD_SPREAD_FACTOR = 1e-6, 4.0
+# phase 4p, RRDBNet x2 at 1080p -> 4K: rrdb_conv launches a frame (69 RDBs of
+# five convs, conv_body and the three upsampling convs), and the frame against
+# the fp32 reference: max LSB and share of differing bytes (the card test's
+# gates; the benchmark's limits are 2.5 and 15% on the 4:2:0 payload)
+RRDB_FRAME_LAUNCHES = 349
+RRDB_FRAME_GATE = (2, 0.15)
 T_START = time.perf_counter()
 
 
@@ -1814,6 +1833,156 @@ def sharded_training_on_the_card(torch, card, dev, pool, frame) -> tuple[dict, d
           "phase 4m wrote under checkpoints/, the committed weights or checkpoints_torch/")
     say(f"sharded training on the card [{card}]: launches {json.dumps(launches_of.total)}")
     return launches_of.total, report
+
+
+def rrdb_on_the_card(torch, card, dev, mem_bw: float, f16_rate: float) -> dict:
+    """Phase 4p: RRDBNet's dense-block conv (`kernels/rrdb_conv_cuda.py`
+    `rrdb_conv`, `csrc/rrdb_conv.cu`) at the shapes Real-ESRGAN x2plus
+    serves 1080p → 4K with, on seeded operands:
+
+    - each conv the served graph runs on it: conv1–4 with LeakyReLU into
+      their slices of a 192-channel growth buffer, conv5 with the RDB's
+      residual, conv5 with the RRDB's residual too (written over it, as the
+      third RDB does), conv_body with f0, all at 540×960; conv_up1 at 1080p,
+      conv_up2 and conv_hr at 4K. Each against `rrdb_conv_plain` on the
+      same operands: every value within `rrdb_conv_cuda.ulp_tolerance`,
+      under 2% of them differing, every other channel of the buffers
+      untouched. Then its time beside the plain version's, `F.conv2d`'s
+      (cuDNN in fp16 on a channels-last copy of the prefix, its bias
+      inside and no epilogue: the library's yardstick, which the port does
+      not call here) and the bound (prefix, output and residuals read or
+      written once in fp16, or the operations at the fp16 tensor rate);
+    - one frame through `RRDBServing` on seeded weights, its launches read
+      on their own (RRDB_FRAME_LAUNCHES of the kernel, 2 `F.conv2d`), and
+      against `rrdbnet_reference` in fp32 within RRDB_FRAME_GATE.
+
+    Returns the kernels line's row."""
+    from nu_scaler_tpu_torch.kernels import _build
+    from nu_scaler_tpu_torch.kernels import rrdb_conv_cuda as rcc
+    from nu_scaler_tpu_torch.models import rrdbnet
+    from nu_scaler_tpu_torch.models import rrdbnet_reference as rref
+
+    F = torch.nn.functional
+    feat, grow = rrdbnet.X2PLUS["num_feat"], rrdbnet.X2PLUS["num_grow_ch"]
+    width, (h, w) = feat + 4 * grow, (IN_H // 2, IN_W // 2)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.float16)
+
+    def conv(cin: int, cout: int):
+        k = torch.randn(cout, cin, 3, 3, generator=gen, device=dev) * (2.0 / (9 * cin)) ** 0.5
+        return rcc.make_conv(k, torch.randn(cout, generator=gen, device=dev) * 0.1, dev, torch.float16)
+
+    slope, res = dict(slope=rrdbnet.SLOPE), rrdbnet.RES
+    buf, nxt, f0 = randn(1, h, w, width), randn(1, h, w, width), randn(1, h, w, feat)
+    c5 = conv(width, feat)
+    cases = {}  # name: (src, conv, out, epilogue, residual tensors read beside the prefix)
+    for k in range(4):
+        cin = feat + grow * k
+        cases[f"conv{k + 1}"] = (buf, conv(cin, grow), buf[..., cin:cin + grow], slope, 0)
+    cases["conv5"] = (buf, c5, nxt[..., :feat], dict(res=buf[..., :feat], res_scale=res), 0)
+    cases["conv5 rrdb"] = (buf, c5, nxt[..., :feat], dict(res=buf[..., :feat], res_scale=res,
+                                                          res2=nxt[..., :feat], res2_scale=res), 1)
+    cases["conv_body"] = (randn(1, h, w, feat), conv(feat, feat), torch.empty_like(f0), dict(res=f0), 1)
+    for name, s in (("conv_up1", 2), ("conv_up2", 4), ("conv_hr", 4)):
+        u = randn(1, s * h, s * w, feat)
+        cases[name] = (u, conv(feat, feat), torch.empty_like(u), slope, 0)
+
+    def whole(t):
+        return t if t._base is None else t._base
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    regs = ptxas_registers(_build.BUILD_LOGS.get("rrdb_conv", ""), r"rrdb_conv_kernelILi\d+ELb\dELi\dE")
+    shapes, max_err, check_launches = {}, 0.0, 0
+    for name, (src, cv, out, epi, extra) in cases.items():
+        n_, h_, w_ = src.shape[:3]
+        key = f"{name} {n_}x{h_}x{w_} {cv.cin}->{cv.cout}"
+        plain = rcc.rrdb_conv_plain(src, cv, torch.empty(out.shape, dtype=out.dtype, device=dev), **epi)
+        before_src, before_out = src.clone(), whole(out).clone()
+        rcc.reset_launches()
+        got = rcc.rrdb_conv(src, cv, out, **epi)
+        torch.cuda.synchronize()
+        check(rcc.launches["rrdb_conv"] == 1, f"rrdb_conv [{key}]: launches {rcc.launches}")
+        check_launches += 1
+        tol = rcc.ulp_tolerance(src, cv, plain.float(), epi.get("res_scale", 1.0), epi.get("res2_scale", 1.0))
+        d = (got.float() - plain.float()).abs()
+        worst, differ = float((d / tol).max()), float((got != plain).float().mean())
+        check(worst <= 1.0 and differ < 0.02,
+              f"rrdb_conv [{key}]: {worst:.3g} of the tolerance, {100 * differ:.3g}% of values differ")
+        lo = (out.storage_offset() - whole(out).storage_offset()) % whole(out).shape[-1]
+        keep = torch.ones(whole(out).shape[-1], dtype=torch.bool, device=dev)
+        keep[lo:lo + out.shape[-1]] = False
+        check(torch.equal(whole(out)[..., keep], before_out[..., keep])
+              and (whole(out) is src or torch.equal(src, before_src)),
+              f"rrdb_conv [{key}]: a channel outside its output slice changed")
+        max_err = max(max_err, float(d.max()))
+        del plain, before_src, before_out, tol, d
+        positions = n_ * h_ * w_
+        ops = 2 * 9 * cv.cin * cv.cout * positions
+        moved = 2 * positions * (cv.cin + cv.cout * (1 + extra)) + 2 * cv.weight.numel() + 4 * cv.cout
+        t_bytes, t_ops = moved / mem_bw * 1e3, ops / f16_rate * 1e3
+        b_ms, b_by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+        xc = src[..., :cv.cin].permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        wc = cv.weight.contiguous(memory_format=torch.channels_last)
+        bc = cv.bias.to(torch.float16)
+        ms = time_ms(torch, lambda: rcc.rrdb_conv(src, cv, out, **epi), flush)
+        plain_ms = time_ms(torch, lambda: rcc.rrdb_conv_plain(src, cv, out, **epi), flush)
+        lib_ms = time_ms(torch, lambda: F.conv2d(xc, wc, bc, padding=1), flush)
+        del xc
+        ptxas = regs.get(f"rrdb_conv_kernelILi{cv.cout}ELb{int('slope' in epi)}ELi"
+                         f"{('res' in epi) + ('res2' in epi)}E", "not in this build log")
+        say(f"rrdb_conv [{key}] [{card}]: {worst:.3g} of the tolerance, {100 * differ:.3g}% of values differ; "
+            f"{ms:.4f} ms (plain {plain_ms:.4f} ms; F.conv2d {lib_ms:.4f} ms; bound {b_ms:.4f} ms by {b_by}: "
+            f"{moved} bytes, {ops} operations; {100 * b_ms / ms:.1f}% of bound, {ops / ms / 1e9:.1f} TFLOP/s; "
+            f"ptxas {ptxas})")
+        shapes[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
+                       "bound_by": b_by, "of_tolerance": worst, "differing": differ, "ptxas": ptxas}
+    del cases, buf, nxt, f0, c5, u, flush
+    torch.cuda.empty_cache()
+
+    # one served frame on seeded weights: the RDBs' convs Kaiming normal (at
+    # BasicSR's 0.1 an RDB moves the output less than fp16 rounds it),
+    # conv_last scaled so that the output spreads around mid-grey
+    torch.manual_seed(SEED)
+    model = rrdbnet.RRDBNet(**rrdbnet.X2PLUS)
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if name.startswith("body.") and isinstance(m, torch.nn.Conv2d):
+                torch.nn.init.kaiming_normal_(m.weight)
+                m.bias.zero_()
+        model.conv_last.weight.mul_(0.25)
+        model.conv_last.bias.fill_(0.8)
+    img = torch.from_numpy(bench_frame(IN_H, IN_W)).to(dev)
+    serving = rrdbnet.RRDBServing(model.eval(), IN_H, IN_W, OUT_H, OUT_W, dev)
+    serving(img[None])  # warm
+    rcc.reset_launches()
+    rrdbnet.reset_launches()
+    got = serving(img[None])[0]
+    torch.cuda.synchronize()
+    frame_launches = {"rrdb_conv_cuda": dict(rcc.launches), "rrdbnet": dict(rrdbnet.launches)}
+    check(rcc.launches["rrdb_conv"] == RRDB_FRAME_LAUNCHES
+          and rrdbnet.launches == {"rrdb_conv": RRDB_FRAME_LAUNCHES, "conv": 2},
+          f"RRDBServing 1080p -> 4K: launches {frame_launches}, want {RRDB_FRAME_LAUNCHES} rrdb_conv and 2 conv")
+    want = rref.upscale(img, model.state_dict())
+    d = (got.to(torch.int16) - want.to(torch.int16)).abs()
+    lsb_max, differ = int(d.max()), float(d.bool().float().mean())
+    say(f"RRDBServing 1080p -> 4K [{card}]: launches {json.dumps(frame_launches)}; against the fp32 "
+        f"reference max {lsb_max} LSB, {100 * differ:.4f}% of bytes differ")
+    check(lsb_max <= RRDB_FRAME_GATE[0] and differ < RRDB_FRAME_GATE[1],
+          f"RRDBServing 1080p -> 4K against the fp32 reference: {lsb_max} LSB, {100 * differ:.4f}% differ")
+    main = shapes[f"conv5 1x{h}x{w} {width}->{feat}"]
+    return {
+        "name": "rrdb_conv", "route": "cuda", "source": RRDB_SOURCE,
+        "replaces": "none: the JAX package has no RRDBNet; cuDNN (F.conv2d) on RRDBNet's served path",
+        "launches": check_launches + RRDB_FRAME_LAUNCHES, "launches_frame": RRDB_FRAME_LAUNCHES,
+        "max_abs_err": max_err, **main,
+        "inputs": f"seeded fp16 operands, conv5 of an RDB: 1x{h}x{w}x{width} -> {feat} with the RDB's "
+                  f"residual (the body's grid of 1080p -> 4K)",
+        "max_abs_err_units": "fp16 value against rrdb_conv_plain, every value within rrdb_conv_cuda.ulp_tolerance",
+        "frame_vs_fp32_reference": {"max_lsb": lsb_max, "differing": differ},
+        "shapes": shapes,
+    }
 
 
 def clear_loader_caches() -> None:
@@ -3850,6 +4019,13 @@ def main() -> int:
         # --calibrate --io, in process, on an empty CKPT_ROOT
         o4_counts = clis_on_the_card(torch, card, dev, learned_in[2], (on_dev["a"], on_dev["b"]))
 
+    with Phase("4p rrdb_conv"):
+        # RRDBNet's dense-block conv at the served shapes against its plain
+        # version, timed, and one 1080p -> 4K RRDBServing frame: its
+        # launches, against the fp32 reference (fp16 and bf16 share one tensor
+        # rate on these cards)
+        rrdb_row = rrdb_on_the_card(torch, card, dev, mem_bw, bf16_rate)
+
     with Phase("5 times"):
         flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
         tables = 4 * (OUT_H * (1 + lz.kv) + OUT_W * (1 + lz.kh))
@@ -4260,6 +4436,7 @@ def main() -> int:
             "ms_vertical": vert_ms, "ms_horizontal": horiz_ms, "resample_fused_ms": fused_ms,
             "bound_ms_with_intermediate": b_inter,
         })
+        rows.append(rrdb_row)  # timed in phase 4p, beside its checks
 
     with Phase("6 trace"):
         # profiler windows over 7 live steps each (host frames in, device

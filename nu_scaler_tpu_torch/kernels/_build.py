@@ -118,6 +118,15 @@ SIGNATURES = {
             _VP,  # stream
         ],
     },
+    "rrdb_conv": {
+        "nu_rrdb_conv": [
+            _INT, _VP, _INT, _INT, _INT, _INT, _INT,  # device, x, n, h, w, c_total, cin
+            _VP, _VP, _INT, _VP, _INT,  # packed weights, bias, cout, out, out_stride
+            _INT, _F32,  # lrelu, slope
+            _VP, _INT, _F32, _VP, _INT, _F32,  # r1, r1_stride, s1, r2, r2_stride, s2
+            _VP,  # stream
+        ],
+    },
     "resample_twopass": {
         "nu_resample_vert": [
             _INT, _VP, _INT, _INT, _INT,  # device, src, n, h, w

@@ -23,21 +23,29 @@ equations above, u8 RGBA [N, H, W, 4] → u8 RGBA [N, OH, OW, 4], as
 Real-ESRGAN's `inference_realesrgan.py` runs it by default (``--tile 0``,
 ``--pre_pad 0``, half precision): RGB / 255 into fp16 (an odd side
 reflect-padded to even and the output cropped back, as
-`RealESRGANer.pre_process` does), every conv through `F.conv2d` in fp16 at
-its real widths (cuDNN sums in fp32), then ``round(clamp(y, 0, 1)·255)`` to
-u8, half to even. A ratio other than the model's resizes its output to the
-target (`ops.image_resize`), as the learned tier's `UnfusedServing` does.
+`RealESRGANer.pre_process` does), every conv in fp16 at its real widths with
+fp32 sums, then ``round(clamp(y, 0, 1)·255)`` to u8, half to even. A ratio
+other than the model's resizes its output to the target
+(`ops.image_resize`), as the learned tier's `UnfusedServing` does.
 The alpha plane is resized on its own, as `UnfusedServing` resizes it, where
 upstream runs a second upscaler (``--alpha_upsampler``); the links' frames
 are opaque.
 
-The dense connections concatenate every prefix (`torch.cat`) in
-channels-last. Of the three forms timed on an H100 (PERF.md §5: this one; one
-NCHW growth buffer per RDB that each LeakyReLU writes its 32 channels into
-and the next conv reads a prefix of in place; the same buffer in
-channels-last) it is the fastest: cuDNN's NCHW convs lose more than the
-copies cost, and a channels-last prefix is copied anyway.
-`tools/rrdb_probe.py` times the other two.
+The dense connections live in growth buffers: one NHWC buffer of
+``num_feat + 4·num_grow_ch`` channels (192) per RDB, whose first 64 channels
+hold the RDB's input. Every conv of the body, `conv_body` and the three
+upsampling convs run on `kernels/rrdb_conv_cuda.py` `rrdb_conv`
+(`csrc/rrdb_conv.cu` on a card, its plain version on the CPU): conv k reads
+the buffer's channel prefix in place and writes its 32 channels into their
+slice, with the bias and LeakyReLU in its epilogue; conv5 reads all 192 and
+writes ``x + 0.2·(c5 + b)`` into channels 0–63 of the next RDB's buffer, and
+for an RRDB's third RDB ``x0 + 0.2·(x + 0.2·(c5 + b))``, the RRDB's residual
+too; `conv_body` adds ``f0``. Three buffers rotate (RDB1 a → b, RDB2 b → c,
+RDB3 c → a, where a holds the RRDB's input ``x0``), so nothing is
+concatenated and no bias, activation or residual runs as a pass of its own.
+Each conv's epilogue rounds once to fp16, where the library conv rounded its
+sum and each later pass rounded again. `conv_first` (12 → 64) and
+`conv_last` (64 → 3) stay on `F.conv2d` (cuDNN) with its bias.
 
 Weights are the port's npz + JSON sidecar format (`esrgan_lite.read_weights`)
 under BasicSR's names (OIHW), ``esrgan_rrdbnet_x{scale}_{step}.npz``, found
@@ -49,9 +57,10 @@ ValueError until weights are written there (`write_weights`).
 Spans (`utils.tracing`, off by default): ``nu.models.rrdb`` (the frame's
 bytes) with ``.unshuffle``, ``.first``, ``.body`` (``.rrdb`` with its
 ``index``, then ``.conv_body``), ``.upsample`` (``.up1``, ``.up2``, ``.hr``,
-``.last``) and ``.pack``. Counters: `launches` (``"conv"``: `F.conv2d`
-calls) and `glue_bytes` (bytes the dense connections' concatenations
-write), both zeroed by `reset_launches()`.
+``.last``) and ``.pack``; the kernel's own ``nu.kernels.rrdb_conv`` under
+them. Counters: `launches` (``"rrdb_conv"``: calls of `rrdb_conv`, a launch
+each on a card; ``"conv"``: `F.conv2d` calls) and `glue_bytes` (bytes
+concatenated, none in this form), all zeroed by `reset_launches()`.
 """
 
 from __future__ import annotations
@@ -70,6 +79,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from nu_scaler_tpu_torch.device import resolve_device
+from nu_scaler_tpu_torch.kernels.rrdb_conv_cuda import Conv, make_conv, rrdb_conv
 from nu_scaler_tpu_torch.models import esrgan_lite
 from nu_scaler_tpu_torch.ops.image_resize import image_resize
 from nu_scaler_tpu_torch.utils.tracing import span
@@ -80,26 +90,18 @@ X2PLUS = dict(num_in_ch=3, num_out_ch=3, num_feat=64, num_block=23, num_grow_ch=
 SLOPE = 0.2  # LeakyReLU's negative slope
 RES = 0.2  # the RDB's and the RRDB's residual scale
 
-# Since the last `reset_launches()`: `F.conv2d` calls, and the bytes the dense
-# connections' concatenations write.
-launches = {"conv": 0}
+# Since the last `reset_launches()`: `rrdb_conv` calls (a kernel launch each
+# on a card), `F.conv2d` calls, and the bytes the dense connections
+# concatenate (none: they live in growth buffers).
+launches = {"rrdb_conv": 0, "conv": 0}
 glue_bytes = 0
 
 
 def reset_launches() -> None:
     global glue_bytes
-    launches["conv"] = 0
+    for k in launches:
+        launches[k] = 0
     glue_bytes = 0
-
-
-def _concat(feats: list) -> torch.Tensor:
-    """The channels of `feats` side by side (counted in `glue_bytes`)."""
-    global glue_bytes
-    if len(feats) == 1:
-        return feats[0]
-    cat = torch.cat(feats, 1)
-    glue_bytes += cat.numel() * cat.element_size()
-    return cat
 
 
 def _conv(cin: int, cout: int) -> nn.Conv2d:
@@ -200,9 +202,21 @@ def _load(directory: Path, step: int, sha256: str, scale: int) -> tuple[RRDBNet,
 # ---------------------------------------------------------------------------
 
 
+def _nhwc(t: torch.Tensor) -> torch.Tensor:
+    """An NCHW tensor as an NHWC view (channels-last memory, made so if it is
+    not)."""
+    return t.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+
+
+def _nchw(t: torch.Tensor) -> torch.Tensor:
+    """An NHWC tensor as an NCHW view in channels-last memory."""
+    return t.permute(0, 3, 1, 2)
+
+
 class RRDBServing:
     """u8 RGBA [N, H, W, 4] → u8 RGBA [N, out_h, out_w, 4] through `model` in
-    `dtype` (fp16 by default), channels-last; see the module's docstring."""
+    `dtype` (fp16 by default, the only one a card takes), NHWC; see the
+    module's docstring."""
 
     def __init__(self, model: RRDBNet, in_h: int, in_w: int, out_h: int, out_w: int, device,
                  dtype: torch.dtype = torch.float16) -> None:
@@ -215,36 +229,61 @@ class RRDBServing:
             w = c.weight.detach().to(self.device, dtype).contiguous(memory_format=torch.channels_last)
             return w, c.bias.detach().to(self.device, dtype)
 
+        def kernel(c: nn.Conv2d) -> Conv:
+            return make_conv(c.weight, c.bias, self.device, dtype)
+
         with span("nu.setup.weights"):
-            self.first = wb(model.conv_first)
-            self.rrdbs = [[[wb(getattr(rdb, f"conv{k}")) for k in range(1, 6)]
+            self.first, self.last = wb(model.conv_first), wb(model.conv_last)
+            self.rrdbs = [[[kernel(getattr(rdb, f"conv{k}")) for k in range(1, 6)]
                            for rdb in (blk.rdb1, blk.rdb2, blk.rdb3)] for blk in model.body]
-            self.conv_body, self.up1, self.up2, self.hr, self.last = (
-                wb(c) for c in (model.conv_body, model.conv_up1, model.conv_up2, model.conv_hr,
-                                model.conv_last))
+            self.conv_body, self.up1, self.up2, self.hr = (
+                kernel(c) for c in (model.conv_body, model.conv_up1, model.conv_up2, model.conv_hr))
+        if self.device.type == "cuda":
+            from nu_scaler_tpu_torch.kernels import _build
+
+            _build.load_library("rrdb_conv")  # built and loaded in set-up, not at the first frame
 
     def _c(self, x: torch.Tensor, p: tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
         launches["conv"] += 1
         return F.conv2d(x, p[0], p[1], padding=1)
 
-    def rdb(self, x: torch.Tensor, convs: list) -> torch.Tensor:
-        """``x + 0.2·c5([x, x1..x4])``, ``x_k = lr(c_k([x, x1..x_{k-1}]))``."""
-        feats = [x]
-        for p in convs[:4]:
-            feats.append(F.leaky_relu(self._c(_concat(feats), p), SLOPE, inplace=True))
-        return torch.add(x, self._c(_concat(feats), convs[4]), alpha=RES)
+    def _k(self, src: torch.Tensor, conv: Conv, out: torch.Tensor, **epilogue) -> torch.Tensor:
+        launches["rrdb_conv"] += 1
+        return rrdb_conv(src, conv, out, **epilogue)
+
+    def rdb(self, buf: torch.Tensor, convs: list, out: torch.Tensor,
+            x0: Optional[torch.Tensor] = None) -> None:
+        """One RDB on its growth buffer `buf` [N, h, w, 192], whose first
+        channels hold its input x: ``x_k = lr(c_k(buf[..., :64 + 32(k-1)]))``
+        into channels ``64 + 32(k-1) ..``, then ``x + 0.2·c5(buf)`` into
+        `out`, or ``x0 + 0.2·(x + 0.2·c5(buf))`` with `x0` (the RRDB's
+        residual; `out` may be x0)."""
+        lo = out.shape[-1]
+        for conv in convs[:4]:
+            self._k(buf, conv, buf[..., lo:lo + conv.cout], slope=SLOPE)
+            lo += conv.cout
+        self._k(buf, convs[4], out, res=buf[..., :out.shape[-1]], res_scale=RES, res2=x0, res2_scale=RES)
 
     def body(self, f0: torch.Tensor) -> torch.Tensor:
-        """The RRDBs on `f0` [N, num_feat, h, w]: ``x + 0.2·RDB3(RDB2(RDB1(x)))``
-        each."""
-        x = f0
+        """The RRDBs on `f0` [N, h, w, num_feat] (NHWC), ``x + 0.2·RDB3(RDB2(RDB1(x)))``
+        each, over three growth buffers; returns the first channels of the
+        one that holds the result."""
+        n, h, w, c = f0.shape
+        width = c + sum(conv.cout for conv in self.rrdbs[0][0][:4]) if self.rrdbs else c
+        a, b, cc = (torch.empty((n, h, w, width), dtype=f0.dtype, device=f0.device) for _ in range(3))
+        x0 = a[..., :c]
+        x0.copy_(f0)
         for i, rdbs in enumerate(self.rrdbs):
             with span("nu.models.rrdb.rrdb", index=i):
-                y = x
-                for convs in rdbs:
-                    y = self.rdb(y, convs)
-                x = torch.add(x, y, alpha=RES)
-        return x
+                self.rdb(a, rdbs[0], b[..., :c])
+                self.rdb(b, rdbs[1], cc[..., :c])
+                self.rdb(cc, rdbs[2], x0, x0)
+        return x0
+
+    def up(self, f: torch.Tensor, conv: Conv) -> torch.Tensor:
+        """``lr(c(nearest×2(f)))`` on NHWC `f`."""
+        u = _nhwc(F.interpolate(_nchw(f), scale_factor=2, mode="nearest"))
+        return self._k(u, conv, torch.empty(u.shape, dtype=u.dtype, device=u.device), slope=SLOPE)
 
     # -- the frame ----------------------------------------------------------
 
@@ -252,22 +291,21 @@ class RRDBServing:
         """The model on x [N, 3, H, W] in `dtype` (H, W even at ×2) →
         [N, 3, sH, sW] in `dtype`."""
         with span("nu.models.rrdb.first"):
-            f0 = self._c(x, self.first)
+            f0 = _nhwc(self._c(x, self.first))
         with span("nu.models.rrdb.body"):
             trunk = self.body(f0)
             with span("nu.models.rrdb.conv_body"):
-                f = f0 + self._c(trunk, self.conv_body)
+                f = self._k(trunk, self.conv_body, torch.empty_like(f0), res=f0)
+            del trunk, f0  # the growth buffers go before the 4K stages
         with span("nu.models.rrdb.upsample"):
             with span("nu.models.rrdb.up1"):
-                f = F.leaky_relu(self._c(F.interpolate(f, scale_factor=2, mode="nearest"), self.up1),
-                                 SLOPE, inplace=True)
+                f = self.up(f, self.up1)
             with span("nu.models.rrdb.up2"):
-                f = F.leaky_relu(self._c(F.interpolate(f, scale_factor=2, mode="nearest"), self.up2),
-                                 SLOPE, inplace=True)
+                f = self.up(f, self.up2)
             with span("nu.models.rrdb.hr"):
-                f = F.leaky_relu(self._c(f, self.hr), SLOPE, inplace=True)
+                f = self._k(f, self.hr, torch.empty_like(f), slope=SLOPE)
             with span("nu.models.rrdb.last"):
-                return self._c(f, self.last)
+                return self._c(_nchw(f), self.last)
 
     def prepare(self, img: torch.Tensor) -> torch.Tensor:
         """u8 RGBA [N, H, W, 4] → the net's input in `dtype`: RGB / 255, an

@@ -139,8 +139,8 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     finally:
         _build.load_library.cache_clear()
     paths = {name: _build.library_path(name) for name in _build.SIGNATURES}
-    assert sorted(paths) == ["conv3x3", "fsr", "resample_fused", "resample_twopass", "soft_warp",
-                             "trunk_fused"]
+    assert sorted(paths) == ["conv3x3", "fsr", "resample_fused", "resample_twopass", "rrdb_conv",
+                             "soft_warp", "trunk_fused"]
     assert len(set(paths.values())) == len(paths)
     for name, path in paths.items():
         assert path.parent == tmp_path and path.name.startswith(f"lib{name}_")
@@ -207,10 +207,12 @@ def test_kernel_source_is_plain_c():
     nearest (their products and sums are the tensor cores' own, fp32
     accumulation; the trunk's skip additions are written out). The conv and
     the trunk run on warpgroup MMAs fed by cp.async, with no WMMA left in
-    them; the trunk is one cooperative launch."""
+    them; the trunk is one cooperative launch. RRDBNet's conv runs on
+    warpgroup MMAs fed by cp.async and rounds its written-out epilogue to
+    fp16."""
     sources = sorted(p.name for p in PKG.rglob("*.cu*"))
     assert sources == ["conv3x3.cu", "conv3x3_core.cuh", "device_guard.cuh", "fsr.cu",
-                       "resample_fused.cu", "resample_twopass.cu", "soft_warp.cu",
+                       "resample_fused.cu", "resample_twopass.cu", "rrdb_conv.cu", "soft_warp.cu",
                        "trunk_fused.cu"]
     written_out = ("__fmul_rn", "__fadd_rn")
     packing = {
@@ -221,6 +223,7 @@ def test_kernel_source_is_plain_c():
         "resample_twopass": ("fmaf", "__fadd_rz", "8388608.0f"),
         "trunk_fused": (*written_out, "__float2bfloat16_rn", "wgmma.mma_async",
                         "cudaLaunchCooperativeKernel"),
+        "rrdb_conv": (*written_out, "__floats2half2_rn", "wgmma.mma_async", "cp.async"),
     }
     assert sorted(packing) == sorted(_build.SIGNATURES)
     for name, fns in _build.SIGNATURES.items():

@@ -193,11 +193,12 @@ def test_spans_and_counters(model, frame):
     stages = ("unshuffle", "first", "body", "rrdb", "conv_body", "upsample", "up1", "up2", "hr", "last", "pack")
     assert names == {"nu.models.rrdb"} | {f"nu.models.rrdb.{s}" for s in stages}
     assert sorted(s["index"] for s in spans if s["name"] == "nu.models.rrdb.rrdb") == list(range(23))
-    assert rrdbnet.launches["conv"] == 351
-    # every prefix of every RDB concatenated, fp32
-    assert rrdbnet.glue_bytes == 69 * (96 + 128 + 160 + 192) * (H // 2) * (W // 2) * 4
+    # 69 RDBs of 5 convs, conv_body and the three upsampling convs on the
+    # growth-buffer kernel's wrapper; conv_first and conv_last on F.conv2d
+    assert rrdbnet.launches == {"rrdb_conv": 69 * 5 + 1 + 3, "conv": 2}
+    assert rrdbnet.glue_bytes == 0  # nothing concatenated
     rrdbnet.reset_launches()
-    assert rrdbnet.launches["conv"] == 0 and rrdbnet.glue_bytes == 0
+    assert rrdbnet.launches == {"rrdb_conv": 0, "conv": 0} and rrdbnet.glue_bytes == 0
 
 
 def test_newest_step_serves(tmp_path, monkeypatch, state):
