@@ -98,11 +98,6 @@ SIGNATURES = {
             _INT, _INT, _INT, _INT, _INT, _INT, _INT,  # n, h, w, cin, cout, relu, round_sum
             _VP,  # stream
         ],
-        "nu_conv3x3_variant": [
-            _INT, _VP, _VP, _VP, _VP,  # device, x, k (packed), b, out
-            _INT, _INT, _INT, _INT, _INT, _INT, _INT,  # n, h, w, cin, cout, relu, round_sum
-            _INT, _INT, _VP,  # tile_w, stages, stream
-        ],
         "nu_conv3x3_q": [
             _INT, _VP, _VP, _VP, _VP, _VP,  # device, x, k (packed), scale, b (or NULL), out
             _INT, _INT, _INT, _INT, _INT, _INT,  # n, h, w, cin, cout, relu
@@ -114,7 +109,7 @@ SIGNATURES = {
             _INT, _VP, _VP, _VP, _INT,  # device, x, packed kernels[depth], biases[depth], depth
             _VP, _VP, _VP, _VP, _VP,  # feat, h, t, ready flags, out
             _INT, _INT, _INT, _INT, _INT, _INT, _INT,  # n, h, w, cin, cmid, cout, blocks
-            _INT, _INT, _INT, _INT,  # tile_w, stages, grid, round_sum
+            _INT, _INT,  # grid, round_sum
             _VP,  # stream
         ],
     },

@@ -58,12 +58,6 @@ from nu_scaler_tpu_torch.utils.tracing import span
 launches = {"conv3x3": 0, "conv3x3_q": 0}
 
 LANES = 128  # Cin and Cout must be multiples of this (the Pallas kernel's rule)
-# The kernel's variants, (tile width, weight stages): 16 → 16×16 positions,
-# 32 → 8×32; a ring of 3 or 4 weight stages. Every variant sums each output
-# in the same order. The C entry `nu_conv3x3`, which `conv3x3` launches, runs
-# DEFAULT_VARIANT.
-VARIANTS = ((16, 3), (16, 4), (32, 3), (32, 4))
-DEFAULT_VARIANT = (16, 4)
 # the cancellation term of the tolerance: 2^-20 of Σ|x|·|w| at the element
 CANCEL_REL = 2.0 ** -20
 
@@ -276,11 +270,8 @@ def pack_weights(k: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor, relu: bool,
-            round_sum: bool, variant: Optional[tuple[int, int]] = None) -> torch.Tensor:
-    """One launch of the kernel on the weights repacked by `pack_weights`:
-    its default, or `variant` (tile width, weight stages) from VARIANTS."""
-    if variant is not None and variant not in VARIANTS:
-        raise ValueError(f"variant {variant}: the kernel has {VARIANTS}")
+            round_sum: bool) -> torch.Tensor:
+    """One launch of the kernel on the weights repacked by `pack_weights`."""
     if x.device.type != "cuda":
         raise RuntimeError(f"the CUDA kernel needs a CUDA tensor, got {x.device}")
     from nu_scaler_tpu_torch.kernels import _build
@@ -291,12 +282,8 @@ def _launch(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor, relu: bool,
     kp = pack_weights(k)
     out = torch.empty((n, h, w, cout), dtype=torch.bfloat16, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    args = (x.device.index or 0, x.data_ptr(), kp.data_ptr(), b.data_ptr(), out.data_ptr(),
-            n, h, w, cin, cout, int(relu), int(round_sum))
-    if variant is None:
-        err = lib.nu_conv3x3(*args, stream)
-    else:
-        err = lib.nu_conv3x3_variant(*args, *variant, stream)
+    err = lib.nu_conv3x3(x.device.index or 0, x.data_ptr(), kp.data_ptr(), b.data_ptr(),
+                         out.data_ptr(), n, h, w, cin, cout, int(relu), int(round_sum), stream)
     if err != 0:
         raise RuntimeError(f"conv3x3 launch failed: {lib.nu_cuda_error_string(err).decode()} ({err})")
     return out
@@ -304,7 +291,7 @@ def _launch(x: torch.Tensor, k: torch.Tensor, b: torch.Tensor, relu: bool,
 
 def _launch_q(xq: torch.Tensor, kq: torch.Tensor, scale: torch.Tensor,
               b: Optional[torch.Tensor], relu: bool) -> torch.Tensor:
-    """One launch of the kernel's int8-grid mode (default tile), weights
+    """One launch of the kernel's int8-grid mode, weights
     repacked by `pack_weights`; a None bias passes a null pointer."""
     if xq.device.type != "cuda":
         raise RuntimeError(f"the CUDA kernel needs a CUDA tensor, got {xq.device}")

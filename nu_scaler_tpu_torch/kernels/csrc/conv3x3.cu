@@ -39,7 +39,7 @@
 // shared memory), with hand-written PTX. The device code lives in
 // conv3x3_core.cuh, which trunk_fused.cu shares: its design notes say how
 // the halo, the A fragments and the weight ring work.
-//  * A block of 256 threads (two warpgroups) owns a TH x TW tile of 256
+//  * A block of 256 threads (two warpgroups) owns a 16 x 16 tile of
 //    output positions and 128 output channels; one block per SM. Grid:
 //    x = spatial tiles, y = Cout / 128, z = batch. It runs the header's main
 //    loop (conv_tile) once and its epilogue (stage_tile), then writes the
@@ -104,17 +104,6 @@ int launch(const void* x, const void* k, const void* b, const float* scale, void
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int TH, int TW, int NS>
-int dispatch(const void* x, const void* k, const void* b, void* out, int n, int h, int w, int cin,
-             int cout, int relu, int round_sum, cudaStream_t s) {
-  if (relu) {
-    return round_sum ? launch<TH, TW, NS, true, kRoundSum>(x, k, b, nullptr, out, n, h, w, cin, cout, s)
-                     : launch<TH, TW, NS, true, kSingle>(x, k, b, nullptr, out, n, h, w, cin, cout, s);
-  }
-  return round_sum ? launch<TH, TW, NS, false, kRoundSum>(x, k, b, nullptr, out, n, h, w, cin, cout, s)
-                   : launch<TH, TW, NS, false, kSingle>(x, k, b, nullptr, out, n, h, w, cin, cout, s);
-}
-
 bool bad_shape(int n, int h, int w, int cin, int cout, int tile_w) {
   return n < 1 || n > 65535 || h < 1 || w < 1 || cin < kKC || cin % kKC || cout < kBN ||
          cout % kBN || cout / kBN > 65535 ||
@@ -127,32 +116,21 @@ bool bad_shape(int n, int h, int w, int cin, int cout, int tile_w) {
 
 extern "C" {
 
-// The conv with a chosen tile width (16: 16 x 16 positions, 32: 8 x 32) and
-// ring depth (3 or 4 stages). Returns 0 on success, else a cudaError_t code
-// (see nu_cuda_error_string).
-int nu_conv3x3_variant(int device, const void* x, const void* k, const void* b, void* out, int n,
-                       int h, int w, int cin, int cout, int relu, int round_sum, int tile_w,
-                       int stages, void* stream) {
-  if ((tile_w != 16 && tile_w != 32) || (stages != 3 && stages != 4) ||
-      bad_shape(n, h, w, cin, cout, tile_w)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+// The conv at the kernel's one tile: 16 x 16 positions, a ring of 4 weight
+// stages. Returns 0 on success, else a cudaError_t code (see
+// nu_cuda_error_string).
+int nu_conv3x3(int device, const void* x, const void* k, const void* b, void* out, int n, int h,
+               int w, int cin, int cout, int relu, int round_sum, void* stream) {
+  if (bad_shape(n, h, w, cin, cout, 16)) return static_cast<int>(cudaErrorInvalidValue);
   const DeviceGuard guard(device);
   if (guard.error != cudaSuccess) return static_cast<int>(guard.error);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile_w == 16) {
-    return stages == 3 ? dispatch<16, 16, 3>(x, k, b, out, n, h, w, cin, cout, relu, round_sum, s)
-                       : dispatch<16, 16, 4>(x, k, b, out, n, h, w, cin, cout, relu, round_sum, s);
+  if (relu) {
+    return round_sum ? launch<16, 16, 4, true, kRoundSum>(x, k, b, nullptr, out, n, h, w, cin, cout, s)
+                     : launch<16, 16, 4, true, kSingle>(x, k, b, nullptr, out, n, h, w, cin, cout, s);
   }
-  return stages == 3 ? dispatch<8, 32, 3>(x, k, b, out, n, h, w, cin, cout, relu, round_sum, s)
-                     : dispatch<8, 32, 4>(x, k, b, out, n, h, w, cin, cout, relu, round_sum, s);
-}
-
-// The conv at the default tile (16 x 16 positions, 4 stages).
-int nu_conv3x3(int device, const void* x, const void* k, const void* b, void* out, int n, int h,
-               int w, int cin, int cout, int relu, int round_sum, void* stream) {
-  return nu_conv3x3_variant(device, x, k, b, out, n, h, w, cin, cout, relu, round_sum, 16, 4,
-                            stream);
+  return round_sum ? launch<16, 16, 4, false, kRoundSum>(x, k, b, nullptr, out, n, h, w, cin, cout, s)
+                   : launch<16, 16, 4, false, kSingle>(x, k, b, nullptr, out, n, h, w, cin, cout, s);
 }
 
 // The int8-grid mode at the default tile: x and k integer-valued bf16,

@@ -29,7 +29,7 @@
 //  * One block of 256 threads (two warpgroups) per SM, launched with
 //    cudaLaunchCooperativeKernel, so the blocks are co-resident or the launch
 //    is refused (the caller gets the error; nothing falls back).
-//  * Work items: layer l's are (image, TH x TW tile, 128-channel output
+//  * Work items: layer l's are (image, 16 x 16 tile, 128-channel output
 //    tile), item = (image * tiles + tile) * (Cout_l / 128) + channel tile.
 //    The layers' items form one sequence, layer after layer, dealt
 //    round-robin: block b takes items b, b + grid, ... of the sequence, so
@@ -309,13 +309,6 @@ int launch(const void* x, const Layers& layers, const Geometry& g, const Buffers
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int TH, int TW, int NS>
-int dispatch(const void* x, const Layers& layers, const Geometry& g, const Buffers& buf, int grid,
-             int round_sum, cudaStream_t s) {
-  return round_sum ? launch<TH, TW, NS, true>(x, layers, g, buf, grid, s)
-                   : launch<TH, TW, NS, false>(x, layers, g, buf, grid, s);
-}
-
 }  // namespace
 
 extern "C" {
@@ -323,17 +316,17 @@ extern "C" {
 // ks: host array of `depth` device pointers to the layers' packed weights
 // [cout_l, 3, 3, cin_l] (head, block convs, trunk, tail); bs: their bf16
 // biases. feat, hbuf, tbuf: n * h * w * cmid bf16 each (cmid a multiple of
-// 128); ready: (depth - 1) * (n * tiles + 1) zeroed uint32, tiles the TH x
-// TW tiles of a frame. tile_w 16 (16 x 16 tiles) or 32 (8 x 32); stages 3 or 4; grid at
-// most the co-resident blocks (one per SM). Returns 0 on success, else a
+// 128); ready: (depth - 1) * (n * tiles + 1) zeroed uint32, tiles the 16 x
+// 16 tiles of a frame (the conv's one tile, a ring of 4 weight stages); grid
+// at most the co-resident blocks (one per SM). Returns 0 on success, else a
 // cudaError_t code (see nu_cuda_error_string).
 int nu_trunk_fused(int device, const void* x, const void* const* ks, const void* const* bs,
                    int depth, void* feat, void* hbuf, void* tbuf, void* ready, void* out, int n,
-                   int h, int w, int cin, int cmid, int cout, int blocks, int tile_w, int stages,
-                   int grid, int round_sum, void* stream) {
+                   int h, int w, int cin, int cmid, int cout, int blocks, int grid,
+                   int round_sum, void* stream) {
   if (depth != 3 + 2 * blocks || blocks < 0 || depth > kMaxLayers || n < 1 || h < 1 || w < 1 ||
       cin < kKC || cin % kKC || cmid < kBN || cmid % kBN || cout < kBN || cout % kBN ||
-      (tile_w != 16 && tile_w != 32) || (stages != 3 && stages != 4) || grid < 1) {
+      grid < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Geometry g;
@@ -345,9 +338,8 @@ int nu_trunk_fused(int device, const void* x, const void* const* ks, const void*
   g.cout = cout;
   g.blocks = blocks;
   g.depth = depth;
-  const int tile_h = kBM / tile_w;
-  g.tiles_w = (w + tile_w - 1) / tile_w;
-  g.tiles = g.tiles_w * ((h + tile_h - 1) / tile_h);
+  g.tiles_w = (w + 15) / 16;
+  g.tiles = g.tiles_w * ((h + 15) / 16);
   // every layer's items in one sequence, and a round of the grid past it
   if (static_cast<long long>(g.tiles) * n * ((depth - 1) * (cmid / kBN) + cout / kBN) + grid >
       0x7fffffffLL) {
@@ -364,12 +356,8 @@ int nu_trunk_fused(int device, const void* x, const void* const* ks, const void*
   const DeviceGuard guard(device);
   if (guard.error != cudaSuccess) return static_cast<int>(guard.error);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tile_w == 16) {
-    return stages == 3 ? dispatch<16, 16, 3>(x, layers, g, buf, grid, round_sum, s)
-                       : dispatch<16, 16, 4>(x, layers, g, buf, grid, round_sum, s);
-  }
-  return stages == 3 ? dispatch<8, 32, 3>(x, layers, g, buf, grid, round_sum, s)
-                     : dispatch<8, 32, 4>(x, layers, g, buf, grid, round_sum, s);
+  return round_sum ? launch<16, 16, 4, true>(x, layers, g, buf, grid, s)
+                   : launch<16, 16, 4, false>(x, layers, g, buf, grid, s);
 }
 
 const char* nu_cuda_error_string(int code) {

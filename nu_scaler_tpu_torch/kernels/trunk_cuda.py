@@ -38,18 +38,11 @@ included.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 
-from nu_scaler_tpu_torch.kernels.conv_cuda import (
-    DEFAULT_VARIANT,
-    LANES,
-    VARIANTS,
-    conv3x3_plain,
-    pack_weights,
-    ulp_bf16,
-)
+from nu_scaler_tpu_torch.kernels.conv_cuda import LANES, conv3x3_plain, pack_weights, ulp_bf16
 
 # Launches since the last `reset_launches()`; the wrapper adds one where it
 # launches its kernel and nowhere else.
@@ -68,6 +61,7 @@ launches = {"trunk_fused": 0}
 # seeded weights by up to 1.
 TOL_ULPS = 24
 MAX_BLOCKS = 14  # the kernel's table holds 3 + 2·14 layers
+TILE = 16  # the conv's tile: 16 × 16 output positions
 
 
 def reset_launches() -> None:
@@ -156,8 +150,8 @@ def check_params(x: torch.Tensor, params: Sequence[torch.Tensor], blocks: int) -
 
 
 class TrunkPlan(NamedTuple):
-    """The kernel's launch: tile_h × tile_w output positions a tile (the
-    conv's tile), `stages` weight stages, tiles_h × tiles_w tiles an image;
+    """The kernel's launch: tiles_h × tiles_w tiles of `TILE` × `TILE`
+    output positions an image;
     per layer its output channels (`couts`) and its work items (`items`: n ·
     tiles · couts[l] / 128), which follow each other in one sequence; `grid`
     persistent blocks; `flags` zeroed uint32 ready counters, one per (layer,
@@ -166,9 +160,6 @@ class TrunkPlan(NamedTuple):
     · cmid)."""
 
     n: int
-    tile_h: int
-    tile_w: int
-    stages: int
     tiles_h: int
     tiles_w: int
     couts: tuple
@@ -178,22 +169,15 @@ class TrunkPlan(NamedTuple):
     act_elems: int
 
 
-def plan(n: int, h: int, w: int, blocks: int, cmid: int, cout: int, sms: int,
-         variant: tuple[int, int] = DEFAULT_VARIANT) -> TrunkPlan:
+def plan(n: int, h: int, w: int, blocks: int, cmid: int, cout: int, sms: int) -> TrunkPlan:
     """The launch of the trunk kernel on `sms` streaming multiprocessors (one
-    block each): `variant` is one of `conv_cuda.VARIANTS`, (tile width,
-    weight stages), 16 → 16×16 positions, 32 → 8×32 (every variant sums each
-    output in the same order, so all give the same bytes). The grid is the
-    SM count, or fewer where the layers have fewer items in all."""
-    if variant not in VARIANTS:
-        raise ValueError(f"variant {variant}: the kernel has {VARIANTS}")
-    tile_w, stages = variant
-    tile_h = 256 // tile_w
-    tiles_h, tiles_w = -(-h // tile_h), -(-w // tile_w)
+    block each). The grid is the SM count, or fewer where the layers have
+    fewer items in all."""
+    tiles_h, tiles_w = -(-h // TILE), -(-w // TILE)
     d = depth(blocks)
     couts = tuple(cout if layer == d - 1 else cmid for layer in range(d))
     items = tuple(n * tiles_h * tiles_w * (c // LANES) for c in couts)
-    return TrunkPlan(n, tile_h, tile_w, stages, tiles_h, tiles_w, couts, items,
+    return TrunkPlan(n, tiles_h, tiles_w, couts, items,
                      min(sms, sum(items)), (d - 1) * (n * tiles_h * tiles_w + 1), n * h * w * cmid)
 
 
@@ -203,11 +187,9 @@ def pack_params(params: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     return [pack_weights(k) for k in params[0::2]]
 
 
-def _launch(x: torch.Tensor, params: Sequence[torch.Tensor], blocks: int, round_sum: bool,
-            variant: Optional[tuple[int, int]] = None) -> torch.Tensor:
-    """One cooperative launch on the weights repacked by `pack_params`: the
-    default variant, or `variant` from `conv_cuda.VARIANTS` (the bytes do
-    not depend on it)."""
+def _launch(x: torch.Tensor, params: Sequence[torch.Tensor], blocks: int,
+            round_sum: bool) -> torch.Tensor:
+    """One cooperative launch on the weights repacked by `pack_params`."""
     if x.device.type != "cuda":
         raise RuntimeError(f"the CUDA kernel needs a CUDA tensor, got {x.device}")
     from nu_scaler_tpu_torch.kernels import _build
@@ -216,7 +198,7 @@ def _launch(x: torch.Tensor, params: Sequence[torch.Tensor], blocks: int, round_
     n, h, w, cin = x.shape
     cmid, cout = params[0].shape[-1], params[-1].shape[0]
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    p = plan(n, h, w, blocks, cmid, cout, sms, variant or DEFAULT_VARIANT)
+    p = plan(n, h, w, blocks, cmid, cout, sms)
     packed = pack_params(params)
     acts = torch.empty((3, p.act_elems), dtype=torch.bfloat16, device=x.device)
     ready = torch.zeros(p.flags, dtype=torch.int32, device=x.device)
@@ -228,8 +210,7 @@ def _launch(x: torch.Tensor, params: Sequence[torch.Tensor], blocks: int, round_
     err = lib.nu_trunk_fused(
         x.device.index or 0, x.data_ptr(), ks, bs, n_layers,
         acts[0].data_ptr(), acts[1].data_ptr(), acts[2].data_ptr(), ready.data_ptr(),
-        out.data_ptr(), n, h, w, cin, cmid, cout, blocks, p.tile_w, p.stages, p.grid,
-        int(round_sum), stream,
+        out.data_ptr(), n, h, w, cin, cmid, cout, blocks, p.grid, int(round_sum), stream,
     )
     if err != 0:
         raise RuntimeError(f"trunk_fused launch failed: {lib.nu_cuda_error_string(err).decode()} ({err})")

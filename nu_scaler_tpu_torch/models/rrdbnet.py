@@ -59,8 +59,7 @@ bytes) with ``.unshuffle``, ``.first``, ``.body`` (``.rrdb`` with its
 ``index``, then ``.conv_body``), ``.upsample`` (``.up1``, ``.up2``, ``.hr``,
 ``.last``) and ``.pack``; the kernel's own ``nu.kernels.rrdb_conv`` under
 them. Counters: `launches` (``"rrdb_conv"``: calls of `rrdb_conv`, a launch
-each on a card; ``"conv"``: `F.conv2d` calls) and `glue_bytes` (bytes
-concatenated, none in this form), all zeroed by `reset_launches()`.
+each on a card; ``"conv"``: `F.conv2d` calls), zeroed by `reset_launches()`.
 """
 
 from __future__ import annotations
@@ -91,17 +90,13 @@ SLOPE = 0.2  # LeakyReLU's negative slope
 RES = 0.2  # the RDB's and the RRDB's residual scale
 
 # Since the last `reset_launches()`: `rrdb_conv` calls (a kernel launch each
-# on a card), `F.conv2d` calls, and the bytes the dense connections
-# concatenate (none: they live in growth buffers).
+# on a card) and `F.conv2d` calls.
 launches = {"rrdb_conv": 0, "conv": 0}
-glue_bytes = 0
 
 
 def reset_launches() -> None:
-    global glue_bytes
     for k in launches:
         launches[k] = 0
-    glue_bytes = 0
 
 
 def _conv(cin: int, cout: int) -> nn.Conv2d:

@@ -139,18 +139,10 @@ def test_pack_weights_index_map(rng, cin, cout):
     assert torch.equal(packed.permute(1, 2, 3, 0), k)
 
 
-@pytest.mark.parametrize("variant", [None, *cc.VARIANTS])
-def test_launch_on_cpu_raises(rng, variant):
+def test_launch_on_cpu_raises(rng):
     x, k, b = _inputs(rng, 1, 4, 4, 128, 128)
     with pytest.raises(RuntimeError, match="needs a CUDA tensor"):
-        cc._launch(x, k, b, False, True, variant)
-
-
-def test_launch_rejects_unknown_variant(rng):
-    x, k, b = _inputs(rng, 1, 4, 4, 128, 128)
-    assert cc.DEFAULT_VARIANT in cc.VARIANTS
-    with pytest.raises(ValueError, match="variant"):
-        cc._launch(x, k, b, False, True, (24, 4))
+        cc._launch(x, k, b, False, True)
 
 
 @pytest.mark.parametrize("cin, cout", [(192, 128), (128, 192), (64, 256)])

@@ -196,9 +196,8 @@ def test_spans_and_counters(model, frame):
     # 69 RDBs of 5 convs, conv_body and the three upsampling convs on the
     # growth-buffer kernel's wrapper; conv_first and conv_last on F.conv2d
     assert rrdbnet.launches == {"rrdb_conv": 69 * 5 + 1 + 3, "conv": 2}
-    assert rrdbnet.glue_bytes == 0  # nothing concatenated
     rrdbnet.reset_launches()
-    assert rrdbnet.launches == {"rrdb_conv": 0, "conv": 0} and rrdbnet.glue_bytes == 0
+    assert rrdbnet.launches == {"rrdb_conv": 0, "conv": 0}
 
 
 def test_newest_step_serves(tmp_path, monkeypatch, state):

@@ -176,7 +176,7 @@ def item_origin(p, layer: int, item: int) -> tuple[int, int, int, int]:
     t, ct = divmod(item, nct)
     img, tile = divmod(t, p.tiles_h * p.tiles_w)
     ty, tx = divmod(tile, p.tiles_w)
-    return img, ty * p.tile_h, tx * p.tile_w, ct * 128
+    return img, ty * tc.TILE, tx * tc.TILE, ct * 128
 
 
 def dealt(p, layer: int, block: int) -> range:
@@ -192,29 +192,29 @@ PLAN_SHAPES = [(1, 270, 480, 2, 256), (4, 270, 480, 2, 256), (1, 135, 240, 3, 10
                (4, 135, 240, 3, 1024), (4, 27, 40, 2, 256), (1, 27, 40, 3, 1024)]
 
 
-@pytest.mark.parametrize("variant", tc.VARIANTS)
 @pytest.mark.parametrize("n, h, w, blocks, cout", PLAN_SHAPES)
-def test_plan_deals_every_item_once_and_covers_the_frame(n, h, w, blocks, cout, variant):
+def test_plan_deals_every_item_once_and_covers_the_frame(n, h, w, blocks, cout):
     """Each layer's (image, tile, channel tile) items are dealt to the
     persistent blocks exactly once, every grid-th item of the layers'
     sequence to each, and each channel tile's tiles cover every position of
     every image exactly once (the overhang past the frame is the kernel's
     to mask)."""
-    p = tc.plan(n, h, w, blocks, 128, cout, 132, variant)
-    assert (p.tile_w, p.stages) == variant and p.tile_h * p.tile_w == 256
+    p = tc.plan(n, h, w, blocks, 128, cout, 132)
+    t = tc.TILE
+    assert t * t == 256
     for layer, c in enumerate(p.couts):
         first = sum(p.items[:layer])
         seen = np.concatenate([np.fromiter(dealt(p, layer, b), np.int64) for b in range(p.grid)])
         assert np.array_equal(np.sort(seen), np.arange(p.items[layer]))
         for b in (0, p.grid - 1):
             assert all((first + i) % p.grid == b for i in dealt(p, layer, b))
-        cover = np.zeros((c // 128, n, p.tiles_h * p.tile_h, p.tiles_w * p.tile_w), np.int64)
+        cover = np.zeros((c // 128, n, p.tiles_h * t, p.tiles_w * t), np.int64)
         for item in range(p.items[layer]):
             img, y0, x0, n0 = item_origin(p, layer, item)
             assert y0 < h and x0 < w and n0 % 128 == 0
-            cover[n0 // 128, img, y0:y0 + p.tile_h, x0:x0 + p.tile_w] += 1
+            cover[n0 // 128, img, y0:y0 + t, x0:x0 + t] += 1
         assert np.all(cover == 1)
-        assert p.tiles_h * p.tile_h - h < p.tile_h and p.tiles_w * p.tile_w - w < p.tile_w
+        assert p.tiles_h * t - h < t and p.tiles_w * t - w < t
 
 
 @pytest.mark.parametrize("n, h, w, blocks, cout", PLAN_SHAPES)
@@ -231,11 +231,6 @@ def test_plan_grid_flags_and_scratch(n, h, w, blocks, cout):
     assert p.grid == min(132, (d - 1 + cout // 128) * tiles) and p.flags == (d - 1) * (tiles + 1)
     assert p.act_elems == n * h * w * 128
     assert tc.plan(n, h, w, blocks, 128, cout, 4).grid == 4
-
-
-def test_plan_rejects_unknown_variants():
-    with pytest.raises(ValueError, match="variant"):
-        tc.plan(1, 270, 480, 2, 128, 256, 132, (16, 5))
 
 
 def test_pack_params_layout(rng):

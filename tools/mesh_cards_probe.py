@@ -52,8 +52,9 @@ def main() -> int:
     golden_a = cs.golden(torch, frames["a"], wv, wh).cpu().numpy()
     dev = torch.device("cuda", 0)
     with cs.Phase("4l mesh on every card"):
+        flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # time_ms's L2 flush
         counts, _ = cs.mesh_on_the_card(torch, cards[0], dev, frames, golden_a,
-                                        cs.bench_frame(*cs.SIZES["540p"]))
+                                        cs.bench_frame(*cs.SIZES["540p"]), flush)
         cs.check(torch.cuda.current_device() == 0, "a launch left the caller on another device")
     print(json.dumps({"ok": True, "cards": torch.cuda.device_count(), "launches": counts}))
     return 0

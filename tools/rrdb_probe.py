@@ -276,7 +276,7 @@ def frames_phase(cfg: dict, dev) -> None:
         out = s(img)
         torch.cuda.synchronize()
         emit(phase="frames", form=form, frame_ms=ms, memory_peak_bytes=torch.cuda.max_memory_allocated(dev),
-             glue_bytes=rrdbnet.glue_bytes if cat is None else cat.glue_bytes,
+             glue_bytes=0 if cat is None else cat.glue_bytes,
              launches=dict(rrdbnet.launches) if cat is None else {"conv": cat.convs + 2},
              out_sha=hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16])
         del s, cat
