@@ -3294,18 +3294,21 @@ def rrdb_on_the_card(torch, card, dev, rates: Rates, flush) -> dict:
       their slices of a 192-channel growth buffer, conv5 with the RDB's
       residual, conv5 with the RRDB's residual too (written over it, as the
       third RDB does), conv_body with f0, all at 540×960; conv_up1 at 1080p,
-      conv_up2 and conv_hr at 4K. Each against `rrdb_conv_plain` on the
-      same operands: every value within `rrdb_conv_cuda.ulp_tolerance`,
-      under 2% of them differing, every other channel of the buffers
-      untouched. Then its time beside the plain version's, `F.conv2d`'s
+      conv_up2 and conv_hr at 4K, on operands channel-blocked as
+      `RRDBServing` holds them (conv_body's f0 and conv_hr's output NHWC).
+      Each against `rrdb_conv_plain` on the same operands: every value
+      within `rrdb_conv_cuda.ulp_tolerance`, under 2% of them differing,
+      every other channel of the buffers untouched, the launch counted
+      "blocked". Then its time beside the plain version's, `F.conv2d`'s
       (cuDNN in fp16 on a channels-last copy of the prefix, its bias
       inside and no epilogue: the library's yardstick, which the port does
       not call here) and the bound (prefix, output and residuals read or
       written once in fp16, or the operations at the fp16 tensor rate, which
       is the bf16 one on these cards: `rates.bf16`), each timed on `flush`;
     - one frame through `RRDBServing` on seeded weights, its launches read
-      on their own (RRDB_FRAME_LAUNCHES of the kernel, 2 `F.conv2d`), and
-      against `rrdbnet_reference` in fp32 within RRDB_FRAME_GATE.
+      on their own (RRDB_FRAME_LAUNCHES of the kernel, every one on blocked
+      buffers, and 2 `F.conv2d`), and against `rrdbnet_reference` in fp32
+      within RRDB_FRAME_GATE.
 
     Returns the kernels line's row."""
     from nu_scaler_tpu_torch.kernels import _build
@@ -3326,45 +3329,53 @@ def rrdb_on_the_card(torch, card, dev, rates: Rates, flush) -> dict:
         return rcc.make_conv(k, torch.randn(cout, generator=gen, device=dev) * 0.1, dev, torch.float16)
 
     slope, res = dict(slope=rrdbnet.SLOPE), rrdbnet.RES
-    buf, nxt, f0 = randn(1, h, w, width), randn(1, h, w, width), randn(1, h, w, feat)
+
+    def blocked_randn(*shape):
+        return rcc.to_blocked(randn(*shape))
+
+    buf, nxt, f0 = blocked_randn(1, h, w, width), blocked_randn(1, h, w, width), randn(1, h, w, feat)
+    x, y = rcc.channel_slice(buf, 0, feat), rcc.channel_slice(nxt, 0, feat)
     c5 = conv(width, feat)
-    cases = {}  # name: (src, conv, out, epilogue, residual tensors read beside the prefix)
+    # name: (src, conv, (the output's tensor, its first channel, past its
+    # last), epilogue, residual tensors read beside the prefix); blocked as
+    # served, with conv_body's f0 and conv_hr's output NHWC
+    cases = {}
     for k in range(4):
         cin = feat + grow * k
-        cases[f"conv{k + 1}"] = (buf, conv(cin, grow), buf[..., cin:cin + grow], slope, 0)
-    cases["conv5"] = (buf, c5, nxt[..., :feat], dict(res=buf[..., :feat], res_scale=res), 0)
-    cases["conv5 rrdb"] = (buf, c5, nxt[..., :feat], dict(res=buf[..., :feat], res_scale=res,
-                                                          res2=nxt[..., :feat], res2_scale=res), 1)
-    cases["conv_body"] = (randn(1, h, w, feat), conv(feat, feat), torch.empty_like(f0), dict(res=f0), 1)
+        cases[f"conv{k + 1}"] = (buf, conv(cin, grow), (buf, cin, cin + grow), slope, 0)
+    cases["conv5"] = (buf, c5, (nxt, 0, feat), dict(res=x, res_scale=res), 0)
+    cases["conv5 rrdb"] = (buf, c5, (nxt, 0, feat), dict(res=x, res_scale=res, res2=y, res2_scale=res), 1)
+    cases["conv_body"] = (blocked_randn(1, h, w, feat), conv(feat, feat),
+                          (rcc.blocked(1, h, w, feat, torch.float16, dev), 0, feat), dict(res=f0), 1)
     for name, s in (("conv_up1", 2), ("conv_up2", 4), ("conv_hr", 4)):
-        u = randn(1, s * h, s * w, feat)
-        cases[name] = (u, conv(feat, feat), torch.empty_like(u), slope, 0)
-
-    def whole(t):
-        return t if t._base is None else t._base
+        u = blocked_randn(1, s * h, s * w, feat)
+        o = (torch.empty(1, s * h, s * w, feat, dtype=torch.float16, device=dev) if name == "conv_hr"
+             else rcc.blocked(1, s * h, s * w, feat, torch.float16, dev))
+        cases[name] = (u, conv(feat, feat), (o, 0, feat), slope, 0)
+    del o
 
     regs = ptxas_registers(_build.BUILD_LOGS.get("rrdb_conv", ""), r"rrdb_conv_kernelILi\d+ELb\dELi\dE")
     shapes, max_err, check_launches = {}, 0.0, 0
-    for name, (src, cv, out, epi, extra) in cases.items():
+    for name, (src, cv, (owner, lo, hi), epi, extra) in cases.items():
+        out = rcc.channel_slice(owner, lo, hi)
         n_, h_, w_ = src.shape[:3]
         key = f"{name} {n_}x{h_}x{w_} {cv.cin}->{cv.cout}"
         plain = rcc.rrdb_conv_plain(src, cv, torch.empty(out.shape, dtype=out.dtype, device=dev), **epi)
-        before_src, before_out = src.clone(), whole(out).clone()
+        before_src, before_out = src.clone(), rcc.to_nhwc(owner).clone()
         rcc.reset_launches()
         got = rcc.rrdb_conv(src, cv, out, **epi)
         torch.cuda.synchronize()
-        check(rcc.launches["rrdb_conv"] == 1, f"rrdb_conv [{key}]: launches {rcc.launches}")
+        check(rcc.launches == {"rrdb_conv": 1, "blocked": 1}, f"rrdb_conv [{key}]: launches {rcc.launches}")
         check_launches += 1
         tol = rcc.ulp_tolerance(src, cv, plain.float(), epi.get("res_scale", 1.0), epi.get("res2_scale", 1.0))
         d = (got.float() - plain.float()).abs()
         worst, differ = float((d / tol).max()), float((got != plain).float().mean())
         check(worst <= 1.0 and differ < 0.02,
               f"rrdb_conv [{key}]: {worst:.3g} of the tolerance, {100 * differ:.3g}% of values differ")
-        lo = (out.storage_offset() - whole(out).storage_offset()) % whole(out).shape[-1]
-        keep = torch.ones(whole(out).shape[-1], dtype=torch.bool, device=dev)
-        keep[lo:lo + out.shape[-1]] = False
-        check(torch.equal(whole(out)[..., keep], before_out[..., keep])
-              and (whole(out) is src or torch.equal(src, before_src)),
+        keep = torch.ones(rcc.channels(owner), dtype=torch.bool, device=dev)
+        keep[lo:hi] = False
+        check(torch.equal(rcc.to_nhwc(owner)[..., keep], before_out[..., keep])
+              and (owner is src or torch.equal(src, before_src)),
               f"rrdb_conv [{key}]: a channel outside its output slice changed")
         max_err = max(max_err, float(d.max()))
         del plain, before_src, before_out, tol, d
@@ -3372,7 +3383,8 @@ def rrdb_on_the_card(torch, card, dev, rates: Rates, flush) -> dict:
         ops = 2 * 9 * cv.cin * cv.cout * positions
         moved = 2 * positions * (cv.cin + cv.cout * (1 + extra)) + 2 * cv.weight.numel() + 4 * cv.cout
         b_ms, b_by = bound(moved, ops, rates.mem_bw, rates.bf16)
-        xc = src[..., :cv.cin].permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        xc = rcc.to_nhwc(rcc.channel_slice(src, 0, cv.cin)).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
         wc = cv.weight.contiguous(memory_format=torch.channels_last)
         bc = cv.bias.to(torch.float16)
         ms = time_ms(torch, lambda: rcc.rrdb_conv(src, cv, out, **epi), flush)
@@ -3387,7 +3399,7 @@ def rrdb_on_the_card(torch, card, dev, rates: Rates, flush) -> dict:
             f"ptxas {ptxas})")
         shapes[key] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": b_ms,
                        "bound_by": b_by, "of_tolerance": worst, "differing": differ, "ptxas": ptxas}
-    del cases, buf, nxt, f0, c5, u
+    del cases, buf, nxt, x, y, f0, c5, u, out, got
     torch.cuda.empty_cache()
 
     # one served frame on seeded weights: the RDBs' convs Kaiming normal (at
@@ -3410,9 +3422,10 @@ def rrdb_on_the_card(torch, card, dev, rates: Rates, flush) -> dict:
     got = serving(img[None])[0]
     torch.cuda.synchronize()
     frame_launches = {"rrdb_conv_cuda": dict(rcc.launches), "rrdbnet": dict(rrdbnet.launches)}
-    check(rcc.launches["rrdb_conv"] == RRDB_FRAME_LAUNCHES
+    check(rcc.launches == {"rrdb_conv": RRDB_FRAME_LAUNCHES, "blocked": RRDB_FRAME_LAUNCHES}
           and rrdbnet.launches == {"rrdb_conv": RRDB_FRAME_LAUNCHES, "conv": 2},
-          f"RRDBServing 1080p -> 4K: launches {frame_launches}, want {RRDB_FRAME_LAUNCHES} rrdb_conv and 2 conv")
+          f"RRDBServing 1080p -> 4K: launches {frame_launches}, want {RRDB_FRAME_LAUNCHES} rrdb_conv, "
+          f"every one blocked, and 2 conv")
     want = rref.upscale(img, model.state_dict())
     d = (got.to(torch.int16) - want.to(torch.int16)).abs()
     lsb_max, differ = int(d.max()), float(d.bool().float().mean())
@@ -3427,7 +3440,7 @@ def rrdb_on_the_card(torch, card, dev, rates: Rates, flush) -> dict:
         "launches": check_launches + RRDB_FRAME_LAUNCHES, "launches_frame": RRDB_FRAME_LAUNCHES,
         "max_abs_err": max_err, **main,
         "inputs": f"seeded fp16 operands, conv5 of an RDB: 1x{h}x{w}x{width} -> {feat} with the RDB's "
-                  f"residual (the body's grid of 1080p -> 4K)",
+                  f"residual (the body's grid of 1080p -> 4K), channel-blocked as served",
         "max_abs_err_units": "fp16 value against rrdb_conv_plain, every value within rrdb_conv_cuda.ulp_tolerance",
         "frame_vs_fp32_reference": {"max_lsb": lsb_max, "differing": differ},
         "shapes": shapes,

@@ -115,10 +115,13 @@ SIGNATURES = {
     },
     "rrdb_conv": {
         "nu_rrdb_conv": [
-            _INT, _VP, _INT, _INT, _INT, _INT, _INT,  # device, x, n, h, w, c_total, cin
-            _VP, _VP, _INT, _VP, _INT,  # packed weights, bias, cout, out, out_stride
+            _INT, _VP, _INT, _INT, _INT,  # device, x and its image, plane and position strides
+            _INT, _INT, _INT, _INT, _INT,  # n, h, w, c_total, cin
+            _VP, _VP, _INT,  # packed weights, bias, cout
+            _VP, _INT, _INT, _INT,  # out and its strides
             _INT, _F32,  # lrelu, slope
-            _VP, _INT, _F32, _VP, _INT, _F32,  # r1, r1_stride, s1, r2, r2_stride, s2
+            _VP, _INT, _INT, _INT, _F32,  # r1, its strides, s1
+            _VP, _INT, _INT, _INT, _F32,  # r2, its strides, s2
             _VP,  # stream
         ],
     },

@@ -1,19 +1,28 @@
 // The 3x3 SAME conv of RRDBNet's dense blocks in fp16 on the tensor cores,
-// for Hopper (sm_90a): it reads its input as a channel prefix of an NHWC
-// buffer in place, writes its output into a channel slice of a buffer, and
-// applies the bias, LeakyReLU and up to two scaled residual adds in its
-// epilogue.
+// for Hopper (sm_90a): it reads its input as a channel prefix of a buffer in
+// place, writes its output into a channel slice of a buffer, and applies the
+// bias, LeakyReLU and up to two scaled residual adds in its epilogue.
 //
 // Replaces no TPU kernel: the JAX package has no RRDBNet. It replaces cuDNN
 // (F.conv2d) on models/rrdbnet.py's serving path, with the concatenations of
 // the dense connections and the separate bias, LeakyReLU and residual passes
 // around each library conv.
 //
+// Layout. Every fp16 operand (x, out, r1, r2) is addressed by three strides
+// in elements, an image's, an 8-channel plane's and a position's: channel c
+// of position p = y * W + x of image n sits at
+//   n * img + p * pos + (c / 8) * plane + c % 8.
+// NHWC [N, H, W, C] is plane = 8, pos = C (a channel slice's C is its
+// buffer's); the channel-blocked layout [N, C/8, H, W, 8], in which
+// RRDBServing holds its growth buffers, is plane = H * W * 8, pos = 8.
+// Blocked, a halo row of one plane is one contiguous run (66 positions,
+// 1,056 bytes); in NHWC its positions' 16 bytes lie 2C bytes apart.
+//
 // What it computes (the function of rrdb_conv_cuda.rrdb_conv_plain). Input x
-// fp16 [N, H, W, C] (positions C elements apart), of which channels 0 ..
-// cin - 1 are read; packed weights (rrdb_conv_cuda.pack_weights) of an OIHW
-// conv [Cout, cin, 3, 3]; an fp32 bias [Cout]. Per output position and
-// channel, with zero outside the frame (SAME):
+// fp16 [N, H, W, C] in either layout, of which channels 0 .. cin - 1 are
+// read; packed weights (rrdb_conv_cuda.pack_weights) of an OIHW conv [Cout,
+// cin, 3, 3]; an fp32 bias [Cout]. Per output position and channel, with
+// zero outside the frame (SAME):
 //   v = sum_{dy, dx, c} x[n, y+dy-1, x+dx-1, c] * k[o, c, dy, dx] + bias[o]
 //   v = lrelu ? (v < 0 ? v * slope : v) : v
 //   v = r1 ? r1[p, o] + s1 * v : v
@@ -21,9 +30,9 @@
 //   out[p, o] = fp16_rn(v)
 // Products and sums in fp32 (the tensor cores' fp16 products are exact), the
 // epilogue's multiplies and adds each rounded in fp32 (no FMA), one rounding
-// to fp16 at the end. out, r1 and r2 are [N, H, W, *] views with their own
-// position strides; out may be r2 (each element is read, then written, by
-// one thread), never a channel that the conv reads. RRDBNet calls it as
+// to fp16 at the end. out, r1 and r2 are [N, H, W, Cout] views with strides
+// of their own; out may be r2 (each element is read, then written, by one
+// thread), never a channel that the conv reads. RRDBNet calls it as
 //   conv k = 1..4 of an RDB: channels [0, 64 + 32(k-1)) of the RDB's buffer
 //     in, its 32 channels [64 + 32(k-1), 64 + 32k) out, LeakyReLU 0.2;
 //   conv5: all 192 channels in, 64 out (the next RDB's buffer), r1 = x (the
@@ -55,25 +64,40 @@
 //    tap (dy, dx) for tile row r is the descriptor at halo position
 //    (r + dy) * 66 + dx: the nine shifted windows are address offsets,
 //    nothing is copied.
-//  * Every thread loads its share of each item by 16-byte cp.async (a
-//    lane pair a position's 32 bytes; src-size 0 outside the frame: SAME's
-//    zeros) into a ring of Layout::kStages stages: at item i the block
-//    loads item i + kStages - 2 into the stage of item i - 2, whose wgmmas
-//    retired, and one __syncthreads an item orders both.
-//  * What was measured on the way (PERF.md, section 6; H100, conv5 at 540 x
-//    960): TMA boxes of these planes move 16-byte rows 2C bytes apart, about
-//    one every 3.3 cycles a SM, which left the loads 70% of the time; by
-//    cp.async the loads alone take ~0.19 ms whether they hit L2 or not, the
-//    wgmmas alone ~0.25 ms, both ~0.31 ms. Deeper rings, two blocks of half
-//    the rows, prefetch hints and 64-byte halo rows did not beat this.
+//  * Every thread loads its share of each item by 16-byte cp.async
+//    (src-size 0 outside the frame: SAME's zeros) into a ring of
+//    Layout::kStages stages: at item i the block loads item i + kStages - 2
+//    into the stage of item i - 2, whose wgmmas retired, and one
+//    __syncthreads an item orders both. Consecutive threads copy
+//    consecutive positions of one plane's halo row, so on a blocked input
+//    a warp's 32 copies are 512 contiguous bytes, in global memory as in the
+//    stage. An NHWC input takes the same walk (its 16-byte pieces lie 2C
+//    bytes apart: correct, and as slow as the request count makes it; no
+//    served launch reads NHWC).
+//  * Why the layout and not TMA (PERF.md, section 6; H100, 540 x 960): on
+//    NHWC a warp's copies touch 16 lines, 32 bytes of each, and TMA boxes of
+//    these planes moved one 16-byte row (2C bytes from the next) every ~3.3
+//    cycles a SM: both routes were bound by the number of requests, not by
+//    bytes, so L2 hits did not help. TMA boxes of 64-channel rows would need
+//    stages of 84.5 KB of halo. Blocked, the same cp.async loads walk whole
+//    lines: with the epilogue cut out, conv1 takes 0.053 -> 0.044 ms and
+//    conv5 0.131 -> 0.108 (its operations' bound is 0.116 at the published
+//    peak; the card ran at 1,980 MHz).
 //  * The epilogue reads the accumulators in registers (each thread holds two
 //    neighbouring channels of 8 positions a row) and stores fp16 pairs
-//    straight into the output slice; the residuals are read at the same
-//    positions. Which of LeakyReLU and the residuals apply is a template
-//    parameter, and a thread's halo source offsets are worked out once a
-//    tile: the SASS of a first version spent ~100 instructions a stored
-//    pair and ~80 a halo copy, as many issue slots an item as its wgmmas'
-//    tensor time.
+//    straight into the output slice (blocked: a warp's pairs of one plane
+//    are 128 contiguous bytes); the residuals are read at the same
+//    positions, all eight channel blocks of a position group before its
+//    first store, since out may be r2 and a load after a store waits for it
+//    (blocked, each block is its own line: one round trip a block). Which of
+//    LeakyReLU and the residuals apply is a template parameter, and a
+//    thread's halo source offsets are worked out once a tile: the SASS of a
+//    first version spent ~100 instructions a stored pair and ~80 a halo
+//    copy, as many issue slots an item as its wgmmas' tensor time.
+//  * What bounds it now is the epilogue at Cout 64: one block a SM, so the
+//    tensor cores idle while it stores (conv5 0.27 ms, 0.11 without it).
+//    Prefetching r1 into shared memory by cp.async (a ring of four stages)
+//    or tiles of four rows at two blocks a SM each saved ~0.025 ms of it.
 // Every output sums its 9 * cin products in one order: chunk by chunk (16
 // channels, one wgmma a tap), tap by tap.
 
@@ -95,7 +119,7 @@ constexpr int kHaloW = kTW + 2;
 constexpr int kHaloPos = (kTH + 2) * kHaloW;
 constexpr int kKC = 16;                      // input channels of a chunk: one wgmma a tap
 constexpr int kPlanes = kKC / 8;             // 8-channel planes of a chunk
-constexpr int kPlaneBytes = (kHaloPos * 16 + 127) / 128 * 128;  // 128-byte aligned
+constexpr int kPlaneBytes = kHaloPos * 16;   // a plane: the positions' 16 bytes each
 constexpr int kHaloBytes = kPlanes * kPlaneBytes;
 
 template <int COUT>
@@ -114,18 +138,26 @@ struct Layout {
   static_assert(kAhead >= 1, "the ring needs an item landing beside the one in flight");
 };
 
+// An operand's strides in elements (the header's layout): an image's, an
+// 8-channel plane's, a position's.
+struct Strides {
+  int img;
+  int plane;
+  int pos;
+};
+
 // The epilogue's operands; which of them apply is the kernel's LRELU and
 // NRES (0: none, 1: r1, 2: r1 then r2).
 struct Epilogue {
   const float* bias;  // fp32 [Cout]
-  __half* out;        // the output slice; positions out_stride elements apart
-  int out_stride;
+  __half* out;        // the output slice
+  Strides o;
   float slope;
   const __half* r1;
-  int r1_stride;
+  Strides t1;
   float s1;
   const __half* r2;
-  int r2_stride;
+  Strides t2;
   float s2;
 };
 
@@ -222,8 +254,8 @@ __device__ __forceinline__ float finish(float sum, float bias, const Epilogue& e
 
 template <int COUT, bool LRELU, int NRES>
 __global__ void __launch_bounds__(kThreads, Layout<COUT>::kBlocks)
-rrdb_conv_kernel(const __half* __restrict__ src, int c_total, const __half* __restrict__ wp, const Epilogue ep,
-                 int n, int h, int w, int cin, int tiles_w, int tiles_h) {
+rrdb_conv_kernel(const __half* __restrict__ src, const Strides xs, const __half* __restrict__ wp,
+                 const Epilogue ep, int n, int h, int w, int cin, int tiles_w, int tiles_h) {
   using L = Layout<COUT>;
   constexpr int S = L::kStages;
   extern __shared__ unsigned char smem_raw[];
@@ -244,10 +276,13 @@ rrdb_conv_kernel(const __half* __restrict__ src, int c_total, const __half* __re
     y0 = (t % tiles_h) * kTH;
     ni = t / tiles_h;
   };
-  // this thread's halo slots i = tid + kThreads * j: position i / 2, plane
-  // i % 2; their element offsets in the image of the tile being loaded
-  // (-1 outside the frame), worked out once a tile
+  // this thread's halo slots i = tid + kThreads * j: position i % kHaloPos
+  // of plane i / kHaloPos (a warp walks one plane's rows), at byte i * 16 of
+  // a stage (plane after plane, position after position); their element
+  // offsets in the image of the tile being loaded (-1 outside the frame),
+  // worked out once a tile
   constexpr int kSlots = (kHaloPos * kPlanes + kThreads - 1) / kThreads;
+  const int chunk_stride = kPlanes * xs.plane;  // elements from one chunk to the next
   int hoff[kSlots];
   const __half* img = src;
   int loaded_tile = -1;
@@ -256,12 +291,13 @@ rrdb_conv_kernel(const __half* __restrict__ src, int c_total, const __half* __re
       loaded_tile = it / nch;
       int ni, y0, x0;
       tile_of(it, ni, y0, x0);
-      img = src + static_cast<size_t>(ni) * h * w * c_total;
+      img = src + static_cast<size_t>(ni) * xs.img;
 #pragma unroll
       for (int j = 0; j < kSlots; ++j) {
-        const int i = tid + kThreads * j, pos = i / kPlanes;
+        const int i = tid + kThreads * j;
+        const int pos = i % kHaloPos, plane = i / kHaloPos;
         const int gy = y0 - 1 + pos / kHaloW, gx = x0 - 1 + pos % kHaloW;
-        hoff[j] = gy >= 0 && gy < h && gx >= 0 && gx < w ? (gy * w + gx) * c_total + (i % kPlanes) * 8 : -1;
+        hoff[j] = gy >= 0 && gy < h && gx >= 0 && gx < w ? (gy * w + gx) * xs.pos + plane * xs.plane : -1;
       }
     }
     const int q = it % nch;
@@ -270,8 +306,8 @@ rrdb_conv_kernel(const __half* __restrict__ src, int c_total, const __half* __re
     for (int j = 0; j < kSlots; ++j) {
       const int i = tid + kThreads * j;
       if (i < kHaloPos * kPlanes) {
-        cp_async16(st + (i % kPlanes) * kPlaneBytes + (i / kPlanes) * 16,
-                   hoff[j] >= 0 ? img + hoff[j] + q * kKC : src, hoff[j] >= 0 ? 16u : 0u);
+        cp_async16(st + i * 16, hoff[j] >= 0 ? img + hoff[j] + q * chunk_stride : src,
+                   hoff[j] >= 0 ? 16u : 0u);
       }
     }
     const __half* wq = wp + static_cast<size_t>(q) * (L::kWBytes / 2);
@@ -327,19 +363,26 @@ rrdb_conv_kernel(const __half* __restrict__ src, int c_total, const __half* __re
       for (int hh = 0; hh < 2; ++hh) {
         const int x = x0 + wr * 16 + (lane >> 2) + hh * 8;
         if (y >= h || x >= w) continue;
-        const size_t p = (static_cast<size_t>(ni) * h + y) * w + x;
-        const int c = (lane & 3) * 2;
-        __half* out = ep.out + p * ep.out_stride + c;
-        const __half* r1 = NRES >= 1 ? ep.r1 + p * ep.r1_stride + c : nullptr;
-        const __half* r2 = NRES >= 2 ? ep.r2 + p * ep.r2_stride + c : nullptr;
+        const int p = y * w + x, c = (lane & 3) * 2;
+        __half* out = ep.out + static_cast<size_t>(ni) * ep.o.img + p * ep.o.pos + c;
+        const __half* r1 = NRES >= 1 ? ep.r1 + static_cast<size_t>(ni) * ep.t1.img + p * ep.t1.pos + c : nullptr;
+        const __half* r2 = NRES >= 2 ? ep.r2 + static_cast<size_t>(ni) * ep.t2.img + p * ep.t2.pos + c : nullptr;
+        // every residual pair first, then the stores: out may be r2, so a
+        // load after a store would wait for it, a round trip a channel block
+        __half2 h1[COUT / 8], h2[COUT / 8];
+#pragma unroll
+        for (int nb = 0; nb < COUT / 8; ++nb) {
+          if (NRES >= 1) h1[nb] = *reinterpret_cast<const __half2*>(r1 + nb * ep.t1.plane);
+          if (NRES >= 2) h2[nb] = *reinterpret_cast<const __half2*>(r2 + nb * ep.t2.plane);
+        }
 #pragma unroll
         for (int nb = 0; nb < COUT / 8; ++nb) {
           float2 a1 = make_float2(0.0f, 0.0f), a2 = a1;
-          if (NRES >= 1) a1 = __half22float2(*reinterpret_cast<const __half2*>(r1 + nb * 8));
-          if (NRES >= 2) a2 = __half22float2(*reinterpret_cast<const __half2*>(r2 + nb * 8));
+          if (NRES >= 1) a1 = __half22float2(h1[nb]);
+          if (NRES >= 2) a2 = __half22float2(h2[nb]);
           const float v0 = finish<LRELU, NRES>(acc[i][4 * nb + 2 * hh], bias[nb].x, ep, a1.x, a2.x);
           const float v1 = finish<LRELU, NRES>(acc[i][4 * nb + 2 * hh + 1], bias[nb].y, ep, a1.y, a2.y);
-          *reinterpret_cast<__half2*>(out + nb * 8) = __floats2half2_rn(v0, v1);
+          *reinterpret_cast<__half2*>(out + nb * ep.o.plane) = __floats2half2_rn(v0, v1);
         }
       }
     }
@@ -347,7 +390,7 @@ rrdb_conv_kernel(const __half* __restrict__ src, int c_total, const __half* __re
 }
 
 template <int COUT, bool LRELU, int NRES>
-int launch(int device, const void* x, int n, int h, int w, int c_total, int cin, const void* wp,
+int launch(int device, const void* x, const Strides& xs, int n, int h, int w, int cin, const void* wp,
            const Epilogue& ep, cudaStream_t stream) {
   using L = Layout<COUT>;
   auto kernel = rrdb_conv_kernel<COUT, LRELU, NRES>;
@@ -360,7 +403,7 @@ int launch(int device, const void* x, int n, int h, int w, int c_total, int cin,
   const long long tiles = static_cast<long long>(tiles_w) * tiles_h * n;
   const long long slots = static_cast<long long>(sms) * L::kBlocks;
   const int grid = static_cast<int>(tiles < slots ? tiles : slots);
-  kernel<<<grid, kThreads, L::kSmem, stream>>>(static_cast<const __half*>(x), c_total,
+  kernel<<<grid, kThreads, L::kSmem, stream>>>(static_cast<const __half*>(x), xs,
                                                static_cast<const __half*>(wp), ep, n, h, w, cin, tiles_w,
                                                tiles_h);
   return static_cast<int>(cudaGetLastError());
@@ -368,49 +411,64 @@ int launch(int device, const void* x, int n, int h, int w, int c_total, int cin,
 
 // the epilogues RRDBNet's convs use: LeakyReLU (conv1-4, the upsampling
 // convs), one residual (conv5, conv_body), two (an RRDB's last conv5)
-int dispatch(int device, const void* x, int n, int h, int w, int c_total, int cin, const void* wp,
+int dispatch(int device, const void* x, const Strides& xs, int n, int h, int w, int cin, const void* wp,
              int cout, const Epilogue& ep, int lrelu, int nres, cudaStream_t s) {
   if (lrelu && nres == 0) {
-    return cout == 32 ? launch<32, true, 0>(device, x, n, h, w, c_total, cin, wp, ep, s)
-                      : launch<64, true, 0>(device, x, n, h, w, c_total, cin, wp, ep, s);
+    return cout == 32 ? launch<32, true, 0>(device, x, xs, n, h, w, cin, wp, ep, s)
+                      : launch<64, true, 0>(device, x, xs, n, h, w, cin, wp, ep, s);
   }
-  if (!lrelu && cout == 64 && nres == 1) return launch<64, false, 1>(device, x, n, h, w, c_total, cin, wp, ep, s);
-  if (!lrelu && cout == 64 && nres == 2) return launch<64, false, 2>(device, x, n, h, w, c_total, cin, wp, ep, s);
+  if (!lrelu && cout == 64 && nres == 1) return launch<64, false, 1>(device, x, xs, n, h, w, cin, wp, ep, s);
+  if (!lrelu && cout == 64 && nres == 2) return launch<64, false, 2>(device, x, xs, n, h, w, cin, wp, ep, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 bool aligned(const void* p, uintptr_t bytes) { return reinterpret_cast<uintptr_t>(p) % bytes == 0; }
+
+// whether an operand of c channels at p, `bytes`-aligned, has strides of
+// one of the two layouts (NHWC: planes 8 apart, positions past the channels;
+// blocked: positions 8 apart, planes past an image's positions), one image
+// within an int's offsets, images past one another
+bool view_ok(const void* p, uintptr_t bytes, const Strides& s, int n, int h, int w, int c) {
+  const long long hw = static_cast<long long>(h) * w;
+  const bool nhwc = s.plane == 8 && s.pos >= c && s.pos % 8 == 0;
+  const bool blocked = s.pos == 8 && s.plane >= 8 * hw && s.plane % 8 == 0;
+  const long long extent = (hw - 1) * s.pos + static_cast<long long>(c / 8 - 1) * s.plane + 8;
+  return aligned(p, bytes) && c % 8 == 0 && (nhwc || blocked) && extent <= 0x7fffffffLL &&
+         (n == 1 || s.img >= extent);
+}
 
 }  // namespace
 
 extern "C" {
 
 // The conv: x fp16 [n, h, w, c_total] (channels 0 .. cin - 1 read), wp the
-// packed fp16 weights, bias fp32 [cout], out an fp16 [n, h, w, cout] view
-// with positions out_stride elements apart; r1 / r2 fp16 views like out, or
-// NULL; the epilogue one of dispatch's. Returns 0 on success, else a
+// packed fp16 weights, bias fp32 [cout], out an fp16 [n, h, w, cout] view;
+// r1 / r2 fp16 views like out, or NULL; each view given by its image, plane
+// and position strides in elements (the header's layout), either layout for
+// each; the epilogue one of dispatch's. Returns 0 on success, else a
 // cudaError_t code (see nu_cuda_error_string).
-int nu_rrdb_conv(int device, const void* x, int n, int h, int w, int c_total, int cin, const void* wp,
-                 const float* bias, int cout, void* out, int out_stride, int lrelu, float slope,
-                 const void* r1, int r1_stride, float s1, const void* r2, int r2_stride, float s2,
-                 void* stream) {
-  const bool bad_views = !aligned(out, 4) || out_stride % 2 || out_stride < cout ||
-                         (r1 && (!aligned(r1, 4) || r1_stride % 2 || r1_stride < cout)) ||
-                         (r2 && (!aligned(r2, 4) || r2_stride % 2 || r2_stride < cout)) || (r2 && !r1);
-  if (n < 1 || h < 1 || w < 1 || cin < kKC || cin % kKC || cin > c_total || c_total % 8 ||
-      (cout != 32 && cout != 64) || !aligned(x, 16) || !aligned(wp, 16) || bias == nullptr || !aligned(bias, 8) ||
-      bad_views || static_cast<long long>(h) * w * c_total > 0x7fffffffLL ||
+int nu_rrdb_conv(int device, const void* x, int x_img, int x_plane, int x_pos, int n, int h, int w,
+                 int c_total, int cin, const void* wp, const float* bias, int cout,
+                 void* out, int out_img, int out_plane, int out_pos, int lrelu, float slope,
+                 const void* r1, int r1_img, int r1_plane, int r1_pos, float s1,
+                 const void* r2, int r2_img, int r2_plane, int r2_pos, float s2, void* stream) {
+  const Strides xs{x_img, x_plane, x_pos}, os{out_img, out_plane, out_pos};
+  const Strides t1{r1_img, r1_plane, r1_pos}, t2{r2_img, r2_plane, r2_pos};
+  if (n < 1 || h < 1 || w < 1 || cin < kKC || cin % kKC || cin > c_total || (cout != 32 && cout != 64) ||
+      !view_ok(x, 16, xs, n, h, w, c_total) || !view_ok(out, 4, os, n, h, w, cout) ||
+      (r1 && !view_ok(r1, 4, t1, n, h, w, cout)) || (r2 && !view_ok(r2, 4, t2, n, h, w, cout)) ||
+      (r2 && !r1) || !aligned(wp, 16) || bias == nullptr || !aligned(bias, 8) ||
       static_cast<long long>((w + kTW - 1) / kTW) * h * n > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const DeviceGuard guard(device);
   if (guard.error != cudaSuccess) return static_cast<int>(guard.error);
-  const Epilogue ep{bias, static_cast<__half*>(out), out_stride, slope,
-                    static_cast<const __half*>(r1), r1_stride, s1,
-                    static_cast<const __half*>(r2), r2_stride, s2};
+  const Epilogue ep{bias, static_cast<__half*>(out), os, slope,
+                    static_cast<const __half*>(r1), t1, s1,
+                    static_cast<const __half*>(r2), t2, s2};
   const int nres = r2 ? 2 : r1 ? 1 : 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dispatch(device, x, n, h, w, c_total, cin, wp, cout, ep, lrelu, nres, s);
+  return dispatch(device, x, xs, n, h, w, cin, wp, cout, ep, lrelu, nres, s);
 }
 
 const char* nu_cuda_error_string(int code) {

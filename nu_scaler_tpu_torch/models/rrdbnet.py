@@ -31,10 +31,12 @@ The alpha plane is resized on its own, as `UnfusedServing` resizes it, where
 upstream runs a second upscaler (``--alpha_upsampler``); the links' frames
 are opaque.
 
-The dense connections live in growth buffers: one NHWC buffer of
+The dense connections live in growth buffers: one buffer of
 ``num_feat + 4·num_grow_ch`` channels (192) per RDB, whose first 64 channels
-hold the RDB's input. Every conv of the body, `conv_body` and the three
-upsampling convs run on `kernels/rrdb_conv_cuda.py` `rrdb_conv`
+hold the RDB's input, channel-blocked (`rrdb_conv_cuda.blocked`: memory
+``[N, C/8, H, W, 8]``, so that each row of an 8-channel plane that the
+kernel loads is contiguous). Every conv of the body, `conv_body` and the
+three upsampling convs run on `kernels/rrdb_conv_cuda.py` `rrdb_conv`
 (`csrc/rrdb_conv.cu` on a card, its plain version on the CPU): conv k reads
 the buffer's channel prefix in place and writes its 32 channels into their
 slice, with the bias and LeakyReLU in its epilogue; conv5 reads all 192 and
@@ -45,7 +47,12 @@ RDB3 c → a, where a holds the RRDB's input ``x0``), so nothing is
 concatenated and no bias, activation or residual runs as a pass of its own.
 Each conv's epilogue rounds once to fp16, where the library conv rounded its
 sum and each later pass rounded again. `conv_first` (12 → 64) and
-`conv_last` (64 → 3) stay on `F.conv2d` (cuDNN) with its bias.
+`conv_last` (64 → 3) stay on `F.conv2d` (cuDNN) with its bias, on NHWC:
+`conv_first`'s output goes into buffer a by the copy that seeds it, and
+`conv_body` adds it as an NHWC residual; `conv_body`, the nearest
+upsampling (`upsample2x`, on the planes as a batch) and the first two
+upsampling convs keep the blocked layout, and `conv_hr` writes NHWC for
+`conv_last`.
 
 Weights are the port's npz + JSON sidecar format (`esrgan_lite.read_weights`)
 under BasicSR's names (OIHW), ``esrgan_rrdbnet_x{scale}_{step}.npz``, found
@@ -59,7 +66,8 @@ bytes) with ``.unshuffle``, ``.first``, ``.body`` (``.rrdb`` with its
 ``index``, then ``.conv_body``), ``.upsample`` (``.up1``, ``.up2``, ``.hr``,
 ``.last``) and ``.pack``; the kernel's own ``nu.kernels.rrdb_conv`` under
 them. Counters: `launches` (``"rrdb_conv"``: calls of `rrdb_conv`, a launch
-each on a card; ``"conv"``: `F.conv2d` calls), zeroed by `reset_launches()`.
+each on a card; ``"conv"``: `F.conv2d` calls), zeroed by `reset_launches()`;
+the kernel's own (`rrdb_conv_cuda.launches`) counts its blocked inputs.
 """
 
 from __future__ import annotations
@@ -78,7 +86,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from nu_scaler_tpu_torch.device import resolve_device
-from nu_scaler_tpu_torch.kernels.rrdb_conv_cuda import Conv, make_conv, rrdb_conv
+from nu_scaler_tpu_torch.kernels.rrdb_conv_cuda import (Conv, blocked, channel_slice, channels, make_conv,
+                                                        rrdb_conv, to_blocked, upsample2x)
 from nu_scaler_tpu_torch.models import esrgan_lite
 from nu_scaler_tpu_torch.ops.image_resize import image_resize
 from nu_scaler_tpu_torch.utils.tracing import span
@@ -248,37 +257,38 @@ class RRDBServing:
 
     def rdb(self, buf: torch.Tensor, convs: list, out: torch.Tensor,
             x0: Optional[torch.Tensor] = None) -> None:
-        """One RDB on its growth buffer `buf` [N, h, w, 192], whose first
-        channels hold its input x: ``x_k = lr(c_k(buf[..., :64 + 32(k-1)]))``
+        """One RDB on its blocked growth buffer `buf` (192 channels), whose
+        first channels hold its input x: ``x_k = lr(c_k(buf[:64 + 32(k-1)]))``
         into channels ``64 + 32(k-1) ..``, then ``x + 0.2·c5(buf)`` into
         `out`, or ``x0 + 0.2·(x + 0.2·c5(buf))`` with `x0` (the RRDB's
         residual; `out` may be x0)."""
-        lo = out.shape[-1]
+        lo = channels(out)
         for conv in convs[:4]:
-            self._k(buf, conv, buf[..., lo:lo + conv.cout], slope=SLOPE)
+            self._k(buf, conv, channel_slice(buf, lo, lo + conv.cout), slope=SLOPE)
             lo += conv.cout
-        self._k(buf, convs[4], out, res=buf[..., :out.shape[-1]], res_scale=RES, res2=x0, res2_scale=RES)
+        self._k(buf, convs[4], out, res=channel_slice(buf, 0, channels(out)), res_scale=RES, res2=x0,
+                res2_scale=RES)
 
     def body(self, f0: torch.Tensor) -> torch.Tensor:
         """The RRDBs on `f0` [N, h, w, num_feat] (NHWC), ``x + 0.2·RDB3(RDB2(RDB1(x)))``
-        each, over three growth buffers; returns the first channels of the
-        one that holds the result."""
+        each, over three blocked growth buffers; returns the first channels
+        of the one that holds the result (blocked)."""
         n, h, w, c = f0.shape
         width = c + sum(conv.cout for conv in self.rrdbs[0][0][:4]) if self.rrdbs else c
-        a, b, cc = (torch.empty((n, h, w, width), dtype=f0.dtype, device=f0.device) for _ in range(3))
-        x0 = a[..., :c]
-        x0.copy_(f0)
+        a, b, cc = (blocked(n, h, w, width, f0.dtype, f0.device) for _ in range(3))
+        x0 = to_blocked(f0, out=channel_slice(a, 0, c))
         for i, rdbs in enumerate(self.rrdbs):
             with span("nu.models.rrdb.rrdb", index=i):
-                self.rdb(a, rdbs[0], b[..., :c])
-                self.rdb(b, rdbs[1], cc[..., :c])
+                self.rdb(a, rdbs[0], channel_slice(b, 0, c))
+                self.rdb(b, rdbs[1], channel_slice(cc, 0, c))
                 self.rdb(cc, rdbs[2], x0, x0)
         return x0
 
     def up(self, f: torch.Tensor, conv: Conv) -> torch.Tensor:
-        """``lr(c(nearest×2(f)))`` on NHWC `f`."""
-        u = _nhwc(F.interpolate(_nchw(f), scale_factor=2, mode="nearest"))
-        return self._k(u, conv, torch.empty(u.shape, dtype=u.dtype, device=u.device), slope=SLOPE)
+        """``lr(c(nearest×2(f)))`` on blocked `f`, blocked."""
+        u = upsample2x(f)
+        n, h, w, c = (*u.shape[:3], channels(u))
+        return self._k(u, conv, blocked(n, h, w, c, u.dtype, u.device), slope=SLOPE)
 
     # -- the frame ----------------------------------------------------------
 
@@ -290,7 +300,7 @@ class RRDBServing:
         with span("nu.models.rrdb.body"):
             trunk = self.body(f0)
             with span("nu.models.rrdb.conv_body"):
-                f = self._k(trunk, self.conv_body, torch.empty_like(f0), res=f0)
+                f = self._k(trunk, self.conv_body, blocked(*f0.shape, f0.dtype, f0.device), res=f0)
             del trunk, f0  # the growth buffers go before the 4K stages
         with span("nu.models.rrdb.upsample"):
             with span("nu.models.rrdb.up1"):
@@ -298,7 +308,9 @@ class RRDBServing:
             with span("nu.models.rrdb.up2"):
                 f = self.up(f, self.up2)
             with span("nu.models.rrdb.hr"):
-                f = self._k(f, self.hr, torch.empty_like(f), slope=SLOPE)
+                n, h, w, c = (*f.shape[:3], channels(f))
+                f = self._k(f, self.hr, torch.empty((n, h, w, c), dtype=f.dtype, device=f.device),
+                            slope=SLOPE)
             with span("nu.models.rrdb.last"):
                 return self._c(_nchw(f), self.last)
 

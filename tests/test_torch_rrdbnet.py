@@ -180,9 +180,17 @@ def test_other_sizes(model, frame):
     assert other.shape == (40, 60, 4)
 
 
-def test_spans_and_counters(model, frame):
+def test_spans_and_counters(model, frame, monkeypatch):
     serving = rrdbnet.RRDBServing(model, H, W, 2 * H, 2 * W, CPU, torch.float32)
     rrdbnet.reset_launches()
+    layouts = []  # each rrdb_conv call's src, as the kernel would read it
+    conv = rrdbnet.rrdb_conv
+
+    def counted(src, *args, **kwargs):
+        layouts.append("blocked" if src.dim() == 5 else "nhwc")
+        return conv(src, *args, **kwargs)
+
+    monkeypatch.setattr(rrdbnet, "rrdb_conv", counted)
     tracing.enable()
     try:
         serving(frame[None])
@@ -194,8 +202,10 @@ def test_spans_and_counters(model, frame):
     assert names == {"nu.models.rrdb"} | {f"nu.models.rrdb.{s}" for s in stages}
     assert sorted(s["index"] for s in spans if s["name"] == "nu.models.rrdb.rrdb") == list(range(23))
     # 69 RDBs of 5 convs, conv_body and the three upsampling convs on the
-    # growth-buffer kernel's wrapper; conv_first and conv_last on F.conv2d
+    # growth-buffer kernel's wrapper, every one on a blocked input; conv_first
+    # and conv_last on F.conv2d
     assert rrdbnet.launches == {"rrdb_conv": 69 * 5 + 1 + 3, "conv": 2}
+    assert layouts == ["blocked"] * (69 * 5 + 1 + 3)
     rrdbnet.reset_launches()
     assert rrdbnet.launches == {"rrdb_conv": 0, "conv": 0}
 

@@ -15,8 +15,9 @@ Phases (each prints JSON lines, the last line of all a summary):
   concatenation on cuDNN served before the kernel, `CatForm`), the median of 20 CUDA-event timings
   after 3 warm-ups; then each conv the kernel runs (the RDB's five, the
   RRDB's conv5, `conv_body`, the upsampling convs at 1080p and 4K): the
-  kernel, its plain version and `F.conv2d` (the library yardstick, with and
-  without its LeakyReLU pass) beside the conv's bound, and the kernel's
+  kernel on its operands as served (channel-blocked), its plain version
+  and `F.conv2d` (the library yardstick, with and without its LeakyReLU
+  pass) beside the conv's bound, and the kernel's
   registers and spills as ptxas printed them;
 - ``frames``: the whole serving graph (u8 RGBA in, u8 RGBA out) in each
   form, the median of 8 frames, the memory peak, the bytes concatenated
@@ -220,11 +221,15 @@ def forms(cfg: dict, dev) -> None:
     x0 = torch.randn(1, h, w, 64, generator=g, device=dev).to(torch.float16)
     s = rrdbnet.RRDBServing(model, 2, 2, 4, 4, dev)
     convs = s.rrdbs[0][0]
-    buf, nxt = (torch.zeros(1, h, w, 192, device=dev, dtype=torch.float16) for _ in range(2))
-    buf[..., :64].copy_(x0)
+    buf, nxt = (rc.blocked(1, h, w, 192, torch.float16, dev).zero_() for _ in range(2))
+    rc.to_blocked(x0, out=rc.channel_slice(buf, 0, 64))
+
+    def blocked_randn(hh, ww):
+        return rc.to_blocked(torch.randn(1, hh, ww, 64, generator=g, device=dev).to(torch.float16))
+
     cat = CatForm(s)
     x_cl = x0.permute(0, 3, 1, 2)
-    for form, run in (("kernel", lambda: s.rdb(buf, convs, nxt[..., :64])),
+    for form, run in (("kernel", lambda: s.rdb(buf, convs, rc.channel_slice(nxt, 0, 64))),
                       ("cat", lambda: cat.rdb(x_cl, cat.rrdbs[0][0]))):
         emit(phase="forms", form=form, rdb_ms=time_ms(run))
     if "rrdb_conv" not in _build.BUILD_LOGS:  # built by another process: build again for ptxas's report
@@ -233,9 +238,12 @@ def forms(cfg: dict, dev) -> None:
                                if "registers" in ln or "spill" in ln])
 
     def one(name, conv, src, out, hw, extra, **epi):
+        """The conv on its operands as served: blocked, but conv_body's
+        residual f0 and conv_hr's output NHWC."""
         positions = hw[0] * hw[1]
         cin, cout = conv.cin, conv.cout
-        xin = src[..., :cin].permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        xin = rc.to_nhwc(rc.channel_slice(src, 0, cin)).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
         wt, b = CatForm.nchw(conv)
         lib = time_ms(lambda: F.conv2d(xin, wt, b, padding=1))
         lib_lrelu = time_ms(lambda: F.leaky_relu(F.conv2d(xin, wt, b, padding=1), SLOPE, inplace=True))
@@ -246,17 +254,19 @@ def forms(cfg: dict, dev) -> None:
              bound_ms=bound_ms(cin, cout, positions, extra))
 
     for k, conv in enumerate(convs[:4]):
-        one(f"conv{k + 1}", conv, buf, buf[..., 64 + 32 * k:96 + 32 * k], (h, w), 0, slope=SLOPE)
-    one("conv5", convs[4], buf, nxt[..., :64], (h, w), 0, res=buf[..., :64], res_scale=RES)
-    one("conv5_rrdb", convs[4], buf, nxt[..., :64], (h, w), 1, res=buf[..., :64], res_scale=RES,
-        res2=nxt[..., :64], res2_scale=RES)
-    f = torch.randn(1, h, w, 64, generator=g, device=dev).to(torch.float16)
-    one("conv_body", s.conv_body, f, torch.empty_like(f), (h, w), 1, res=x0)
+        one(f"conv{k + 1}", conv, buf, rc.channel_slice(buf, 64 + 32 * k, 96 + 32 * k), (h, w), 0, slope=SLOPE)
+    x, y = rc.channel_slice(buf, 0, 64), rc.channel_slice(nxt, 0, 64)
+    one("conv5", convs[4], buf, y, (h, w), 0, res=x, res_scale=RES)
+    one("conv5_rrdb", convs[4], buf, y, (h, w), 1, res=x, res_scale=RES, res2=y, res2_scale=RES)
+    f = blocked_randn(h, w)
+    one("conv_body", s.conv_body, f, rc.blocked(1, h, w, 64, torch.float16, dev), (h, w), 1, res=x0)
     for name, (uh, uw) in (("conv_up1", (2 * h, 2 * w)), ("conv_up2", (4 * h, 4 * w)), ("conv_hr", (4 * h, 4 * w))):
-        u = torch.randn(1, uh, uw, 64, generator=g, device=dev).to(torch.float16)
-        one(name, getattr(s, {"conv_up1": "up1", "conv_up2": "up2", "conv_hr": "hr"}[name]), u,
-            torch.empty_like(u), (uh, uw), 0, slope=SLOPE)
-        del u
+        u = blocked_randn(uh, uw)
+        out = (torch.empty(1, uh, uw, 64, dtype=torch.float16, device=dev) if name == "conv_hr"
+               else rc.blocked(1, uh, uw, 64, torch.float16, dev))
+        one(name, getattr(s, {"conv_up1": "up1", "conv_up2": "up2", "conv_hr": "hr"}[name]), u, out, (uh, uw), 0,
+            slope=SLOPE)
+        del u, out
 
 
 def frames_phase(cfg: dict, dev) -> None:
